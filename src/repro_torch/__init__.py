@@ -1,0 +1,36 @@
+"""PyTorch / CUDA port of the ConvCoTM serving path, for NVIDIA Hopper.
+
+A second package beside ``repro`` (the JAX reference).  It imports
+``torch`` and numpy only: never ``jax`` and nothing of ``repro``; the
+tests hold it bit for bit against the reference.  Layout follows the
+reference package module by module (``core/``, ``kernels/``,
+``serve/``, ``launch/``); the two TPU kernels of the raw-pixel serving
+path are CUDA C++ kernels under ``csrc/``.
+
+Entry points run on the CUDA card unless the caller passes
+``device="cpu"`` (see :func:`resolve_device`); with no device given and
+no card present they raise instead of quietly running on the CPU.
+"""
+
+from __future__ import annotations
+
+import torch
+
+__all__ = ["resolve_device"]
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: ``device`` when given, else the
+    current CUDA card.  Raises when no device is given and CUDA is absent,
+    so a run never drops to the CPU unasked."""
+    if device is not None:
+        dev = torch.device(device)
+        if dev.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(f"device {dev} requested but CUDA is not available")
+        return dev
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device available; pass device='cpu' to run the plain "
+            "PyTorch versions on the CPU"
+        )
+    return torch.device("cuda", torch.cuda.current_device())
