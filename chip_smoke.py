@@ -7,22 +7,37 @@ Run from the root of a checkout (it imports ``src/repro_torch`` beside
 this file and builds the CUDA kernels from ``src/repro_torch/csrc``).
 
   1. environment: the card's name and power limit (``nvidia-smi``), the
-     torch and CUDA versions, and the kernels' build time;
+     torch and CUDA versions, and the kernels' build time (one ``nvcc``
+     per source, all started together);
   2. each CUDA kernel against its plain PyTorch version on the card,
      ``torch.equal`` after a synchronise (every output is an integer):
-     the ingress kernel over four geometries, the fused kernel over the
-     reference's kernel sweep with CSRF on and off, both density
-     extremes, a saturating pool and the envelope corner;
-  3. the main path: ``ServingEngine.register`` -> ``classify`` of the
-     ``convcotm-mnist`` configuration (full width, boundary-initialised
-     weights from a seed) on the ``fused`` path, requests of 1, 3, 64,
-     256 and 300 images; launch counters set to 0 just before and read
-     just after; results equal to the engine's ``dense`` path on the card
-     and to the plain composition on the CPU;
+     the ingress kernel over four geometries; the fused, clause-eval,
+     sparse clause-eval and sparse fused kernels over the reference's
+     kernel sweep with CSRF on and off, both density extremes, a
+     saturating pool and the envelope corner; the sparse kernels also at
+     C_a of 0, 1 and 37 and on ``analyze_sparsity(pad_to=...)`` images;
+     the class-sum kernel at (B, C, M) = (256, 128, 10), (3, 70, 10) and
+     (2, 1024, 64);
+  3. the main paths: ``ServingEngine.register`` -> ``classify`` of the
+     ``convcotm-mnist`` configuration (full width, seeded weights) with
+     requests of 1, 3, 64, 256 and 300 images.  First the ``fused`` path
+     on a boundary-initialised pool; then the ``kernel``, ``sparse``,
+     ``fused_sparse`` and ``matmul_sparse`` paths on three pools
+     (boundary, few includes with ~40% of clauses empty, all empty).
+     Launch counters are set to 0 just before each of the two drives and
+     read just after; results equal the engine's ``dense`` path on the
+     card and the plain composition on the CPU.  No path calls the
+     class-sum kernel: in a window of its own it sums the clause-eval
+     kernel's fired bits of the same requests, which must equal the
+     ``kernel`` path's class sums;
   4. times at bucket 256 with CUDA events (median of repeats after
-     warm-up): each kernel and its plain version beside the least time
-     the card could take, classify throughput at bucket 256 and latency
-     at bucket 1; then one ``{"kernels": [...]}`` line.
+     warm-up; a spin kernel holds the card while the host enqueues each
+     window, so the times are the card's): each kernel and its plain
+     version beside the least time
+     the card could take (and, for the class sums, one ``torch.matmul``),
+     classify throughput at bucket 256 and latency at bucket 1 on
+     ``fused`` and ``fused_sparse``, a profile of each; then one
+     ``{"kernels": [...]}`` line.
 
 The last line is ``{"ok": true, "device": {...}}``.  Any failed phase
 raises and exits non-zero, as does a run without CUDA or outside the
@@ -43,6 +58,11 @@ SEED = 0
 #: 32-bit rate outside the tensor cores, used as the integer-op ceiling.
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 67e12
+#: Longest spin before a timed window, in clock cycles (~34 ms at 2 GHz).
+MAX_HOLD_CYCLES = 1 << 26
+#: The eval paths of the second drive, and the kernels of the first.
+SLICE2_PATHS = ("kernel", "sparse", "fused_sparse", "matmul_sparse")
+SLICE1_KERNELS = ("ingress_pack", "fused_infer")
 
 
 class SmokeFailure(RuntimeError):
@@ -61,25 +81,38 @@ def card_line() -> str:
     ).stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, *, inner: int, repeats: int = 11, warmup: int = 3) -> float:
-    """Median milliseconds per call of ``fn`` on the card: ``repeats``
-    windows of ``inner`` back-to-back calls between two CUDA events."""
+def time_ms(fn, *, inner: int, repeats: int = 11, warmup: int = 3) -> tuple[float, bool]:
+    """Median device milliseconds per call of ``fn``: ``repeats`` windows
+    of ``inner`` back-to-back calls between two CUDA events.  A spin
+    kernel (``torch.cuda._sleep``) holds the card before each window while
+    the host enqueues it, so a window times the card's work and not the
+    host's launch rate; the hold doubles until the start event is still
+    pending when the host has enqueued the whole window.  Returns
+    ``(ms, held)``; ``held`` is False when even the longest hold did not
+    cover the host (a call that waits on the card, such as a copy from
+    pageable memory), and the time then includes the host's gaps."""
     import torch
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    samples = []
-    for _ in range(repeats):
+    cycles, held_all, samples = 1 << 20, True, []
+    while len(samples) < repeats:
         start = torch.cuda.Event(enable_timing=True)
         stop = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
         start.record()
         for _ in range(inner):
             fn()
         stop.record()
+        held = not start.query()
         stop.synchronize()
-        samples.append(start.elapsed_time(stop) / inner)
-    return statistics.median(samples)
+        if held or cycles >= MAX_HOLD_CYCLES:
+            samples.append(start.elapsed_time(stop) / inner)
+            held_all &= held
+        else:
+            cycles *= 2
+    return statistics.median(samples), held_all
 
 
 def bound(nbytes: float, ops: float) -> tuple[float, str]:
@@ -91,7 +124,9 @@ def bound(nbytes: float, ops: float) -> tuple[float, str]:
 def fused_word_tests(lit, inc, ne) -> int:
     """Word tests these inputs need: for each image and nonempty clause, on
     every patch up to its first firing patch, the words up to and
-    including the first violated one (all W on the patch that fires)."""
+    including the first violated one (all W on the patch that fires).
+    The active pool's test ``~(lit | exclude)`` is this one with
+    ``inc = ~exclude`` and every clause nonempty."""
     import torch
 
     from repro_torch.core.clauses import patch_chunk
@@ -149,6 +184,27 @@ def profile_classify(engine, arch: str, imgs, reps: int, label: str) -> None:
               f"x{e.count // reps:<3d} {e.key[:80]}")
 
 
+def classify_times(engine, name: str, imgs256, img1) -> str:
+    """Throughput of 50 bucket-256 requests and latency of 200 bucket-1
+    requests on the host clock, as one printable summary."""
+    engine.classify(name, imgs256)
+    n_iter = 50
+    t = time.perf_counter()
+    for _ in range(n_iter):
+        engine.classify(name, imgs256)
+    dt = time.perf_counter() - t
+    lat = []
+    for _ in range(200):
+        t = time.perf_counter()
+        engine.classify(name, img1)
+        lat.append(time.perf_counter() - t)
+    lat.sort()
+    return (f"bucket 256: {256 * n_iter / dt:.1f} cls/s ({dt / n_iter * 1e3:.4f} ms per "
+            f"request, {n_iter} requests); bucket 1: median "
+            f"{statistics.median(lat) * 1e6:.1f} us, p90 {lat[int(0.9 * len(lat))] * 1e6:.1f} "
+            f"us over {len(lat)} requests")
+
+
 def main() -> int:
     import torch
 
@@ -168,10 +224,12 @@ def main() -> int:
     from repro_torch.configs.convcotm import BOOLEANIZE_METHOD, COTM_CONFIGS
     from repro_torch.core.booleanize import threshold_booleanize
     from repro_torch.core.cotm import init_boundary_model
+    from repro_torch.core.ingress import apply_ingress
     from repro_torch.core.patches import PatchSpec, pack_bits
     from repro_torch.kernels import _build, ops, registry
     from repro_torch.serve.engine import ServingEngine
-    from repro_torch.serve.servable import freeze
+    from repro_torch.serve.paths import get_path
+    from repro_torch.serve.servable import analyze_sparsity, freeze
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
@@ -189,6 +247,33 @@ def main() -> int:
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"[ptxas] {name}: {line.strip()}")
+
+    # The model pools of the main paths (convcotm-mnist at full width).
+    arch = "convcotm-mnist"
+    cfg = COTM_CONFIGS[arch]
+    method = BOOLEANIZE_METHOD[arch]
+    model = init_boundary_model(torch.Generator().manual_seed(SEED), cfg)
+    # A boundary model includes about half its literals, so no clause fires
+    # on any image and every class sum is 0.  A pool with a few includes per
+    # clause, as trained pools have, fires.  From it, a seeded ~40% of the
+    # clauses are emptied, so the active pool is smaller than C and not a
+    # multiple of 32; and an all-empty pool, whose class sums are all 0.
+    g = torch.Generator().manual_seed(SEED + 1)
+    few = torch.rand(tuple(model.ta_state.shape), generator=g) < 3.0 / cfg.n_literals
+    few_model = type(model)(
+        ta_state=torch.where(few, 133, 123).to(torch.uint8), weights=model.weights.clone())
+    ta40 = few_model.ta_state.clone()
+    ta40[:, 0] = 133                                     # every clause nonempty ...
+    ta40[torch.rand(cfg.n_clauses, generator=g) < 0.4] = 0   # ... then ~40% empty
+    few40_model = type(model)(ta_state=ta40, weights=model.weights.clone())
+    empty_model = type(model)(ta_state=torch.zeros_like(ta40), weights=model.weights.clone())
+    pools = {"boundary": model, "few40": few40_model, "empty": empty_model}
+    n_active = {k: int(freeze(m, cfg).nonempty.sum()) for k, m in pools.items()}
+    print(f"[pools] active clauses C_a of C={cfg.n_clauses}: {n_active}")
+    check(n_active["boundary"] == cfg.n_clauses, "boundary pool has an empty clause")
+    check(0 < n_active["few40"] < cfg.n_clauses and n_active["few40"] % 32,
+          f"few-include pool: C_a={n_active['few40']} is not a non-multiple of 32 below C")
+    check(n_active["empty"] == 0, "all-empty pool has an active clause")
 
     # --- 2. kernels against their plain versions ----------------------------
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -226,6 +311,20 @@ def main() -> int:
         w = torch.randint(-127, 128, (m, c), generator=gen, device=dev, dtype=torch.int32)
         return lits, pack_bits(inc), ne, w
 
+    def active(inc_packed, ne, w):
+        """The active pool as analyze_sparsity cuts it: exclude words of the
+        nonempty clauses, and their weight columns."""
+        idx = torch.nonzero(ne).flatten()
+        return ~inc_packed[idx], w[:, idx]
+
+    def equal_both_csrf(name, fn, args):
+        want = fn(*args, backend="plain")
+        for csrf in (True, False):
+            got = fn(*args, csrf=csrf)
+            torch.cuda.synchronize()
+            check(got.dtype == want.dtype and torch.equal(got, want),
+                  f"{fn.__name__} differs from plain: {name} csrf={csrf}")
+
     fused_cases = {f"{b}x{p}x{c}x{n}": (b, p, c, n, {}) for b, p, c, n in
                    [(4, 361, 128, 272), (1, 9, 16, 16), (3, 50, 70, 100),
                     (8, 64, 256, 512), (2, 361, 1000, 272)]}
@@ -234,19 +333,50 @@ def main() -> int:
     fused_cases["saturating"] = (4, 361, 300, 272, dict(include_p=0.002, lit_p=1.0))
     fused_cases["envelope"] = (2, 2048, 1024, 8192, dict(m=64))
     for name, (b, p, c, n, kw) in fused_cases.items():
-        args = fused_inputs(b, p, c, n, **kw)
-        want = ops.fused_infer(*args, backend="plain")
-        for csrf in (True, False):
-            got = ops.fused_infer(*args, csrf=csrf)
-            torch.cuda.synchronize()
-            check(torch.equal(got, want), f"fused_infer differs from plain: {name} csrf={csrf}")
-        print(f"[kernel] fused_infer == plain: {name} (csrf on, off)")
+        lits, incp, ne, w = fused_inputs(b, p, c, n, **kw)
+        exc, wa = active(incp, ne, w)
+        equal_both_csrf(name, ops.fused_infer, (lits, incp, ne, w))
+        equal_both_csrf(name, ops.clause_eval, (lits, incp, ne))
+        equal_both_csrf(name, ops.clause_eval_sparse, (lits, exc))
+        equal_both_csrf(name, ops.fused_infer_sparse, (lits, exc, wa))
+        print(f"[kernel] fused_infer, clause_eval, clause_eval_sparse, fused_infer_sparse "
+              f"== plain: {name} (C_a={exc.shape[0]}; csrf on, off)")
 
-    # --- 3. the main path: the engine on convcotm-mnist ----------------------
-    arch = "convcotm-mnist"
-    cfg = COTM_CONFIGS[arch]
-    method = BOOLEANIZE_METHOD[arch]
-    model = init_boundary_model(torch.Generator().manual_seed(SEED), cfg)
+    # The active pool at C_a = 0, 1 and 37 (paper geometry, few includes),
+    # and analyze_sparsity images padded with synthetic rows.
+    lits, incp, ne, w = fused_inputs(4, 361, 128, 272, include_p=3.0 / 272)
+    exc, wa = active(incp, ne, w)
+    for c_a in (0, 1, 37):
+        args = (lits, exc[:c_a].contiguous(), wa[:, :c_a].contiguous())
+        equal_both_csrf(f"C_a={c_a}", ops.clause_eval_sparse, args[:2])
+        equal_both_csrf(f"C_a={c_a}", ops.fused_infer_sparse, args)
+    sm40 = freeze(few40_model, cfg)
+    lits = ops.ingress_pack(rand_bits((64, 28, 28), 0.3), cfg.patch)
+    pads = ("pow2", n_active["few40"] + 3)
+    for pad_to in pads:
+        sp = analyze_sparsity(sm40, pad_to=pad_to).sparsity.to(dev)
+        args = (lits, sp.exclude_packed, sp.weights)
+        equal_both_csrf(f"pad_to={pad_to}", ops.clause_eval_sparse, args[:2])
+        equal_both_csrf(f"pad_to={pad_to}", ops.fused_infer_sparse, args)
+        check(bool(ops.clause_eval_sparse(*args[:2])[:, n_active["few40"]:].all()),
+              "a synthetic pad row did not fire")
+    print(f"[kernel] clause_eval_sparse, fused_infer_sparse == plain: C_a = 0, 1, 37; "
+          f"analyze_sparsity of C_a={n_active['few40']} with pad_to {list(pads)} "
+          f"(csrf on, off)")
+
+    for b, c, m in ((256, 128, 10), (3, 70, 10), (2, 1024, 64)):
+        fired = rand_bits((b, c), 0.5)
+        w = torch.randint(-127, 128, (m, c), generator=gen, device=dev, dtype=torch.int32)
+        want = ops.class_sum(fired, w, backend="plain")
+        for f in (fired, fired.to(torch.bool)):
+            got = ops.class_sum(f, w)
+            torch.cuda.synchronize()
+            check(got.dtype == torch.int32 and torch.equal(got, want),
+                  f"class_sum differs from plain: B={b} C={c} M={m} fired {f.dtype}")
+    print("[kernel] class_sum == plain: (B,C,M) = (256,128,10), (3,70,10), (2,1024,64) "
+          "(uint8 and bool fired)")
+
+    # --- 3a. main path of slice 1: the engine on the fused path --------------
     engine = ServingEngine(max_batch=256)
     engine.register(arch, model, cfg, booleanize_method=method, path="fused")
     engine.register(f"{arch}/dense", model, cfg, booleanize_method=method, path="dense")
@@ -260,8 +390,8 @@ def main() -> int:
     fused = [engine.classify(arch, r) for r in requests]
     launches = registry.launch_counts()
     print(f"[engine] launches during classify on the fused path: {launches}")
-    for name, count in launches.items():
-        check(count > 0, f"kernel {name} was not launched on the main path")
+    for name in SLICE1_KERNELS:
+        check(launches[name] > 0, f"kernel {name} was not launched on the fused path")
 
     cpu = ServingEngine(max_batch=256, device="cpu")
     cpu.register(arch, model, cfg, booleanize_method=method, path="fused")
@@ -284,16 +414,9 @@ def main() -> int:
         print(f"[engine] request of {n}: fused == dense (card) == plain (CPU); "
               f"bucket {res.bucket}; classes seen {sorted(set(res.predictions.tolist()))}")
 
-    # A boundary model includes about half its literals, so no clause fires
-    # on any image and every class sum is 0.  A pool with a few includes per
-    # clause, as trained pools have, fires: check that nonzero sums agree too.
-    g = torch.Generator().manual_seed(SEED + 1)
-    few = torch.rand(tuple(model.ta_state.shape), generator=g) < 3.0 / cfg.n_literals
-    sparse_model = type(model)(
-        ta_state=torch.where(few, 133, 123).to(torch.uint8), weights=model.weights.clone())
     for label, path, eng in (("fused", "fused", engine), ("dense", "dense", engine),
                              ("cpu", "fused", cpu)):
-        eng.register(f"{arch}/few/{label}", sparse_model, cfg, booleanize_method=method,
+        eng.register(f"{arch}/few/{label}", few_model, cfg, booleanize_method=method,
                      path=path)
     for n, r in zip(sizes, requests):
         res = engine.classify(f"{arch}/few/fused", r)
@@ -306,6 +429,70 @@ def main() -> int:
     print(f"[engine] few-include pool ({int(few.sum())} includes): fused == dense (card) "
           f"== plain (CPU), nonzero class sums, on requests of {list(sizes)}")
 
+    # --- 3b. main paths of slice 2: kernel and the clause-sparsity paths -----
+    placed = {}
+    for pool, m in pools.items():
+        for path in SLICE2_PATHS + ("dense",):
+            placed[pool, path] = engine.register(f"{arch}/{pool}/{path}", m, cfg,
+                                                 booleanize_method=method, path=path)
+            check(engine.resolved_path(f"{arch}/{pool}/{path}") == path,
+                  f"{pool}/{path} resolves to {engine.resolved_path(f'{arch}/{pool}/{path}')}")
+        for path in SLICE2_PATHS:
+            cpu.register(f"{arch}/{pool}/{path}", m, cfg, booleanize_method=method, path=path)
+    spec_packed = get_path("kernel").ingress_spec(cfg.patch, method=method)
+    on_card = [torch.from_numpy(r).to(dev) for r in requests]
+    torch.cuda.synchronize()
+
+    registry.reset_launches()
+    served = {(pool, path, i): engine.classify(f"{arch}/{pool}/{path}", r)
+              for pool in pools for i, r in enumerate(requests) for path in SLICE2_PATHS}
+    launches2 = registry.launch_counts()
+    print(f"[engine] launches during classify on {list(SLICE2_PATHS)}: {launches2}")
+    for name in ("ingress_pack", "clause_eval", "clause_eval_sparse", "fused_infer_sparse"):
+        check(launches2[name] > 0, f"kernel {name} was not launched on the slice-2 paths")
+    check(launches2["class_sum"] == 0 and launches2["fused_infer"] == 0,
+          "a slice-2 path launched class_sum or the dense fused kernel")
+
+    # No path calls class_sum (the JAX package has none): it is driven on
+    # the fired bits that clause_eval gives for the same requests, in a
+    # window of its own, and must equal the kernel path's class sums.
+    registry.reset_launches()
+    summed = {}
+    for pool in pools:
+        sm = placed[pool, "kernel"]
+        for i in range(len(requests)):
+            fired = ops.clause_eval(apply_ingress(spec_packed, on_card[i]),
+                                    sm.include_packed, sm.nonempty)
+            summed[pool, i] = ops.class_sum(fired, sm.weights).cpu().numpy()
+    launches3 = registry.launch_counts()
+    print(f"[engine] launches of class_sum over clause_eval's fired bits: {launches3}")
+    check(launches3["class_sum"] > 0, "kernel class_sum was not launched")
+
+    for pool in pools:
+        for i, (n, r) in enumerate(zip(sizes, requests)):
+            dense = engine.classify(f"{arch}/{pool}/dense", r)
+            check(np.array_equal(summed[pool, i], served[pool, "kernel", i].class_sums),
+                  f"{pool}, request of {n}: class_sum over clause_eval differs from the "
+                  f"kernel path")
+            for path in SLICE2_PATHS:
+                res = served[pool, path, i]
+                check(res.class_sums.shape == (n, cfg.n_classes)
+                      and res.class_sums.dtype == np.int32, f"{pool}/{path}: bad result")
+                plain = cpu.classify(f"{arch}/{pool}/{path}", r)
+                for other, label in ((dense, "dense path on the card"),
+                                     (plain, "plain composition on the CPU")):
+                    check(np.array_equal(res.predictions, other.predictions)
+                          and np.array_equal(res.class_sums, other.class_sums),
+                          f"{pool}, request of {n}: {path} differs from the {label}")
+            sums = served[pool, "kernel", i].class_sums
+            if pool == "empty":
+                check(not sums.any(), "all-empty pool: a class sum is not 0")
+            if pool == "few40":
+                check(bool(sums.any()), "few-include pool: every class sum is 0")
+        print(f"[engine] {pool} pool (C_a={n_active[pool]}): {', '.join(SLICE2_PATHS)} "
+              f"== dense (card) == plain (CPU), and class_sum(clause_eval) == kernel path, "
+              f"on requests of {list(sizes)}")
+
     # --- 4. times at bucket 256 ----------------------------------------------
     b = 256
     spec = cfg.patch
@@ -314,65 +501,118 @@ def main() -> int:
     bool_imgs = threshold_booleanize(raw, 75)
     lits = ops.ingress_pack(bool_imgs, spec)
     fargs = (lits, sm.include_packed, sm.nonempty, sm.weights)
+    # The new kernels are timed on the few-include pool with ~40% empty
+    # clauses (a boundary pool never fires, so its clause tests never stop
+    # early); class sums over that pool's fired bits.
+    s40 = placed["few40", "kernel"]
+    sp40 = placed["few40", "fused_sparse"].sparsity
+    c_a = sp40.n_active
+    cargs = (lits, s40.include_packed, s40.nonempty)
+    sargs = (lits, sp40.exclude_packed)
+    fsargs = (lits, sp40.exclude_packed, sp40.weights)
+    fired40 = ops.clause_eval(*cargs)
+    csargs = (fired40, s40.weights)
+    fired_f = fired40.to(torch.float32)                  # library inputs, made once
+    weights_ft = s40.weights.to(torch.float32).t().contiguous()
     torch.cuda.synchronize()
 
     errs = {
-        "ingress_pack": (ops.ingress_pack(bool_imgs, spec).long()
-                         - ops.ingress_pack(bool_imgs, spec, backend="plain").long()),
-        "fused_infer": (ops.fused_infer(*fargs).long()
-                        - ops.fused_infer(*fargs, backend="plain").long()),
+        "ingress_pack": (ops.ingress_pack(bool_imgs, spec),
+                         ops.ingress_pack(bool_imgs, spec, backend="plain")),
+        "fused_infer": (ops.fused_infer(*fargs), ops.fused_infer(*fargs, backend="plain")),
+        "fused_infer_sparse": (ops.fused_infer_sparse(*fsargs),
+                               ops.fused_infer_sparse(*fsargs, backend="plain")),
+        "clause_eval": (ops.clause_eval(*cargs), ops.clause_eval(*cargs, backend="plain")),
+        "clause_eval_sparse": (ops.clause_eval_sparse(*sargs),
+                               ops.clause_eval_sparse(*sargs, backend="plain")),
+        "class_sum": (ops.class_sum(*csargs), ops.class_sum(*csargs, backend="plain")),
     }
-    max_abs = {k: int(v.abs().max()) for k, v in errs.items()}
+    max_abs = {k: int((got.long() - want.long()).abs().max())
+               for k, (got, want) in errs.items()}
     check(all(v == 0 for v in max_abs.values()), f"kernel/plain differ at B=256: {max_abs}")
+    check(torch.equal(torch.matmul(fired_f, weights_ft).to(torch.int32), errs["class_sum"][0]),
+          "torch.matmul class sums differ from the class_sum kernel")
 
     p, w, c, m = spec.n_patches, spec.n_words, cfg.n_clauses, cfg.n_classes
-    ingress_bytes = b * spec.image_y * spec.image_x + b * p * w * 4
-    ingress_ops = b * p * spec.n_literals              # one operation per literal bit
-    fused_bytes = b * p * w * 4 + c * w * 4 + c + m * c + b * m * 4
-    fused_ops = 2 * fused_word_tests(*fargs[:3])       # AND-NOT and test per word
+    lit_bytes = b * p * w * 4
+    every_active = torch.ones(c_a, dtype=torch.bool, device=dev)
+    sparse_tests = fused_word_tests(lits, ~sp40.exclude_packed, every_active)
+    cost = {   # (bytes each input read once and each output written once, operations)
+        "ingress_pack": (b * spec.image_y * spec.image_x + lit_bytes,
+                         b * p * spec.n_literals),      # one operation per literal bit
+        "fused_infer": (lit_bytes + c * w * 4 + c + m * c + b * m * 4,
+                        2 * fused_word_tests(*fargs[:3])),   # AND-NOT and test per word
+        "fused_infer_sparse": (lit_bytes + c_a * w * 4 + m * c_a + b * m * 4,
+                               2 * sparse_tests),       # OR-NOT and test per word
+        "clause_eval": (lit_bytes + c * w * 4 + c + b * c,
+                        2 * fused_word_tests(*cargs)),
+        "clause_eval_sparse": (lit_bytes + c_a * w * 4 + b * c_a, 2 * sparse_tests),
+        "class_sum": (b * c + m * c + b * m * 4, 2 * b * m * c),
+    }
+    calls = {
+        "ingress_pack": (lambda: ops.ingress_pack(bool_imgs, spec),
+                         lambda: ops.ingress_pack(bool_imgs, spec, backend="plain")),
+        "fused_infer": (lambda: ops.fused_infer(*fargs),
+                        lambda: ops.fused_infer(*fargs, backend="plain")),
+        "fused_infer_sparse": (lambda: ops.fused_infer_sparse(*fsargs),
+                               lambda: ops.fused_infer_sparse(*fsargs, backend="plain")),
+        "clause_eval": (lambda: ops.clause_eval(*cargs),
+                        lambda: ops.clause_eval(*cargs, backend="plain")),
+        "clause_eval_sparse": (lambda: ops.clause_eval_sparse(*sargs),
+                               lambda: ops.clause_eval_sparse(*sargs, backend="plain")),
+        "class_sum": (lambda: ops.class_sum(*csargs),
+                      lambda: ops.class_sum(*csargs, backend="plain")),
+    }
     rows = []
-    for name, fn, plain_fn, nbytes, nops in (
-        ("ingress_pack",
-         lambda: ops.ingress_pack(bool_imgs, spec),
-         lambda: ops.ingress_pack(bool_imgs, spec, backend="plain"),
-         ingress_bytes, ingress_ops),
-        ("fused_infer",
-         lambda: ops.fused_infer(*fargs),
-         lambda: ops.fused_infer(*fargs, backend="plain"),
-         fused_bytes, fused_ops),
-    ):
+    for name, (fn, plain_fn) in calls.items():
         k = registry.KERNELS[name]
-        ms = time_ms(fn, inner=20)
-        plain_ms = time_ms(plain_fn, inner=3, repeats=5, warmup=1)
+        ms, held = time_ms(fn, inner=20)
+        plain_ms, plain_held = time_ms(plain_fn, inner=3, repeats=5, warmup=1)
+        library_ms, lib_held = (time_ms(lambda: torch.matmul(fired_f, weights_ft), inner=20)
+                                if name == "class_sum" else (None, True))
+        unheld = [k for k, h in (("ms", held), ("plain_ms", plain_held),
+                                 ("library_ms", lib_held)) if not h]
+        nbytes, nops = cost[name]
         bound_ms, bound_by = bound(nbytes, nops)
+        # Launches on the main paths: both serving drives; class_sum, which
+        # no path calls, from its own window.
+        count = (launches3[name] if name == "class_sum"
+                 else launches[name] + launches2[name])
         rows.append({
             "name": name, "route": "cuda", "source": k.source, "replaces": k.replaces,
-            "launches": launches[name], "max_abs_err": max_abs[name],
+            "launches": count, "max_abs_err": max_abs[name],
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": None,
+            "library_ms": library_ms,
+            # The times above that include host gaps (see time_ms).
+            "host_gaps_in": unheld,
         })
-        print(f"[time] {name} B={b}: kernel {ms:.5f} ms, plain {plain_ms:.5f} ms, "
-              f"bound {bound_ms:.5f} ms ({bound_by}: {nbytes} B, {nops} ops)")
+        lib = f", torch.matmul {library_ms:.5f} ms" if library_ms is not None else ""
+        print(f"[time] {name} B={b}: kernel {ms:.5f} ms, plain {plain_ms:.5f} ms{lib}, "
+              f"bound {bound_ms:.5f} ms ({bound_by}: {nbytes} B, {nops} ops)"
+              f"{f'; C_a={c_a}' if 'sparse' in name else ''}"
+              f"{f'; host gaps in {unheld}' if unheld else ''}")
+
+    # How far CSRF can cut the patch loop on this pool: a block's vote ends
+    # it early only on an image where every active clause of the tile fires.
+    live = fired40[:, s40.nonempty.to(torch.bool)]
+    print(f"[csrf] few40 pool, B={b}: {int(live.all(dim=1).sum())} of {b} images fire all "
+          f"{c_a} active clauses; {int((live.sum(dim=0) == 0).sum())} active clauses fire "
+          f"on no image")
+    dense40_ms, _ = time_ms(lambda: ops.fused_infer(lits, s40.include_packed, s40.nonempty,
+                                                    s40.weights), inner=20)
+    print(f"[time] fused_infer B={b} on the few40 pool (C={c}, C_a={c_a}): kernel "
+          f"{dense40_ms:.5f} ms")
 
     imgs256, img1 = requests[3], requests[0]
-    engine.classify(arch, imgs256)
-    n_iter = 50
-    t = time.perf_counter()
-    for _ in range(n_iter):
-        engine.classify(arch, imgs256)
-    dt = time.perf_counter() - t
-    lat = []
-    for _ in range(200):
-        t = time.perf_counter()
-        engine.classify(arch, img1)
-        lat.append(time.perf_counter() - t)
-    lat.sort()
-    print(f"[time] classify bucket 256: {b * n_iter / dt:.1f} cls/s "
-          f"({dt / n_iter * 1e3:.4f} ms per request, {n_iter} requests)")
-    print(f"[time] classify bucket 1: median {statistics.median(lat) * 1e6:.1f} us, "
-          f"p90 {lat[int(0.9 * len(lat))] * 1e6:.1f} us over {len(lat)} requests")
-    for label, imgs, reps in (("bucket 256", imgs256, 20), ("bucket 1", img1, 50)):
-        profile_classify(engine, arch, imgs, reps, label)
+    sparse_name = f"{arch}/boundary/fused_sparse"
+    engine.warmup(sparse_name)
+    for label, name in (("fused", arch), ("fused_sparse", sparse_name),
+                        ("fused_sparse", sparse_name), ("fused", arch)):
+        print(f"[time] classify {label} (boundary pool): "
+              f"{classify_times(engine, name, imgs256, img1)}")
+    for label, name in (("fused", arch), ("fused_sparse", sparse_name)):
+        for blabel, imgs, reps in (("bucket 256", imgs256, 20), ("bucket 1", img1, 50)):
+            profile_classify(engine, name, imgs, reps, f"{label} {blabel}")
     print(f"[env] {card} | build {build_s:.2f} s")
 
     print(json.dumps({"kernels": rows}))

@@ -5,7 +5,8 @@ the image iff it fires on at least one patch (the ASIC's sequential OR)
 and it is nonempty (the ``Empty`` signal, paper Sec. IV-D).
 
 Three equal evaluation paths: dense 0/1 literals, packed int32 words, and
-a float32 matmul of violation counts.  Each walks the patch axis in
+a float32 matmul of violation counts; plus the packed test over the
+active clause pool's exclude words.  Each walks the patch axis in
 chunks so its ``[B, Pc, C, .]`` temporary stays small; the OR over chunks
 is the same OR.
 """
@@ -18,6 +19,7 @@ __all__ = [
     "clause_nonempty",
     "eval_clauses_dense",
     "eval_clauses_bitpacked",
+    "eval_clauses_sparse",
     "eval_clauses_matmul",
     "class_sums",
     "argmax_predict",
@@ -70,6 +72,25 @@ def eval_clauses_bitpacked(
         viol = include_packed[None, None] & ~lit         # [B, Pc, C, W]
         fired |= (viol == 0).all(dim=-1).any(dim=1)
     return (fired & nonempty.to(torch.bool)[None]).to(torch.uint8)
+
+
+def eval_clauses_sparse(lit_packed: torch.Tensor, exclude_packed: torch.Tensor) -> torch.Tensor:
+    """Sequential-OR outputs of the active clauses from int32 words.
+
+    ``lit_packed`` [B, P, W], ``exclude_packed`` [C_a, W] (``~include``,
+    pad bits set) -> uint8 0/1 [B, C_a].  A clause fires on a patch iff
+    ``~(lit | exclude) == 0`` on every word; the active pool has no
+    nonempty mask.
+    """
+    b, p, w = lit_packed.shape
+    c = exclude_packed.shape[0]
+    fired = torch.zeros((b, c), dtype=torch.bool, device=lit_packed.device)
+    step = patch_chunk(b, c, w, p)
+    for p0 in range(0, p, step):
+        lit = lit_packed[:, p0 : p0 + step, None, :]     # [B, Pc, 1, W]
+        miss = ~(lit | exclude_packed[None, None])       # [B, Pc, C_a, W]
+        fired |= (miss == 0).all(dim=-1).any(dim=1)
+    return fired.to(torch.uint8)
 
 
 def eval_clauses_matmul(

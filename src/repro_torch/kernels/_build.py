@@ -1,10 +1,11 @@
 """Build the CUDA sources under ``csrc/`` and load them with ctypes.
 
-Each ``csrc/<name>.cu`` is a plain C interface (no PyTorch headers), so
+Each ``csrc/<name>.cu`` has a plain C interface (no PyTorch headers), so
 ``nvcc`` compiles it in seconds.  It is built for Hopper
 (``sm_90a``) into ``build/lib<name>-<hash>.so`` next to this package,
-where ``<hash>`` covers the source text and the compiler flags: an edited
-source builds anew, an unchanged one loads the library already there.
+where ``<hash>`` covers the source text, the shared headers
+(``csrc/*.cuh``) and the compiler flags: an edited source or header
+builds anew, an unchanged one loads the library already there.
 
 :func:`build_all` starts one ``nvcc`` per source, all at once, and waits
 for them; :func:`library` builds (if needed) and loads one.  Every C entry
@@ -31,7 +32,7 @@ CSRC = _PKG / "csrc"
 BUILD = _PKG / "build"
 
 #: The kernel sources, by library name.
-SOURCES = ("ingress_pack", "fused_infer")
+SOURCES = ("ingress_pack", "fused_infer", "clause_eval", "class_sum")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -58,8 +59,9 @@ def nvcc_path() -> str:
 
 
 def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    # The shared headers count too: an edited header rebuilds every source.
+    text = b"".join(p.read_bytes() for p in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))])
+    digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD / f"lib{name}-{digest}.so"
 
 

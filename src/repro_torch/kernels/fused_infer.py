@@ -1,10 +1,12 @@
-"""Fused clause-eval + class-sum kernel (dense clause pool).
+"""Fused clause-eval + class-sum kernels: the dense and the active clause pool.
 
-Replaces the TPU kernel ``src/repro/kernels/fused_infer.py:fused_infer_pallas``
-with the CUDA kernel ``csrc/fused_infer.cu`` (its source note gives the
-bound and the design).  :func:`fused_infer_cuda` launches it;
-:func:`fused_infer_plain` is the plain PyTorch version, which walks the
-patch axis in chunks so its ``[B, Pc, C, W]`` temporary stays small.
+Replaces the TPU kernels ``src/repro/kernels/fused_infer.py``:
+``fused_infer_pallas`` and ``fused_infer_sparse_pallas``, with the two
+instantiations of the CUDA kernel ``csrc/fused_infer.cu`` (its source note
+gives the bound and the design).  :func:`fused_infer_cuda` and
+:func:`fused_infer_sparse_cuda` launch them; :func:`fused_infer_plain` and
+:func:`fused_infer_sparse_plain` are the plain PyTorch versions, which walk
+the patch axis in chunks so their ``[B, Pc, C, W]`` temporary stays small.
 """
 
 from __future__ import annotations
@@ -16,9 +18,14 @@ import torch
 
 from repro_torch.core import clauses as cl
 from repro_torch.kernels import _build
-from repro_torch.kernels.shapes import clamp_block
+from repro_torch.kernels.shapes import as_uint8, check_cuda, check_words, clamp_block
 
-__all__ = ["fused_infer_cuda", "fused_infer_plain"]
+__all__ = [
+    "fused_infer_cuda",
+    "fused_infer_plain",
+    "fused_infer_sparse_cuda",
+    "fused_infer_sparse_plain",
+]
 
 #: Clauses per CUDA block (one tile of the sequential-OR register).
 BLOCK_C = 128
@@ -35,30 +42,26 @@ def fused_infer_plain(
     return cl.class_sums(fired, weights)
 
 
+def fused_infer_sparse_plain(
+    lit_packed: torch.Tensor, exclude_packed: torch.Tensor, weights_active: torch.Tensor
+) -> torch.Tensor:
+    """int32 ``[B, M]`` class sums over the active clauses, plain PyTorch."""
+    return cl.class_sums(cl.eval_clauses_sparse(lit_packed, exclude_packed), weights_active)
+
+
 @functools.cache
-def _entry():
-    """The C entry point, built and loaded on first use."""
-    fn = _build.library("fused_infer").fused_infer
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+def _entry(name: str):
+    """The C entry point ``name``, built and loaded on first use."""
+    fn = getattr(_build.library("fused_infer"), name)
+    n_ptrs = 5 if name == "fused_infer" else 4
+    fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def _check(lit_packed, include_packed, nonempty, weights) -> None:
-    if lit_packed.dim() != 3 or include_packed.dim() != 2:
-        raise ValueError("lit_packed must be [B, P, W] and include_packed [C, W]")
-    b, p, w = lit_packed.shape
-    c = include_packed.shape[0]
-    if include_packed.shape[1] != w:
-        raise ValueError(f"word counts differ: literals {w}, include {include_packed.shape[1]}")
-    if tuple(nonempty.shape) != (c,) or weights.dim() != 2 or weights.shape[1] != c:
-        raise ValueError(
-            f"nonempty must be [{c}] and weights [M, {c}]; got "
-            f"{list(nonempty.shape)} and {list(weights.shape)}"
-        )
-    for name, t in (("lit_packed", lit_packed), ("include_packed", include_packed)):
-        if t.dtype != torch.int32:
-            raise TypeError(f"{name} must hold int32 words, got {t.dtype}")
+def _check_weights(weights: torch.Tensor, c: int) -> None:
+    if weights.dim() != 2 or weights.shape[1] != c:
+        raise ValueError(f"weights must be [M, {c}]; got {list(weights.shape)}")
 
 
 def fused_infer_cuda(
@@ -72,24 +75,22 @@ def fused_infer_cuda(
     """Launch the CUDA fused kernel; every operand on one CUDA card.
     Weights are taken as int8 (the servable's clamp), ``nonempty`` as
     0/1.  Returns int32 ``[B, M]``."""
-    _check(lit_packed, include_packed, nonempty, weights)
-    dev = lit_packed.device
-    if not all(t.is_cuda and t.device == dev
-               for t in (lit_packed, include_packed, nonempty, weights)):
-        raise ValueError("fused_infer_cuda needs every operand on one CUDA device")
+    check_words(lit_packed, include_packed)
     b, p, w = lit_packed.shape
     c = include_packed.shape[0]
+    if tuple(nonempty.shape) != (c,):
+        raise ValueError(f"nonempty must be [{c}]; got {list(nonempty.shape)}")
+    _check_weights(weights, c)
+    dev = check_cuda("fused_infer_cuda", lit_packed, include_packed, nonempty, weights)
     m = weights.shape[0]
     lit = lit_packed.contiguous()
     inc = include_packed.contiguous()
-    # bool is one byte of 0/1: view it, no conversion kernel.
-    ne = (nonempty.view(torch.uint8) if nonempty.dtype == torch.bool
-          else (nonempty != 0).to(torch.uint8)).contiguous()
+    ne = as_uint8(nonempty)
     w8 = weights.to(torch.int8).contiguous()
     out = torch.zeros((b, m), dtype=torch.int32, device=dev)
     if b == 0 or c == 0 or m == 0:
         return out
-    fn = _entry()
+    fn = _entry("fused_infer")
     block_c = clamp_block(BLOCK_C, c, 32)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -102,5 +103,42 @@ def fused_infer_cuda(
     return out
 
 
-#: Launches of the CUDA kernel (a plain count; reset by callers).
+def fused_infer_sparse_cuda(
+    lit_packed: torch.Tensor,
+    exclude_packed: torch.Tensor,
+    weights_active: torch.Tensor,
+    *,
+    csrf: bool = True,
+) -> torch.Tensor:
+    """Launch the CUDA fused kernel over the active clauses (exclude words
+    int32 ``[C_a, W]``, weights int8-range ``[M, C_a]``); every operand on
+    one CUDA card.  Returns int32 ``[B, M]``; with ``C_a == 0`` zeros,
+    without a launch."""
+    check_words(lit_packed, exclude_packed)
+    b, p, w = lit_packed.shape
+    c = exclude_packed.shape[0]
+    _check_weights(weights_active, c)
+    dev = check_cuda("fused_infer_sparse_cuda", lit_packed, exclude_packed, weights_active)
+    m = weights_active.shape[0]
+    lit = lit_packed.contiguous()
+    exc = exclude_packed.contiguous()
+    w8 = weights_active.to(torch.int8).contiguous()
+    out = torch.zeros((b, m), dtype=torch.int32, device=dev)
+    if b == 0 or c == 0 or m == 0:
+        return out
+    fn = _entry("fused_infer_sparse")
+    block_c = clamp_block(BLOCK_C, c, 32)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        code = fn(
+            lit.data_ptr(), exc.data_ptr(), w8.data_ptr(), out.data_ptr(),
+            b, p, c, w, m, block_c, int(bool(csrf)), stream,
+        )
+    _build.check("fused_infer_sparse", code)
+    fused_infer_sparse_cuda.launches += 1
+    return out
+
+
+#: Launches of the CUDA kernels (plain counts; reset by callers).
 fused_infer_cuda.launches = 0
+fused_infer_sparse_cuda.launches = 0

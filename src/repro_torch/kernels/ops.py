@@ -5,6 +5,11 @@
   * a CPU tensor takes the kernel's plain PyTorch version;
   * ``backend="plain"`` runs the plain version on any device (the card's
     yardstick in ``chip_smoke.py``).
+
+The active-pool entry points (``clause_eval_sparse``, ``fused_infer_sparse``,
+``matmul_sparse_infer``) take the image of ``serve.servable.analyze_sparsity``;
+an empty active pool (``C_a == 0``) returns before any launch, since a grid
+of 0 blocks is an invalid launch.
 """
 
 from __future__ import annotations
@@ -13,10 +18,32 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels.fused_infer import fused_infer_cuda, fused_infer_plain
+from repro_torch.core import clauses as cl
+from repro_torch.kernels.class_sum import class_sum_cuda, class_sum_plain
+from repro_torch.kernels.clause_eval import (
+    clause_eval_cuda,
+    clause_eval_plain,
+    clause_eval_sparse_cuda,
+    clause_eval_sparse_plain,
+)
+from repro_torch.kernels.fused_infer import (
+    fused_infer_cuda,
+    fused_infer_plain,
+    fused_infer_sparse_cuda,
+    fused_infer_sparse_plain,
+)
 from repro_torch.kernels.ingress import ingress_pack_cuda, ingress_pack_plain
 
-__all__ = ["fused_infer", "fused_infer_from_images", "ingress_pack"]
+__all__ = [
+    "class_sum",
+    "clause_eval",
+    "clause_eval_sparse",
+    "fused_infer",
+    "fused_infer_from_images",
+    "fused_infer_sparse",
+    "ingress_pack",
+    "matmul_sparse_infer",
+]
 
 
 def _use_kernel(t: torch.Tensor, backend: Optional[str]) -> bool:
@@ -70,3 +97,75 @@ def fused_infer_from_images(
     return fused_infer(
         lit_packed, include_packed, nonempty, weights, backend=backend, csrf=csrf
     )
+
+
+def clause_eval(
+    lit_packed: torch.Tensor,
+    include_packed: torch.Tensor,
+    nonempty: torch.Tensor,
+    *,
+    backend: Optional[str] = None,
+    csrf: bool = True,
+) -> torch.Tensor:
+    """Sequential-OR clause outputs uint8 0/1 ``[B, C]`` from packed words.
+    ``csrf`` toggles the kernel's early exit and never changes the result."""
+    if _use_kernel(lit_packed, backend):
+        return clause_eval_cuda(lit_packed, include_packed, nonempty, csrf=csrf)
+    return clause_eval_plain(lit_packed, include_packed, nonempty)
+
+
+def class_sum(
+    fired: torch.Tensor, weights: torch.Tensor, *, backend: Optional[str] = None
+) -> torch.Tensor:
+    """Eq. (3) class sums int32 ``[B, M]`` from fired 0/1 ``[B, C]``."""
+    if _use_kernel(fired, backend):
+        return class_sum_cuda(fired, weights)
+    return class_sum_plain(fired, weights)
+
+
+def clause_eval_sparse(
+    lit_packed: torch.Tensor,
+    exclude_packed: torch.Tensor,
+    *,
+    backend: Optional[str] = None,
+    csrf: bool = True,
+) -> torch.Tensor:
+    """Active-clause outputs uint8 0/1 ``[B, C_a]`` from packed literals and
+    the active pool's exclude words."""
+    if exclude_packed.shape[0] == 0:       # empty pool: nothing can fire
+        return torch.zeros((lit_packed.shape[0], 0), dtype=torch.uint8,
+                           device=lit_packed.device)
+    if _use_kernel(lit_packed, backend):
+        return clause_eval_sparse_cuda(lit_packed, exclude_packed, csrf=csrf)
+    return clause_eval_sparse_plain(lit_packed, exclude_packed)
+
+
+def fused_infer_sparse(
+    lit_packed: torch.Tensor,
+    exclude_packed: torch.Tensor,
+    weights_active: torch.Tensor,
+    *,
+    backend: Optional[str] = None,
+    csrf: bool = True,
+) -> torch.Tensor:
+    """Clause evaluation + class sums over the active pool in one kernel;
+    int32 ``[B, M]``."""
+    if exclude_packed.shape[0] == 0:
+        return torch.zeros((lit_packed.shape[0], weights_active.shape[0]),
+                           dtype=torch.int32, device=lit_packed.device)
+    if _use_kernel(lit_packed, backend):
+        return fused_infer_sparse_cuda(lit_packed, exclude_packed, weights_active, csrf=csrf)
+    return fused_infer_sparse_plain(lit_packed, exclude_packed, weights_active)
+
+
+def matmul_sparse_infer(
+    literals: torch.Tensor, include_active: torch.Tensor, weights_active: torch.Tensor
+) -> torch.Tensor:
+    """Violation counts over the active pool as a float32 matmul of
+    ``1 - literals`` [B, P, 2o] by ``include_active``ᵀ, in patch chunks; a
+    clause fires on a patch iff its count is 0.  The reference's XLA int8
+    dot, not a TPU kernel, so plain PyTorch on every device (counts are at
+    most 2o <= 8192: exact).  int32 ``[B, M]``."""
+    every = torch.ones(include_active.shape[0], dtype=torch.bool, device=literals.device)
+    fired = cl.eval_clauses_matmul(literals, include_active, every)
+    return cl.class_sums(fired, weights_active)

@@ -14,7 +14,19 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable, Dict
 
-from repro_torch.kernels.fused_infer import fused_infer_cuda, fused_infer_plain
+from repro_torch.kernels.class_sum import class_sum_cuda, class_sum_plain
+from repro_torch.kernels.clause_eval import (
+    clause_eval_cuda,
+    clause_eval_plain,
+    clause_eval_sparse_cuda,
+    clause_eval_sparse_plain,
+)
+from repro_torch.kernels.fused_infer import (
+    fused_infer_cuda,
+    fused_infer_plain,
+    fused_infer_sparse_cuda,
+    fused_infer_sparse_plain,
+)
 from repro_torch.kernels.ingress import ingress_pack_cuda, ingress_pack_plain
 
 __all__ = ["KERNELS", "Kernel", "launch_counts", "reset_launches"]
@@ -48,6 +60,38 @@ KERNELS: Dict[str, Kernel] = {
             jax_oracle="fused_infer_ref",
             source="src/repro_torch/csrc/fused_infer.cu",
             replaces="src/repro/kernels/fused_infer.py:99 fused_infer_pallas",
+        ),
+        Kernel(
+            name="fused_infer_sparse",
+            cuda=fused_infer_sparse_cuda,
+            plain=fused_infer_sparse_plain,
+            jax_oracle="sparse_infer_ref",
+            source="src/repro_torch/csrc/fused_infer.cu",
+            replaces="src/repro/kernels/fused_infer.py:204 fused_infer_sparse_pallas",
+        ),
+        Kernel(
+            name="clause_eval",
+            cuda=clause_eval_cuda,
+            plain=clause_eval_plain,
+            jax_oracle="clause_eval_ref",
+            source="src/repro_torch/csrc/clause_eval.cu",
+            replaces="src/repro/kernels/clause_eval.py:117 clause_eval_pallas",
+        ),
+        Kernel(
+            name="clause_eval_sparse",
+            cuda=clause_eval_sparse_cuda,
+            plain=clause_eval_sparse_plain,
+            jax_oracle="clause_eval_sparse_ref",
+            source="src/repro_torch/csrc/clause_eval.cu",
+            replaces="src/repro/kernels/clause_eval.py:224 clause_eval_sparse_pallas",
+        ),
+        Kernel(
+            name="class_sum",
+            cuda=class_sum_cuda,
+            plain=class_sum_plain,
+            jax_oracle="class_sum_ref",
+            source="src/repro_torch/csrc/class_sum.cu",
+            replaces="src/repro/kernels/class_sum.py:49 class_sum_pallas",
         ),
     )
 }

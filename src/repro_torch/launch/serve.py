@@ -2,7 +2,7 @@
 ``repro/launch/serve.py``).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch convcotm-mnist \
-        --requests 32 --max-batch 256 [--eval-path fused] [--device cpu]
+        --requests 32 --max-batch 256 [--eval-path fused_sparse] [--device cpu]
 
 The model is a boundary-initialised ConvCoTM made from ``--seed`` (no
 trained weights ship with the repo), and the requests are random raw
@@ -21,6 +21,7 @@ import torch
 from repro_torch.configs.convcotm import BOOLEANIZE_METHOD, COTM_CONFIGS
 from repro_torch.core.cotm import init_boundary_model
 from repro_torch.serve.engine import ServingEngine
+from repro_torch.serve.paths import available_paths
 
 __all__ = ["serve_tm"]
 
@@ -44,7 +45,7 @@ def serve_tm(
                     path=eval_path)
     warmed = engine.warmup(arch)
     print(f"{arch}: serving a boundary-initialised model on {engine.device} "
-          f"({eval_path} path); warmed buckets {list(warmed)}")
+          f"({engine.resolved_path(arch)} path); warmed buckets {list(warmed)}")
     rng = np.random.default_rng(seed)
     shape = (cfg.patch.image_y, cfg.patch.image_x)
     for _ in range(n_requests):
@@ -66,7 +67,7 @@ def main(argv=None) -> None:
     ap.add_argument("--arch", required=True, choices=sorted(COTM_CONFIGS))
     ap.add_argument("--requests", type=int, default=32)
     ap.add_argument("--max-batch", type=int, default=256)
-    ap.add_argument("--eval-path", default="fused")
+    ap.add_argument("--eval-path", default="fused", choices=available_paths())
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card; 'cpu' runs the "

@@ -35,8 +35,8 @@ from repro_torch import resolve_device
 from repro_torch.core import clauses as cl
 from repro_torch.core.cotm import CoTMConfig, CoTMModel
 from repro_torch.core.ingress import IngressSpec, raw_trailing_shape
-from repro_torch.serve.paths import get_path, run_path_raw
-from repro_torch.serve.servable import ServableModel, freeze
+from repro_torch.serve.paths import get_path, resolve_path, run_path_raw
+from repro_torch.serve.servable import ServableModel, analyze_sparsity, freeze
 
 __all__ = ["ClassifyResult", "InFlightClassify", "ServeStats", "ServingEngine"]
 
@@ -175,11 +175,12 @@ class ServingEngine:
         booleanize_method: str = "threshold",
         path: Optional[str] = None,
     ) -> ServableModel:
-        """Freeze (if needed), move to the engine's device once, and register
-        a model under a dataset key.  ``path`` defaults to the config's
-        ``eval_path``.  A ``ServableModel`` given here is copied, not moved:
-        ``nn.Module.to`` works in place, and the caller's image stays where
-        it was."""
+        """Freeze (if needed), attach the sparsity image
+        (:func:`analyze_sparsity`), move to the engine's device once, and
+        register a model under a dataset key.  ``path`` defaults to the
+        config's ``eval_path``.  A ``ServableModel`` given here is copied,
+        not moved: ``nn.Module.to`` works in place, and the caller's image
+        stays where it was."""
         if isinstance(model, ServableModel):
             servable = copy.deepcopy(model)
         else:
@@ -189,7 +190,7 @@ class ServingEngine:
         path_name = path or servable.config.eval_path
         eval_path = get_path(path_name)
         ingress = eval_path.ingress_spec(servable.config.patch, method=booleanize_method)
-        servable = servable.to(self.device)
+        servable = analyze_sparsity(servable).to(self.device)
         self._servables[name] = _Entry(
             servable=servable,
             booleanize_method=booleanize_method,
@@ -201,6 +202,13 @@ class ServingEngine:
 
     def stats(self, name: str) -> ServeStats:
         return self._servables[name].stats
+
+    def resolved_path(self, name: str) -> str:
+        """The path a dispatch of ``name`` really evaluates: the registered
+        path, or its dense fallback when the servable carries no sparsity
+        image."""
+        entry = self._servables[name]
+        return resolve_path(get_path(entry.path_name), entry.servable).name
 
     # --- serving ----------------------------------------------------------
 

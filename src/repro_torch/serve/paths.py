@@ -6,16 +6,24 @@ declares its literal input form (``dense`` uint8 0/1 ``[B, P, 2o]`` or
 ``packed`` int32 ``[B, P, W]``); :func:`run_path_raw` runs the ingress in
 that form and then the path, from raw pixels to class sums.
 
-Ported paths: ``dense``, ``matmul``, ``bitpacked`` and ``fused`` (the
-CUDA ingress-pack and fused kernels on the card).  The sparse paths, the
-``kernel`` path, tunable parameters and the degradation chain are not
-ported yet.
+Ported paths: ``dense``, ``matmul`` and ``bitpacked`` (plain PyTorch);
+``kernel`` (CUDA clause-eval kernel) and ``fused`` (CUDA fused kernel);
+and the clause-sparsity paths over the active pool of
+``servable.sparsity`` (see :func:`repro_torch.serve.servable.analyze_sparsity`):
+``sparse`` (CUDA sparse clause-eval kernel), ``fused_sparse`` (CUDA sparse
+fused kernel) and ``matmul_sparse`` (plain float32 matmul).  Every packed
+path on the card takes its literals from the CUDA ingress-pack kernel.
+
+A sparse path declares a dense ``fallback`` with the same input form and
+bit-identical class sums; :func:`resolve_path` runs it for a servable with
+no sparsity image.  :func:`degraded_fallback` walks the reference's
+degradation chain.  Tunable kernel parameters are not ported yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -28,13 +36,16 @@ __all__ = [
     "PACKED",
     "EvalPath",
     "available_paths",
+    "degraded_fallback",
     "get_path",
     "register_path",
+    "resolve_path",
     "run_path",
     "run_path_raw",
 ]
 
-#: fn(literals, include, include_packed, nonempty, weights) -> int32 [B, m]
+#: fn(literals, include, include_packed, nonempty, weights, [sparsity]) -> int32
+#: [B, m]; the ``sparsity`` positional is passed to ``needs_sparsity`` paths only.
 PathFn = Callable[..., torch.Tensor]
 
 DENSE = "dense"
@@ -43,15 +54,24 @@ PACKED = "packed"
 
 @dataclasses.dataclass(frozen=True)
 class EvalPath:
-    """A registered evaluation path (name, literal form, eval fn)."""
+    """A registered evaluation path (name, literal form, eval fn).
+
+    ``needs_sparsity`` paths receive ``servable.sparsity`` as an extra
+    positional argument; ``fallback`` names the bit-identical dense twin
+    run when no sparsity image is attached (same ``input_form``).
+    """
 
     name: str
     input_form: str          # DENSE | PACKED
     fn: PathFn
+    needs_sparsity: bool = False
+    fallback: Optional[str] = None
 
     def __post_init__(self):
         if self.input_form not in (DENSE, PACKED):
             raise ValueError(f"input_form must be '{DENSE}' or '{PACKED}'")
+        if self.needs_sparsity and self.fallback is None:
+            raise ValueError(f"sparse path {self.name!r} must declare a dense fallback")
 
     def ingress_spec(self, patch, method: str = "threshold", **kw) -> IngressSpec:
         """The :class:`IngressSpec` matching this path's literal form."""
@@ -63,13 +83,27 @@ class EvalPath:
 _REGISTRY: Dict[str, EvalPath] = {}
 
 
-def register_path(name: str, input_form: str) -> Callable[[PathFn], PathFn]:
-    """Decorator: register ``fn`` as evaluation path ``name``."""
+def register_path(
+    name: str,
+    input_form: str,
+    *,
+    needs_sparsity: bool = False,
+    fallback: Optional[str] = None,
+) -> Callable[[PathFn], PathFn]:
+    """Decorator: register ``fn`` as evaluation path ``name``.  ``fallback``
+    (required with ``needs_sparsity``) must already be registered with the
+    same input form."""
 
     def deco(fn: PathFn) -> PathFn:
         if name in _REGISTRY:
             raise ValueError(f"eval path {name!r} already registered")
-        _REGISTRY[name] = EvalPath(name=name, input_form=input_form, fn=fn)
+        if fallback is not None and get_path(fallback).input_form != input_form:
+            raise ValueError(
+                f"fallback {fallback!r} input form {get_path(fallback).input_form!r} "
+                f"!= {input_form!r}"
+            )
+        _REGISTRY[name] = EvalPath(name=name, input_form=input_form, fn=fn,
+                                   needs_sparsity=needs_sparsity, fallback=fallback)
         return fn
 
     return deco
@@ -88,15 +122,53 @@ def available_paths() -> Tuple[str, ...]:
     return tuple(sorted(_REGISTRY))
 
 
+def resolve_path(path: EvalPath, servable) -> EvalPath:
+    """The path actually evaluated for ``servable``: a sparse path without
+    an attached sparsity image resolves to its dense fallback."""
+    if path.needs_sparsity and getattr(servable, "sparsity", None) is None:
+        return get_path(path.fallback)
+    return path
+
+
+#: The degradation chain of the reference (``repro/serve/paths.py``): one
+#: step per trip of a failing path.  Sparse paths shed their sparsity onto
+#: the dense twin, kernel paths shed the kernels onto plain math, and all
+#: end at ``dense``.  A step may change the literal input form.
+_DEGRADED_CHAIN = {
+    "fused_sparse": "fused",
+    "sparse": "bitpacked",
+    "matmul_sparse": "matmul",
+    "fused": "matmul",
+    "kernel": "matmul",
+    "bitpacked": "dense",
+    "matmul": "dense",
+    "dense": None,
+}
+
+
+def degraded_fallback(name: str) -> Optional[str]:
+    """The next path down the degradation chain for ``name`` (None at the
+    bottom).  Paths outside the chain fall back to their declared
+    ``fallback``, else to ``dense``."""
+    if name in _DEGRADED_CHAIN:
+        return _DEGRADED_CHAIN[name]
+    return get_path(name).fallback or "dense"
+
+
 def run_path(path: EvalPath, servable, literals: torch.Tensor) -> torch.Tensor:
-    """Class sums int32 [B, m]; ``literals`` must be in ``path.input_form``."""
-    return path.fn(
+    """Class sums int32 [B, m]; ``literals`` must be in ``path.input_form``
+    (which a sparse path's fallback shares)."""
+    path = resolve_path(path, servable)
+    args = (
         literals,
         servable.include,
         servable.include_packed,
         servable.nonempty,
         servable.weights,
     )
+    if path.needs_sparsity:
+        args += (servable.sparsity,)
+    return path.fn(*args)
 
 
 def run_path_raw(
@@ -127,6 +199,30 @@ def _bitpacked(lits, include, include_packed, nonempty, weights):
     return cl.class_sums(fired, weights)
 
 
+@register_path("kernel", PACKED)
+def _kernel(lits, include, include_packed, nonempty, weights):
+    fired = kops.clause_eval(lits, include_packed, nonempty)
+    return cl.class_sums(fired, weights)
+
+
 @register_path("fused", PACKED)
 def _fused(lits, include, include_packed, nonempty, weights):
     return kops.fused_infer(lits, include_packed, nonempty, weights)
+
+
+# --- clause-sparsity paths (the active pool; see the module doc) -----------
+
+@register_path("sparse", PACKED, needs_sparsity=True, fallback="bitpacked")
+def _sparse(lits, include, include_packed, nonempty, weights, sparsity):
+    fired = kops.clause_eval_sparse(lits, sparsity.exclude_packed)
+    return cl.class_sums(fired, sparsity.weights)
+
+
+@register_path("fused_sparse", PACKED, needs_sparsity=True, fallback="fused")
+def _fused_sparse(lits, include, include_packed, nonempty, weights, sparsity):
+    return kops.fused_infer_sparse(lits, sparsity.exclude_packed, sparsity.weights)
+
+
+@register_path("matmul_sparse", DENSE, needs_sparsity=True, fallback="matmul")
+def _matmul_sparse(lits, include, include_packed, nonempty, weights, sparsity):
+    return kops.matmul_sparse_infer(lits, sparsity.include, sparsity.weights)

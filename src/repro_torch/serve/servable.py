@@ -6,10 +6,14 @@ words, the nonempty mask and int8-clamped weights.  The image is an
 ``nn.Module`` whose tensors are registered buffers, so ``.to(device)``
 moves it to the card once and every batch after touches literals only.
 
-Sparsity analysis, version stamps and digests are not ported yet.
+:func:`analyze_sparsity` attaches the active-clause image
+(:class:`ClauseSparsity`, a submodule, so it moves with the servable) that
+the sparse eval paths read.  Version stamps and digests are not ported yet.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 from torch import nn
@@ -18,7 +22,43 @@ from repro_torch.core import clauses as cl
 from repro_torch.core.cotm import WEIGHT_MAX, WEIGHT_MIN, CoTMConfig, CoTMModel
 from repro_torch.core.patches import pack_bits
 
-__all__ = ["ServableModel", "freeze"]
+__all__ = ["ClauseSparsity", "ServableModel", "active_pad", "analyze_sparsity", "freeze"]
+
+
+class ClauseSparsity(nn.Module):
+    """The active-clause register image (empty clauses pruned).  Buffers,
+    each with ``C_a = n_active`` rows on the clause axis:
+
+      * ``active_idx``     int32 ``[C_a]`` indices into the full pool (-1:
+        a synthetic pad row)
+      * ``include``        uint8 0/1 ``[C_a, 2o]`` active include masks
+      * ``include_packed`` int32 ``[C_a, W]`` packed include words
+      * ``exclude_packed`` int32 ``[C_a, W]`` ``~include_packed``: the pad
+        bits past 2o are set, so the sparse word test
+        ``~(lit | exclude) == 0`` needs no valid-bit mask
+      * ``include_counts`` int32 ``[C_a]`` includes per clause
+      * ``weights``        int8 ``[m, C_a]`` active weight columns
+    """
+
+    active_idx: torch.Tensor
+    include: torch.Tensor
+    include_packed: torch.Tensor
+    exclude_packed: torch.Tensor
+    include_counts: torch.Tensor
+    weights: torch.Tensor
+
+    def __init__(self, active_idx, include, include_packed, exclude_packed,
+                 include_counts, weights):
+        super().__init__()
+        for name, t in (("active_idx", active_idx), ("include", include),
+                        ("include_packed", include_packed),
+                        ("exclude_packed", exclude_packed),
+                        ("include_counts", include_counts), ("weights", weights)):
+            self.register_buffer(name, t)
+
+    @property
+    def n_active(self) -> int:
+        return self.include.shape[0]
 
 
 class ServableModel(nn.Module):
@@ -28,19 +68,24 @@ class ServableModel(nn.Module):
       * ``include_packed`` int32 ``[C, W]`` packed include words
       * ``nonempty``       bool ``[C]`` empty-clause mask (Sec. IV-D)
       * ``weights``        int8 ``[m, C]`` clamped clause weights
+
+    and the optional submodule ``sparsity`` (:func:`analyze_sparsity`).
     """
 
     include: torch.Tensor
     include_packed: torch.Tensor
     nonempty: torch.Tensor
     weights: torch.Tensor
+    sparsity: Optional[ClauseSparsity]
 
-    def __init__(self, include, include_packed, nonempty, weights, config: CoTMConfig):
+    def __init__(self, include, include_packed, nonempty, weights, config: CoTMConfig,
+                 sparsity: Optional[ClauseSparsity] = None):
         super().__init__()
         self.register_buffer("include", include)
         self.register_buffer("include_packed", include_packed)
         self.register_buffer("nonempty", nonempty)
         self.register_buffer("weights", weights)
+        self.register_module("sparsity", sparsity)
         self.config = config
 
     @property
@@ -63,3 +108,60 @@ def freeze(model: CoTMModel, config: CoTMConfig) -> ServableModel:
         weights=torch.clamp(model.weights, WEIGHT_MIN, WEIGHT_MAX).to(torch.int8),
         config=config,
     )
+
+
+def active_pad(n_active: int, n_clauses: int) -> int:
+    """Pow2-binned active-row count: the next power of two >= ``n_active``,
+    clamped to the pool size (0 stays 0)."""
+    if n_active <= 0:
+        return 0
+    return min(1 << (n_active - 1).bit_length(), n_clauses)
+
+
+def analyze_sparsity(
+    servable: ServableModel, *, pad_to: Optional[int | str] = None
+) -> ServableModel:
+    """A servable with the active-clause image attached, on the servable's
+    device; the tensors of ``servable`` are shared, not copied.
+
+    Idempotent: a servable that has one is returned as it is.  A pool with
+    no active clause gives zero-row tensors.  ``pad_to`` (an int >= the
+    active count, or ``"pow2"`` for the :func:`active_pad` bin) appends
+    synthetic rows: all-zero include, so an all-ones exclude that fires on
+    every patch, a zero weight column, so no class sum changes, and
+    ``active_idx`` -1.
+    """
+    if servable.sparsity is not None:
+        return servable
+    active = torch.nonzero(servable.nonempty.to(torch.bool)).flatten()
+    n_active = active.numel()
+    if pad_to == "pow2":
+        pad_to = active_pad(n_active, servable.n_clauses)
+    include = servable.include[active]                       # [C_a, 2o]
+    # Packing is per clause row: the active rows' words are a row slice of
+    # the freeze-time packing.
+    include_packed = servable.include_packed[active]
+    weights = servable.weights[:, active]
+    active = active.to(torch.int32)
+    if pad_to is not None:
+        if pad_to < n_active:
+            raise ValueError(
+                f"pad_to={pad_to} < {n_active} active clauses; padding can only "
+                f"grow the analysis"
+            )
+        pad = pad_to - n_active
+        include = torch.cat([include, include.new_zeros((pad, include.shape[1]))])
+        include_packed = torch.cat(
+            [include_packed, include_packed.new_zeros((pad, include_packed.shape[1]))])
+        weights = torch.cat([weights, weights.new_zeros((weights.shape[0], pad))], dim=1)
+        active = torch.cat([active, active.new_full((pad,), -1)])
+    sparsity = ClauseSparsity(
+        active_idx=active,
+        include=include.to(torch.uint8),
+        include_packed=include_packed,
+        exclude_packed=~include_packed,                      # pad bits -> 1
+        include_counts=include.sum(dim=-1, dtype=torch.int32),
+        weights=weights,
+    )
+    return ServableModel(servable.include, servable.include_packed, servable.nonempty,
+                         servable.weights, servable.config, sparsity=sparsity)

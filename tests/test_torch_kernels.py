@@ -1,4 +1,4 @@
-"""Port vs reference: the two kernels of the serving path, on the CPU.
+"""Port vs reference: the six kernels of the serving paths, on the CPU.
 
 Here a CPU tensor takes each kernel's plain PyTorch version, which is held
 bit for bit against the JAX oracle in ``repro.kernels.ref`` (and, in one
@@ -19,7 +19,9 @@ from repro.kernels import ref
 from repro_torch.convert import words_from_uint32, words_to_uint32
 from repro_torch.core.patches import PatchSpec
 from repro_torch.kernels import _build, ops, registry
-from repro_torch.kernels.fused_infer import fused_infer_cuda
+from repro_torch.kernels.class_sum import class_sum_cuda
+from repro_torch.kernels.clause_eval import clause_eval_cuda, clause_eval_sparse_cuda
+from repro_torch.kernels.fused_infer import fused_infer_cuda, fused_infer_sparse_cuda
 from repro_torch.kernels.ingress import ingress_pack_cuda
 
 # (B, P, C, 2o): the reference's kernel sweep (tests/test_kernels.py).
@@ -53,6 +55,17 @@ def _fused_inputs(b, p, c, nlit, density, seed):
 def _port(lp, ip, ne, w):
     return (words_from_uint32(lp), words_from_uint32(ip), torch.from_numpy(ne),
             torch.from_numpy(w))
+
+
+def _sparse_inputs(b, p, c, nlit, density, seed):
+    """Packed literals, the active pool's exclude words (``~include``, pad
+    bits set) and weight columns as numpy, as ``analyze_sparsity`` cuts them."""
+    lp, ip, ne, w = _fused_inputs(b, p, c, nlit, density, seed)
+    return lp, ~ip[ne], w[:, ne]
+
+
+def _sparse_port(lp, ep, wa):
+    return words_from_uint32(lp), words_from_uint32(ep), torch.from_numpy(wa)
 
 
 @pytest.mark.parametrize("csrf", [True, False])
@@ -114,6 +127,112 @@ def test_fused_infer_from_images_chains_both_kernels():
                                rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("csrf", [True, False])
+@pytest.mark.parametrize("b,p,c,nlit", SHAPES)
+def test_clause_eval_plain_matches_oracle(b, p, c, nlit, csrf):
+    lp, ip, ne, w = _fused_inputs(b, p, c, nlit, density=0.93, seed=b * 100 + c + 1)
+    want = ref.clause_eval_ref(jnp.asarray(lp), jnp.asarray(ip), jnp.asarray(ne))
+    got = ops.clause_eval(*_port(lp, ip, ne, w)[:3], csrf=csrf)
+    assert got.dtype == torch.uint8 and got.shape == (b, c)
+    np.testing.assert_array_equal(np.asarray(want), got.numpy())
+    assert not got[:, 0].any()                          # the empty clause
+
+
+@pytest.mark.parametrize("csrf", [True, False])
+@pytest.mark.parametrize("b,p,c,nlit", SHAPES)
+def test_clause_eval_sparse_plain_matches_oracle(b, p, c, nlit, csrf):
+    lp, ep, wa = _sparse_inputs(b, p, c, nlit, density=0.93, seed=b * 100 + c + 2)
+    want = ref.clause_eval_sparse_ref(jnp.asarray(lp), jnp.asarray(ep))
+    got = ops.clause_eval_sparse(*_sparse_port(lp, ep, wa)[:2], csrf=csrf)
+    assert got.dtype == torch.uint8 and got.shape == (b, ep.shape[0])
+    np.testing.assert_array_equal(np.asarray(want), got.numpy())
+
+
+@pytest.mark.parametrize("csrf", [True, False])
+@pytest.mark.parametrize("b,p,c,nlit", SHAPES)
+def test_fused_infer_sparse_plain_matches_oracle(b, p, c, nlit, csrf):
+    lp, ep, wa = _sparse_inputs(b, p, c, nlit, density=0.93, seed=b * 100 + c + 3)
+    want = ref.sparse_infer_ref(jnp.asarray(lp), jnp.asarray(ep), jnp.asarray(wa))
+    got = ops.fused_infer_sparse(*_sparse_port(lp, ep, wa), csrf=csrf)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(np.asarray(want), got.numpy())
+
+
+@pytest.mark.parametrize("b,c,m", [(256, 128, 10), (3, 70, 10), (2, 1024, 64), (1, 1, 1)])
+def test_class_sum_plain_matches_oracle(b, c, m):
+    rng = np.random.default_rng(b + c + m)
+    fired = (rng.random((b, c)) > 0.5).astype(np.uint8)
+    w = rng.integers(-127, 128, (m, c)).astype(np.int32)
+    want = np.asarray(ref.class_sum_ref(jnp.asarray(fired), jnp.asarray(w)))
+    got = ops.class_sum(torch.from_numpy(fired), torch.from_numpy(w))
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(want, got.numpy())
+    np.testing.assert_array_equal(
+        want, ops.class_sum(torch.from_numpy(fired.astype(bool)), torch.from_numpy(w)).numpy())
+
+
+@pytest.mark.parametrize("kernel", ["clause_eval", "clause_eval_sparse", "fused_infer_sparse",
+                                    "class_sum"])
+def test_new_kernels_plain_match_interpreted_pallas(kernel):
+    """One small ragged case per kernel against the Pallas kernel itself."""
+    lp, ip, ne, w = _fused_inputs(3, 20, 40, 100, density=0.9, seed=11)
+    lp_, ep, wa = _sparse_inputs(3, 20, 40, 100, density=0.9, seed=11)
+    if kernel == "clause_eval":
+        want = jops.clause_eval(jnp.asarray(lp), jnp.asarray(ip), jnp.asarray(ne),
+                                backend="interpret")
+        got = ops.clause_eval(*_port(lp, ip, ne, w)[:3])
+    elif kernel == "clause_eval_sparse":
+        want = jops.clause_eval_sparse(jnp.asarray(lp_), jnp.asarray(ep), backend="interpret")
+        got = ops.clause_eval_sparse(*_sparse_port(lp_, ep, wa)[:2])
+    elif kernel == "fused_infer_sparse":
+        want = jops.fused_infer_sparse(jnp.asarray(lp_), jnp.asarray(ep), jnp.asarray(wa),
+                                       backend="interpret")
+        got = ops.fused_infer_sparse(*_sparse_port(lp_, ep, wa))
+    else:
+        fired = np.array(ref.clause_eval_ref(jnp.asarray(lp), jnp.asarray(ip), jnp.asarray(ne)))
+        want = jops.class_sum(jnp.asarray(fired), jnp.asarray(w), backend="interpret")
+        got = ops.class_sum(torch.from_numpy(fired), torch.from_numpy(w))
+    np.testing.assert_array_equal(np.asarray(want), got.numpy())
+
+
+def test_empty_active_pool_returns_before_any_kernel():
+    """``C_a == 0``: uint8 ``[B, 0]`` outputs and all-zero int32 class sums,
+    as the reference's short-circuits give."""
+    lp, _, _, _ = _fused_inputs(3, 20, 4, 40, density=0.9, seed=12)
+    ep = np.zeros((0, lp.shape[2]), np.uint32)
+    wa = np.zeros((10, 0), np.int32)
+    lit, exc, w = _sparse_port(lp, ep, wa)
+    got = ops.clause_eval_sparse(lit, exc)
+    want = jops.clause_eval_sparse(jnp.asarray(lp), jnp.asarray(ep))
+    assert got.dtype == torch.uint8 and got.shape == (3, 0) == np.asarray(want).shape
+    got = ops.fused_infer_sparse(lit, exc, w)
+    want = jops.fused_infer_sparse(jnp.asarray(lp), jnp.asarray(ep), jnp.asarray(wa))
+    assert got.dtype == torch.int32 and got.shape == (3, 10)
+    np.testing.assert_array_equal(np.asarray(want), got.numpy())
+    assert not got.any()
+    got = ops.matmul_sparse_infer(torch.ones((3, 20, 40), dtype=torch.uint8),
+                                  torch.zeros((0, 40), dtype=torch.uint8), w)
+    assert got.shape == (3, 10) and not got.any()
+
+
+@pytest.mark.parametrize("n_active", [0, 1, 37, 128])
+def test_matmul_sparse_infer_matches_oracle(n_active):
+    rng = np.random.default_rng(13 + n_active)
+    lits = (rng.random((3, 50, 100)) > 0.4).astype(np.uint8)
+    inc = (rng.random((n_active, 100)) > 0.97).astype(np.uint8)
+    inc[:, 0] = 1                                       # active: nonempty
+    if n_active > 1:
+        inc[-1] = 0                                     # a synthetic pad row
+    wa = rng.integers(-127, 128, (10, n_active)).astype(np.int32)
+    if n_active > 1:
+        wa[:, -1] = 0
+    want = ref.matmul_sparse_infer_ref(jnp.asarray(lits), jnp.asarray(inc), jnp.asarray(wa))
+    got = ops.matmul_sparse_infer(torch.from_numpy(lits), torch.from_numpy(inc),
+                                  torch.from_numpy(wa))
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(np.asarray(want), got.numpy())
+
+
 def test_cuda_wrappers_refuse_cpu_tensors():
     """The kernel wrappers launch or raise; they never quietly take the
     plain version."""
@@ -124,8 +243,22 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     lp, ip, ne, w = _port(*_fused_inputs(1, 9, 16, 16, density=0.5, seed=1))
     with pytest.raises(ValueError, match="CUDA"):
         fused_infer_cuda(lp, ip, ne, w)
-    with pytest.raises(ValueError, match="backend"):
-        ops.fused_infer(lp, ip, ne, w, backend="triton")
+    with pytest.raises(ValueError, match="CUDA"):
+        clause_eval_cuda(lp, ip, ne)
+    lit, exc, wa = _sparse_port(*_sparse_inputs(1, 9, 16, 16, density=0.5, seed=1))
+    with pytest.raises(ValueError, match="CUDA"):
+        clause_eval_sparse_cuda(lit, exc)
+    with pytest.raises(ValueError, match="CUDA"):
+        fused_infer_sparse_cuda(lit, exc, wa)
+    with pytest.raises(ValueError, match="CUDA"):
+        class_sum_cuda(ops.clause_eval(lp, ip, ne), w)
+    for call in (lambda: ops.fused_infer(lp, ip, ne, w, backend="triton"),
+                 lambda: ops.clause_eval(lp, ip, ne, backend="triton"),
+                 lambda: ops.clause_eval_sparse(lit, exc, backend="triton"),
+                 lambda: ops.fused_infer_sparse(lit, exc, wa, backend="triton"),
+                 lambda: ops.class_sum(ops.clause_eval(lp, ip, ne), w, backend="triton")):
+        with pytest.raises(ValueError, match="backend"):
+            call()
 
 
 def test_missing_nvcc_raises(monkeypatch, tmp_path):
@@ -138,10 +271,16 @@ def test_missing_nvcc_raises(monkeypatch, tmp_path):
 
 
 def test_registry_names_every_kernel():
-    assert set(registry.KERNELS) == {"ingress_pack", "fused_infer"}
+    names = {"ingress_pack", "fused_infer", "fused_infer_sparse", "clause_eval",
+             "clause_eval_sparse", "class_sum"}
+    assert set(registry.KERNELS) == names
+    repo = _build.CSRC.parents[2]
     for k in registry.KERNELS.values():
         assert hasattr(ref, k.jax_oracle)
         assert k.cuda.launches >= 0 and callable(k.plain)
-        assert (_build.CSRC / f"{k.name}.cu").exists()
+        assert (repo / k.source).exists() and k.source.endswith(".cu")
+        assert (repo / k.source).stem in _build.SOURCES
+        path, line = k.replaces.split()[0].split(":")
+        assert k.replaces.split()[1] in (repo / path).read_text().splitlines()[int(line) - 1]
     registry.reset_launches()
-    assert registry.launch_counts() == {"ingress_pack": 0, "fused_infer": 0}
+    assert registry.launch_counts() == dict.fromkeys(names, 0)

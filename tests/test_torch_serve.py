@@ -23,6 +23,7 @@ from repro.core.ingress import apply_ingress as j_apply_ingress
 from repro.core.patches import PatchSpec as JPatchSpec
 from repro.core.patches import pack_bits as jpack
 from repro.serve import ServingEngine as JServingEngine
+from repro.serve import analyze_sparsity as j_analyze
 from repro.serve import freeze as jfreeze
 from repro.serve import paths as jpaths
 from repro_torch.configs.convcotm import BOOLEANIZE_METHOD, COTM_CONFIGS
@@ -34,10 +35,12 @@ from repro_torch.core.patches import PatchSpec
 from repro_torch.launch.serve import serve_tm
 from repro_torch.serve import paths as tpaths
 from repro_torch.serve.engine import ServingEngine
-from repro_torch.serve.servable import freeze
+from repro_torch.serve.servable import analyze_sparsity, freeze
 
 EDGE = dict(image_x=11, image_y=11, window_x=5, window_y=5)
-PATHS = ("dense", "matmul", "bitpacked", "fused")
+PATHS = ("dense", "matmul", "bitpacked", "fused", "kernel", "sparse", "fused_sparse",
+         "matmul_sparse")
+NEW_PATHS = PATHS[4:]
 
 
 def _models(patch_kw, n_clauses, seed=0, n_classes=10):
@@ -88,8 +91,10 @@ def test_run_path_matches_reference(path, few):
     jm, jcfg, tm, tcfg = _models(EDGE, 37, seed=1)
     if few:
         jm, tm = _few_includes(jm, tm, seed=2)
-    js, ts = jfreeze(jm, jcfg), freeze(tm, tcfg)
+    # With the sparsity image attached, the sparse paths run themselves.
+    js, ts = j_analyze(jfreeze(jm, jcfg)), analyze_sparsity(freeze(tm, tcfg))
     jp, tp_ = jpaths.get_path(path), tpaths.get_path(path)
+    assert tpaths.resolve_path(tp_, ts) is tp_
     assert tp_.input_form == jp.input_form
     raw = _raw(6, 11, 11, seed=3)
     jl = j_apply_ingress(jp.ingress_spec(jcfg.patch), jnp.asarray(raw))
@@ -108,10 +113,10 @@ def test_run_path_matches_reference(path, few):
 
 
 def test_paths_at_paper_geometry_match_reference():
-    """All four paths on the paper configuration, a few-include pool."""
+    """Every path on the paper configuration, a few-include pool."""
     jm, jcfg, tm, tcfg = _models({}, 128, seed=4)
     jm, tm = _few_includes(jm, tm, seed=5)
-    js, ts = jfreeze(jm, jcfg), freeze(tm, tcfg)
+    js, ts = j_analyze(jfreeze(jm, jcfg)), analyze_sparsity(freeze(tm, tcfg))
     raw = _raw(2, 28, 28, seed=6)
     want = None
     for path in PATHS:
@@ -182,7 +187,8 @@ def test_matmul_path_clause_eval_matches_dense():
 @pytest.fixture(scope="module")
 def paper_engines():
     """JAX and port engines, max_batch=8, serving the same boundary model of
-    the paper configuration on the fused path, plus a few-include pool."""
+    the paper configuration on the fused path, plus a few-include pool;
+    each also under ``<model>/<path>`` on the kernel and sparse paths."""
     jm, jcfg, tm, tcfg = _models({}, 128, seed=0)
     jf, tf = _few_includes(jm, tm, seed=11)
     je = JServingEngine(max_batch=8)
@@ -190,6 +196,9 @@ def paper_engines():
     for name, (jmod, tmod) in {"boundary": (jm, tm), "few": (jf, tf)}.items():
         je.register(name, jmod, jcfg, path="fused")
         te.register(name, tmod, tcfg, path="fused")
+        for path in NEW_PATHS:
+            je.register(f"{name}/{path}", jmod, jcfg, path=path)
+            te.register(f"{name}/{path}", tmod, tcfg, path=path)
     return je, te
 
 
@@ -203,6 +212,38 @@ def test_engine_classify_matches_reference(paper_engines, n, model):
     np.testing.assert_array_equal(want.class_sums, got.class_sums)
     assert got.predictions.dtype == np.int32 and got.class_sums.shape == (n, 10)
     assert got.bucket == {1: 1, 5: 8, 9: 8}[n]
+
+
+@pytest.mark.parametrize("model", ["boundary", "few"])
+@pytest.mark.parametrize("path", NEW_PATHS)
+def test_engine_new_paths_match_reference(paper_engines, path, model):
+    je, te = paper_engines
+    name = f"{model}/{path}"
+    assert te.resolved_path(name) == path
+    raw = _raw(5, 28, 28, seed=20)
+    want, got = je.classify(name, raw), te.classify(name, raw)
+    np.testing.assert_array_equal(want.predictions, got.predictions)
+    np.testing.assert_array_equal(want.class_sums, got.class_sums)
+    assert got.bucket == 8
+    if model == "few":
+        assert got.class_sums.any()
+
+
+def test_resolved_path_names_the_path_that_runs():
+    jm, jcfg, tm, tcfg = _models(EDGE, 37, seed=6)
+    te = ServingEngine(max_batch=4, device="cpu")
+    for path in PATHS:
+        te.register(path, tm, tcfg, path=path)
+        assert te.resolved_path(path) == path
+    # A servable carrying no sparsity image (as registered by a caller that
+    # bypasses the analysis) resolves each sparse path to its dense twin.
+    bare = freeze(tm, tcfg)
+    for path in ("sparse", "fused_sparse", "matmul_sparse"):
+        te._servables[path].servable = bare
+        assert te.resolved_path(path) == tpaths.get_path(path).fallback
+        raw = _raw(3, 11, 11, seed=21)
+        np.testing.assert_array_equal(te.classify(path, raw).class_sums,
+                                      te.classify("dense", raw).class_sums)
 
 
 def test_engine_buckets_stats_and_validation():
@@ -222,7 +263,7 @@ def test_engine_buckets_stats_and_validation():
     with pytest.raises(ValueError, match="empty"):
         te.classify("m", np.zeros((0, 11, 11), np.uint8))
     with pytest.raises(KeyError, match="unknown eval path"):
-        te.register("x", tm, tcfg, path="sparse")
+        te.register("x", tm, tcfg, path="no_such_path")
 
 
 def test_register_leaves_a_given_servable_in_place():
