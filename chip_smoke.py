@@ -7,17 +7,20 @@ Run from the root of a checkout (it imports ``src/repro_torch`` beside
 this file and builds the CUDA kernels from ``src/repro_torch/csrc``).
 
   1. environment: the card's name and power limit (``nvidia-smi``), the
-     torch and CUDA versions, and the kernels' build time (one ``nvcc``
-     per source, all started together);
+     torch and CUDA versions, the integer ceiling (SMs x 64 results per
+     clock x the highest SM clock), and the kernels' build time (one
+     ``nvcc`` per source, all started together; with a ``git archive``
+     export of the parent commit in ``_parent/``, its sources too);
   2. each CUDA kernel against its plain PyTorch version on the card,
      ``torch.equal`` after a synchronise (every output is an integer):
-     the ingress kernel over four geometries; the fused, clause-eval,
-     sparse clause-eval and sparse fused kernels over the reference's
-     kernel sweep with CSRF on and off, both density extremes, a
-     saturating pool and the envelope corner; the sparse kernels also at
-     C_a of 0, 1 and 37 and on ``analyze_sparsity(pad_to=...)`` images;
-     the class-sum kernel at (B, C, M) = (256, 128, 10), (3, 70, 10) and
-     (2, 1024, 64);
+     the ingress kernel over six geometries (one with rows and windows
+     wider than 32 columns, one whose words exceed the kernel's shared
+     tile); the fused, clause-eval, sparse clause-eval
+     and sparse fused kernels over the reference's kernel sweep with
+     CSRF on and off, both density extremes, a saturating pool and the
+     envelope corner; the sparse kernels also at C_a of 0, 1 and 37 and
+     on ``analyze_sparsity(pad_to=...)`` images; the class-sum kernel at
+     (B, C, M) = (256, 128, 10), (3, 70, 10) and (2, 1024, 64);
   3. the main paths: ``ServingEngine.register`` -> ``classify`` of the
      ``convcotm-mnist`` configuration (full width, seeded weights) with
      requests of 1, 3, 64, 256 and 300 images.  First the ``fused`` path
@@ -32,12 +35,14 @@ this file and builds the CUDA kernels from ``src/repro_torch/csrc``).
      ``kernel`` path's class sums;
   4. times at bucket 256 with CUDA events (median of repeats after
      warm-up; a spin kernel holds the card while the host enqueues each
-     window, so the times are the card's): each kernel and its plain
-     version beside the least time
-     the card could take (and, for the class sums, one ``torch.matmul``),
-     classify throughput at bucket 256 and latency at bucket 1 on
-     ``fused`` and ``fused_sparse``, a profile of each; then one
-     ``{"kernels": [...]}`` line.
+     window, so the times are the card's): the ingress kernel, each tile
+     kernel on the boundary and the few-include pool, and the class
+     sums, each beside its plain version, the least time the card could
+     take, the parent commit's kernel when ``_parent/`` holds it (timed
+     in turns: parent, this tree, this tree, parent) and, for the class
+     sums, one ``torch.matmul``; classify throughput at bucket 256 and
+     latency at bucket 1 on ``fused`` and ``fused_sparse``, a profile of
+     each; then one ``{"kernels": [...]}`` line.
 
 The last line is ``{"ok": true, "device": {...}}``.  Any failed phase
 raises and exits non-zero, as does a run without CUDA or outside the
@@ -46,6 +51,7 @@ repository.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import statistics
 import subprocess
@@ -54,10 +60,14 @@ import time
 from pathlib import Path
 
 SEED = 0
-#: H100 SXM published peaks (NVIDIA data sheet): HBM3 bandwidth, and the
-#: 32-bit rate outside the tensor cores, used as the integer-op ceiling.
+#: H100 SXM published HBM3 bandwidth (NVIDIA data sheet).
 HBM_BYTES_PER_S = 3.35e12
-INT32_OPS_PER_S = 67e12
+#: 32-bit integer and logic results per clock per SM on compute capability
+#: 9.0 (CUDA C++ Programming Guide, arithmetic instruction throughput).
+INT32_PER_CLOCK_PER_SM = 64
+#: A git-archive export of the parent commit; when present, its kernels
+#: are built and timed beside this tree's, in the same run on one card.
+PARENT = Path(__file__).resolve().parent / "_parent"
 #: Longest spin before a timed window, in clock cycles (~34 ms at 2 GHz).
 MAX_HOLD_CYCLES = 1 << 26
 #: The eval paths of the second drive, and the kernels of the first.
@@ -115,10 +125,49 @@ def time_ms(fn, *, inner: int, repeats: int = 11, warmup: int = 3) -> tuple[floa
     return statistics.median(samples), held_all
 
 
-def bound(nbytes: float, ops: float) -> tuple[float, str]:
+def int32_ops_per_s() -> float:
+    """The card's integer/logic ceiling: SMs x 64 results per clock x the
+    highest SM clock ``nvidia-smi`` reports."""
+    import torch
+
+    mhz = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.split()[0]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return sms * INT32_PER_CLOCK_PER_SM * float(mhz) * 1e6
+
+
+def bound(nbytes: float, ops: float, ops_per_s: float) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / INT32_OPS_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def start_parent_build(build_mod):
+    """One ``nvcc`` per kernel source of ``PARENT``, started now, with this
+    tree's flags, into ``PARENT/build``; None without a parent export."""
+    csrc = PARENT / "src" / "repro_torch" / "csrc"
+    if not csrc.is_dir():
+        return None
+    out = PARENT / "build"
+    out.mkdir(exist_ok=True)
+    procs = {}
+    for name in build_mod.SOURCES:
+        cmd = [build_mod.nvcc_path(), *build_mod.NVCC_FLAGS, "-o", str(out / f"lib{name}.so"),
+               str(csrc / f"{name}.cu")]
+        procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                       stderr=subprocess.STDOUT, text=True)
+    return procs
+
+
+def finish_parent_build(procs) -> Path:
+    """Waits for :func:`start_parent_build`'s compilers; the directory of
+    the parent's libraries, for ``_build.libraries_from``."""
+    for name, proc in procs.items():
+        out, _ = proc.communicate()
+        check(proc.returncode == 0, f"parent {name}.cu did not build:\n{out}")
+    return PARENT / "build"
 
 
 def fused_word_tests(lit, inc, ne) -> int:
@@ -240,9 +289,18 @@ def main() -> int:
     print(f"[env] python {sys.version.split()[0]} torch {torch.__version__} "
           f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
     t = time.perf_counter()
+    parent_procs = start_parent_build(_build)
     _build.build_all()
+    for name in _build.SOURCES:
+        _build.library(name)
+    parent_dir = finish_parent_build(parent_procs) if parent_procs else None
     build_s = time.perf_counter() - t
-    print(f"[env] built {list(_build.SOURCES)} in {build_s:.2f} s")
+    print(f"[env] built {list(_build.SOURCES)} in {build_s:.2f} s"
+          f"{' (and the parent commit from _parent/)' if parent_dir else ''}")
+    ops_per_s = int32_ops_per_s()
+    print(f"[env] integer ceiling {ops_per_s:.4g} results/s "
+          f"({torch.cuda.get_device_properties(0).multi_processor_count} SMs x "
+          f"{INT32_PER_CLOCK_PER_SM}/clock x max SM clock)")
     for name, log in _build.PTXAS_LOG.items():
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
@@ -287,6 +345,11 @@ def main() -> int:
         "stride2": PatchSpec(image_x=12, image_y=12, window_x=4, window_y=4,
                              stride_x=2, stride_y=2),
         "whole_image": PatchSpec(image_x=11, image_y=9, window_x=11, window_y=9),
+        "wide": PatchSpec(image_x=48, image_y=20, window_x=36, window_y=6,
+                          stride_x=3, stride_y=2),
+        # P*W = 3025 x 13 words, past the kernel's shared tile: the patch
+        # loop runs in chunks.
+        "chunked": PatchSpec(image_x=64, image_y=64, window_x=10, window_y=10),
     }
     for name, spec in ingress_specs.items():
         for b in (1, 5, 256):
@@ -496,112 +559,118 @@ def main() -> int:
     # --- 4. times at bucket 256 ----------------------------------------------
     b = 256
     spec = cfg.patch
-    sm = freeze(model, cfg).to(dev)
     raw = torch.from_numpy(rng.integers(0, 256, (b, 28, 28), dtype=np.uint8)).to(dev)
     bool_imgs = threshold_booleanize(raw, 75)
     lits = ops.ingress_pack(bool_imgs, spec)
-    fargs = (lits, sm.include_packed, sm.nonempty, sm.weights)
-    # The new kernels are timed on the few-include pool with ~40% empty
-    # clauses (a boundary pool never fires, so its clause tests never stop
-    # early); class sums over that pool's fired bits.
+    p, w, c, m = spec.n_patches, spec.n_words, cfg.n_clauses, cfg.n_classes
+    lit_bytes = b * p * w * 4
+    # Each tile kernel on two pools: boundary (C_a = C, nothing fires, and
+    # every clause fails on its first word of every patch) and few40
+    # (clauses fire, C_a = 88).  The class sums take few40's fired bits.
+    # A case: (kernel, pool, kernel call, plain call, (bytes, operations)).
+    # Bytes: each input read once, each output written once.  Operations:
+    # one per output word (ingress), one LOP3 per word test these inputs
+    # need (tile kernels), one multiply-add per (image, class, clause)
+    # (class sums).
+    cases = [("ingress_pack", None,
+              lambda: ops.ingress_pack(bool_imgs, spec),
+              lambda: ops.ingress_pack(bool_imgs, spec, backend="plain"),
+              (b * spec.image_y * spec.image_x + lit_bytes, b * p * w))]
+    c_as = {}
+    for pool in ("boundary", "few40"):
+        sv = placed[pool, "kernel"]
+        sp = placed[pool, "fused_sparse"].sparsity
+        c_a = c_as[pool] = sp.n_active
+        dense_tests = fused_word_tests(lits, sv.include_packed, sv.nonempty)
+        sparse_tests = fused_word_tests(lits, ~sp.exclude_packed,
+                                        torch.ones(c_a, dtype=torch.bool, device=dev))
+        for name, args, cost in (
+            ("fused_infer", (lits, sv.include_packed, sv.nonempty, sv.weights),
+             (lit_bytes + c * w * 4 + c + m * c + b * m * 4, dense_tests)),
+            ("fused_infer_sparse", (lits, sp.exclude_packed, sp.weights),
+             (lit_bytes + c_a * w * 4 + m * c_a + b * m * 4, sparse_tests)),
+            ("clause_eval", (lits, sv.include_packed, sv.nonempty),
+             (lit_bytes + c * w * 4 + c + b * c, dense_tests)),
+            ("clause_eval_sparse", (lits, sp.exclude_packed),
+             (lit_bytes + c_a * w * 4 + b * c_a, sparse_tests)),
+        ):
+            fn = getattr(ops, name)
+            cases.append((name, pool, lambda fn=fn, a=args: fn(*a),
+                          lambda fn=fn, a=args: fn(*a, backend="plain"), cost))
     s40 = placed["few40", "kernel"]
-    sp40 = placed["few40", "fused_sparse"].sparsity
-    c_a = sp40.n_active
-    cargs = (lits, s40.include_packed, s40.nonempty)
-    sargs = (lits, sp40.exclude_packed)
-    fsargs = (lits, sp40.exclude_packed, sp40.weights)
-    fired40 = ops.clause_eval(*cargs)
+    fired40 = ops.clause_eval(lits, s40.include_packed, s40.nonempty)
     csargs = (fired40, s40.weights)
     fired_f = fired40.to(torch.float32)                  # library inputs, made once
     weights_ft = s40.weights.to(torch.float32).t().contiguous()
+    cases.append(("class_sum", "few40", lambda: ops.class_sum(*csargs),
+                  lambda: ops.class_sum(*csargs, backend="plain"),
+                  (b * c + m * c + b * m * 4, b * m * c)))
     torch.cuda.synchronize()
-
-    errs = {
-        "ingress_pack": (ops.ingress_pack(bool_imgs, spec),
-                         ops.ingress_pack(bool_imgs, spec, backend="plain")),
-        "fused_infer": (ops.fused_infer(*fargs), ops.fused_infer(*fargs, backend="plain")),
-        "fused_infer_sparse": (ops.fused_infer_sparse(*fsargs),
-                               ops.fused_infer_sparse(*fsargs, backend="plain")),
-        "clause_eval": (ops.clause_eval(*cargs), ops.clause_eval(*cargs, backend="plain")),
-        "clause_eval_sparse": (ops.clause_eval_sparse(*sargs),
-                               ops.clause_eval_sparse(*sargs, backend="plain")),
-        "class_sum": (ops.class_sum(*csargs), ops.class_sum(*csargs, backend="plain")),
-    }
-    max_abs = {k: int((got.long() - want.long()).abs().max())
-               for k, (got, want) in errs.items()}
-    check(all(v == 0 for v in max_abs.values()), f"kernel/plain differ at B=256: {max_abs}")
-    check(torch.equal(torch.matmul(fired_f, weights_ft).to(torch.int32), errs["class_sum"][0]),
+    check(torch.equal(torch.matmul(fired_f, weights_ft).to(torch.int32),
+                      ops.class_sum(*csargs)),
           "torch.matmul class sums differ from the class_sum kernel")
 
-    p, w, c, m = spec.n_patches, spec.n_words, cfg.n_clauses, cfg.n_classes
-    lit_bytes = b * p * w * 4
-    every_active = torch.ones(c_a, dtype=torch.bool, device=dev)
-    sparse_tests = fused_word_tests(lits, ~sp40.exclude_packed, every_active)
-    cost = {   # (bytes each input read once and each output written once, operations)
-        "ingress_pack": (b * spec.image_y * spec.image_x + lit_bytes,
-                         b * p * spec.n_literals),      # one operation per literal bit
-        "fused_infer": (lit_bytes + c * w * 4 + c + m * c + b * m * 4,
-                        2 * fused_word_tests(*fargs[:3])),   # AND-NOT and test per word
-        "fused_infer_sparse": (lit_bytes + c_a * w * 4 + m * c_a + b * m * 4,
-                               2 * sparse_tests),       # OR-NOT and test per word
-        "clause_eval": (lit_bytes + c * w * 4 + c + b * c,
-                        2 * fused_word_tests(*cargs)),
-        "clause_eval_sparse": (lit_bytes + c_a * w * 4 + b * c_a, 2 * sparse_tests),
-        "class_sum": (b * c + m * c + b * m * 4, 2 * b * m * c),
-    }
-    calls = {
-        "ingress_pack": (lambda: ops.ingress_pack(bool_imgs, spec),
-                         lambda: ops.ingress_pack(bool_imgs, spec, backend="plain")),
-        "fused_infer": (lambda: ops.fused_infer(*fargs),
-                        lambda: ops.fused_infer(*fargs, backend="plain")),
-        "fused_infer_sparse": (lambda: ops.fused_infer_sparse(*fsargs),
-                               lambda: ops.fused_infer_sparse(*fsargs, backend="plain")),
-        "clause_eval": (lambda: ops.clause_eval(*cargs),
-                        lambda: ops.clause_eval(*cargs, backend="plain")),
-        "clause_eval_sparse": (lambda: ops.clause_eval_sparse(*sargs),
-                               lambda: ops.clause_eval_sparse(*sargs, backend="plain")),
-        "class_sum": (lambda: ops.class_sum(*csargs),
-                      lambda: ops.class_sum(*csargs, backend="plain")),
-    }
     rows = []
-    for name, (fn, plain_fn) in calls.items():
-        k = registry.KERNELS[name]
-        ms, held = time_ms(fn, inner=20)
+    for name, pool, fn, plain_fn, (nbytes, nops) in cases:
+        got, want = fn(), plain_fn()
+        if parent_dir:
+            with _build.libraries_from(parent_dir):
+                old_out = fn()
+            torch.cuda.synchronize()
+            check(torch.equal(old_out, want), f"the parent's {name} differs from plain ({pool})")
+        torch.cuda.synchronize()
+        err = int((got.long() - want.long()).abs().max()) if want.numel() else 0
+        check(err == 0, f"{name} ({pool}) differs from plain at B=256: {err}")
+        # Turns: parent, this tree, this tree, parent.
+        t_new, t_old, unheld = [], [], []
+        for turn in ("parent", "new", "new", "parent"):
+            if turn == "parent" and not parent_dir:
+                continue
+            with (_build.libraries_from(parent_dir) if turn == "parent"
+                  else contextlib.nullcontext()):
+                t, held = time_ms(fn, inner=20)
+            (t_old if turn == "parent" else t_new).append(t)
+            if not held:
+                unheld.append("parent_ms" if turn == "parent" else "ms")
+        ms = statistics.mean(t_new)
+        parent_ms = statistics.mean(t_old) if t_old else None
         plain_ms, plain_held = time_ms(plain_fn, inner=3, repeats=5, warmup=1)
         library_ms, lib_held = (time_ms(lambda: torch.matmul(fired_f, weights_ft), inner=20)
                                 if name == "class_sum" else (None, True))
-        unheld = [k for k, h in (("ms", held), ("plain_ms", plain_held),
-                                 ("library_ms", lib_held)) if not h]
-        nbytes, nops = cost[name]
-        bound_ms, bound_by = bound(nbytes, nops)
+        unheld += [k for k, h in (("plain_ms", plain_held), ("library_ms", lib_held)) if not h]
+        bound_ms, bound_by = bound(nbytes, nops, ops_per_s)
         # Launches on the main paths: both serving drives; class_sum, which
         # no path calls, from its own window.
         count = (launches3[name] if name == "class_sum"
                  else launches[name] + launches2[name])
+        k = registry.KERNELS[name]
         rows.append({
             "name": name, "route": "cuda", "source": k.source, "replaces": k.replaces,
-            "launches": count, "max_abs_err": max_abs[name],
+            "pool": pool, "launches": count, "max_abs_err": err,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": library_ms,
+            # The parent commit's kernel on the same inputs, in turns with
+            # this tree's (null without a parent export).
+            "parent_ms": parent_ms,
             # The times above that include host gaps (see time_ms).
-            "host_gaps_in": unheld,
+            "host_gaps_in": sorted(set(unheld)),
         })
         lib = f", torch.matmul {library_ms:.5f} ms" if library_ms is not None else ""
-        print(f"[time] {name} B={b}: kernel {ms:.5f} ms, plain {plain_ms:.5f} ms{lib}, "
-              f"bound {bound_ms:.5f} ms ({bound_by}: {nbytes} B, {nops} ops)"
-              f"{f'; C_a={c_a}' if 'sparse' in name else ''}"
-              f"{f'; host gaps in {unheld}' if unheld else ''}")
+        old = (f", parent {parent_ms:.5f} ms (turns {', '.join(f'{x:.5f}' for x in t_old)}; "
+               f"this tree {', '.join(f'{x:.5f}' for x in t_new)})" if t_old else "")
+        print(f"[time] {name} B={b}{f' {pool} pool' if pool else ''}"
+              f"{f' (C_a={c_as[pool]})' if 'sparse' in name else ''}: kernel {ms:.5f} ms"
+              f"{old}, plain {plain_ms:.5f} ms{lib}, bound {bound_ms:.5f} ms "
+              f"({bound_by}: {nbytes} B, {nops} ops)"
+              f"{f'; host gaps in {sorted(set(unheld))}' if unheld else ''}")
 
-    # How far CSRF can cut the patch loop on this pool: a block's vote ends
-    # it early only on an image where every active clause of the tile fires.
+    # How often CSRF can end a clause's patch walk early on this pool: a
+    # clause stops at the first patch group where it fires.
     live = fired40[:, s40.nonempty.to(torch.bool)]
-    print(f"[csrf] few40 pool, B={b}: {int(live.all(dim=1).sum())} of {b} images fire all "
-          f"{c_a} active clauses; {int((live.sum(dim=0) == 0).sum())} active clauses fire "
-          f"on no image")
-    dense40_ms, _ = time_ms(lambda: ops.fused_infer(lits, s40.include_packed, s40.nonempty,
-                                                    s40.weights), inner=20)
-    print(f"[time] fused_infer B={b} on the few40 pool (C={c}, C_a={c_a}): kernel "
-          f"{dense40_ms:.5f} ms")
+    print(f"[csrf] few40 pool, B={b}: {int(live.sum())} of {live.numel()} (image, active "
+          f"clause) pairs fire and stop early; {int(live.all(dim=1).sum())} of {b} images "
+          f"fire all {c_as['few40']} active clauses; {int((live.sum(dim=0) == 0).sum())} "
+          f"active clauses fire on no image")
 
     imgs256, img1 = requests[3], requests[0]
     sparse_name = f"{arch}/boundary/fused_sparse"

@@ -6,11 +6,13 @@
 // runs it as a float32 matmul on the MXU, exact because |v| <= 127 * C;
 // here it is integer arithmetic throughout, exact by construction.
 //
-// Bound on this card: bytes.  The work is 2*B*M*C integer operations on
-// B*C + M*C input bytes (a few hundred thousand operations at the paper's
-// geometry, far below a microsecond at either peak), so a launch of this
-// size is bound by its latency, and the design keeps it to one pass with
-// no second kernel, no atomics and no zeroing of the output.
+// Bound on this card: operations.  The work is B*M*C integer multiply-adds
+// (one IMAD, one result, per image, class and clause) on B*C + M*C input
+// bytes and 4*B*M output bytes.  At the paper's geometry and B=256 that is
+// 327,680 operations, 0.0196 us at 64 results per clock per SM on 132 SMs
+// at 1.98 GHz, against 0.0132 us for the 44 KB at 3.35 TB/s.  Both are far
+// below a launch's latency, so the design keeps it to one pass with no
+// second kernel, no atomics and no zeroing of the output.
 //
 // Design, against the TPU kernel's sequential grid (which carries the
 // f32 accumulator across clause blocks in the output tile): one warp owns

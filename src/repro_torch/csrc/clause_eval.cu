@@ -12,51 +12,48 @@
 //     words and tests the count against 0; here the first violated word
 //     ends the test, which decides the same thing.
 //
-// Bound on this card: as for fused_infer.cu, the packed literals are the
-// only large input, and most clauses are violated on the first word, so
-// the bound is reading each literal word once; the output is one byte per
-// (image, clause).
+// Bound on this card: bytes, as for fused_infer.cu (clause_tile.cuh gives
+// the numbers); the output adds one byte per (image, clause).
 //
-// Design: the block, patch loop, shared-memory model tile and CSRF vote
-// are those of the fused kernel (clause_tile.cuh), one block per image
-// and tile of up to 128 clauses.  The epilogue writes one uint8 per
-// (image, clause) straight from the OR register: no int32 output, no
-// cast on the host, and no atomics, since each block owns its outputs.
-// Rows of the tile past C write nothing; empty clauses write 0.
+// Design: the block, staging, patch loop and per-clause CSRF are those
+// of the fused kernel (clause_tile.cuh), one block per image and tile of
+// up to 128 clauses.  The epilogue writes one uint8 per (image, clause)
+// straight from the tile's fired flags: no int32 output, no cast on the
+// host, and no atomics, since each block owns its outputs.  Rows of the
+// tile past C write nothing; empty clauses write 0.
 
 #include "clause_tile.cuh"
 
 namespace {
 
-using clause_tile::kLanes;
-
 template <bool kSparse>
-__global__ void clause_eval_kernel(const int32_t* __restrict__ lit,      // [B, P, W]
-                                   const int32_t* __restrict__ model,    // [C, W]
-                                   const uint8_t* __restrict__ nonempty, // [C]
-                                   uint8_t* __restrict__ out,            // [B, C]
-                                   int P, int C, int W, int csrf) {
+__global__ void __launch_bounds__(32 * clause_tile::kMaxWarps, 2)
+clause_eval_kernel(const int32_t* __restrict__ lit,      // [B, P, W]
+                   const int32_t* __restrict__ model,    // [C, W]
+                   const uint8_t* __restrict__ nonempty, // [C] or null
+                   uint8_t* __restrict__ out,            // [B, C]
+                   int P, int C, int W, int block_c, int chunk, int csrf) {
   const int b = blockIdx.x;
-  const int c0 = blockIdx.y * blockDim.x;
-  const int c = c0 + threadIdx.x;
-  const bool valid = c < C;
-  const bool live = valid && (kSparse || nonempty[c] != 0);
-  const bool f = clause_tile::tile_fires<kSparse>(lit + (size_t)b * P * W, model, P, C, W,
-                                                  c0, live, csrf);
-  if (threadIdx.y == 0 && valid) out[(size_t)b * C + c] = f ? 1 : 0;
+  const int c0 = blockIdx.y * block_c;
+  const int* fired = clause_tile::tile_fires<kSparse>(
+      lit + (size_t)b * P * W, model, nonempty, P, C, W, c0, block_c, chunk, csrf);
+  const int rows = min(block_c, C - c0);
+  for (int k = threadIdx.x; k < rows; k += blockDim.x)
+    out[(size_t)b * C + c0 + k] = (uint8_t)fired[k];
 }
 
 template <bool kSparse>
 int launch(const void* lit, const void* model, const void* nonempty, void* out, int B,
            int P, int C, int W, int block_c, int csrf, void* stream) {
-  const int smem = clause_tile::smem_bytes(block_c, W);
+  int smem = 0;
+  const int chunk = clause_tile::plan_chunk(P, W, block_c, &smem);
   cudaError_t e = clause_tile::allow_smem(clause_eval_kernel<kSparse>, smem);
   if (e != cudaSuccess) return (int)e;
   dim3 grid(B, (C + block_c - 1) / block_c);
-  dim3 block(block_c, kLanes);
-  clause_eval_kernel<kSparse><<<grid, block, smem, (cudaStream_t)stream>>>(
+  clause_eval_kernel<kSparse><<<grid, 32 * clause_tile::warps_for(block_c), smem,
+                                (cudaStream_t)stream>>>(
       (const int32_t*)lit, (const int32_t*)model, (const uint8_t*)nonempty,
-      (uint8_t*)out, P, C, W, csrf);
+      (uint8_t*)out, P, C, W, block_c, chunk, csrf);
   return (int)cudaGetLastError();
 }
 

@@ -12,55 +12,54 @@
 //     zero weight column) fire everywhere and add nothing.
 // Class sums are sum_c w[m][c] * fired[c] in int32.
 //
-// Bound on this card: bytes while work stops early, operations when it
-// does not.  The packed literals are the only large input (P*W words per
-// image, 12,996 B at the paper's geometry); the test is one or two bit
-// operations per word, and most clauses of a real pool are violated on
-// the first word, so the kernel must above all read each literal word
-// once and keep every thread busy.
+// Bound on this card: bytes (clause_tile.cuh gives the numbers).  The
+// packed literals are the only large input (P*W words per image, 12,996 B
+// at the paper's geometry), and the operation floor is one test per word
+// the data needs, which at B=256 stays below the byte time.
 //
 // Design, against the TPU kernel's sequential grid: the Pallas grid runs
 // in order and carries the OR register across patch chunks and the class
 // sums across clause blocks.  CUDA blocks run in parallel and in no
 // order, so here one block owns one image and one tile of up to 128
-// clauses and runs the patch loop itself (clause_tile.cuh: model words in
-// shared memory, 4 patch lanes, CSRF as a __syncthreads_and vote), and
-// clause tiles combine their partial class sums with int32 atomicAdd,
-// exact in any order; the caller zeroes the output.  At the envelope
-// (C=1024, W=256) a tile's words take 132 KB of shared memory, above the
-// 48 KB default, so the launch raises the kernel's limit.
+// clauses and runs the patch loop itself (clause_tile.cuh: the image's
+// literals staged once with cp.async, lanes on patches, each warp on an
+// equal share of the live clauses, CSRF per clause), and clause tiles
+// combine their partial class sums with int32 atomicAdd, exact in any
+// order; the caller zeroes the output.  The epilogue reads the tile's
+// fired flags from shared memory: warp j sums classes j, j + warps, ...,
+// one shuffle reduction and one atomicAdd each.
 
 #include "clause_tile.cuh"
 
 namespace {
 
-using clause_tile::kLanes;
-
 // model: include words (dense) or exclude words (sparse), [C, W];
-// nonempty: [C] on the dense path, unused on the sparse one.
+// nonempty: [C] on the dense path, null on the sparse one.
 template <bool kSparse>
-__global__ void fused_infer_kernel(const int32_t* __restrict__ lit,      // [B, P, W]
-                                   const int32_t* __restrict__ model,    // [C, W]
-                                   const uint8_t* __restrict__ nonempty, // [C]
-                                   const int8_t* __restrict__ weights,   // [M, C]
-                                   int32_t* __restrict__ out,            // [B, M]
-                                   int P, int C, int W, int M, int csrf) {
+__global__ void __launch_bounds__(32 * clause_tile::kMaxWarps, 2)
+fused_infer_kernel(const int32_t* __restrict__ lit,      // [B, P, W]
+                   const int32_t* __restrict__ model,    // [C, W]
+                   const uint8_t* __restrict__ nonempty, // [C] or null
+                   const int8_t* __restrict__ weights,   // [M, C]
+                   int32_t* __restrict__ out,            // [B, M]
+                   int P, int C, int W, int M, int block_c, int chunk,
+                   int csrf) {
   const int b = blockIdx.x;
-  const int c0 = blockIdx.y * blockDim.x;
-  const int tx = threadIdx.x;
-  const int ty = threadIdx.y;
-  const int c = c0 + tx;
-  const bool valid = c < C;
-  const bool live = valid && (kSparse || nonempty[c] != 0);
-  const bool f = clause_tile::tile_fires<kSparse>(lit + (size_t)b * P * W, model, P, C, W,
-                                                  c0, live, csrf);
+  const int c0 = blockIdx.y * block_c;
+  const int* fired = clause_tile::tile_fires<kSparse>(
+      lit + (size_t)b * P * W, model, nonempty, P, C, W, c0, block_c, chunk, csrf);
 
-  // Class sums of this tile: warp (ty, 32 clauses) reduces classes
-  // m = ty, ty + kLanes, ... and adds its partial sum to out[b][m].
-  for (int m = ty; m < M; m += blockDim.y) {
-    int v = f ? (int)weights[(size_t)m * C + c] : 0;
+  // Class sums of this tile: warp j reduces classes m = j, j + warps, ...
+  // and adds its partial sum to out[b][m].
+  const int rows = min(block_c, C - c0);
+  const int lane = threadIdx.x & 31;
+  const int nwarps = blockDim.x >> 5;
+  for (int m = threadIdx.x >> 5; m < M; m += nwarps) {
+    const int8_t* wm = weights + (size_t)m * C + c0;
+    int v = 0;
+    for (int k = lane; k < rows; k += 32) v += fired[k] ? (int)wm[k] : 0;
     for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-    if ((tx & 31) == 0 && v != 0) atomicAdd(out + (size_t)b * M + m, v);
+    if (lane == 0 && v != 0) atomicAdd(out + (size_t)b * M + m, v);
   }
 }
 
@@ -68,14 +67,15 @@ template <bool kSparse>
 int launch(const void* lit, const void* model, const void* nonempty, const void* weights,
            void* out, int B, int P, int C, int W, int M, int block_c, int csrf,
            void* stream) {
-  const int smem = clause_tile::smem_bytes(block_c, W);
+  int smem = 0;
+  const int chunk = clause_tile::plan_chunk(P, W, block_c, &smem);
   cudaError_t e = clause_tile::allow_smem(fused_infer_kernel<kSparse>, smem);
   if (e != cudaSuccess) return (int)e;
   dim3 grid(B, (C + block_c - 1) / block_c);
-  dim3 block(block_c, kLanes);
-  fused_infer_kernel<kSparse><<<grid, block, smem, (cudaStream_t)stream>>>(
+  fused_infer_kernel<kSparse><<<grid, 32 * clause_tile::warps_for(block_c), smem,
+                                (cudaStream_t)stream>>>(
       (const int32_t*)lit, (const int32_t*)model, (const uint8_t*)nonempty,
-      (const int8_t*)weights, (int32_t*)out, P, C, W, M, csrf);
+      (const int8_t*)weights, (int32_t*)out, P, C, W, M, block_c, chunk, csrf);
   return (int)cudaGetLastError();
 }
 

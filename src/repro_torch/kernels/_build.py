@@ -8,14 +8,19 @@ where ``<hash>`` covers the source text, the shared headers
 builds anew, an unchanged one loads the library already there.
 
 :func:`build_all` starts one ``nvcc`` per source, all at once, and waits
-for them; :func:`library` builds (if needed) and loads one.  Every C entry
-point returns ``cudaGetLastError()`` after its launch, and
-:func:`check` raises on a nonzero code.  A missing ``nvcc`` raises too:
+for them; :func:`library` builds (if needed) and loads one, and
+:func:`entry` gives a wrapper its C entry point with the argument types
+set.  :func:`libraries_from` puts another build of the same C interface
+(an earlier commit's, to time it beside this tree's) behind every
+wrapper for the length of a ``with`` block.  Every C entry point returns
+``cudaGetLastError()`` after its launch, and :func:`check` raises on a
+nonzero code.  A missing ``nvcc`` raises too:
 a CUDA tensor never falls back to the plain version.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -23,9 +28,11 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Sequence
 
-__all__ = ["SOURCES", "build_all", "check", "library", "nvcc_path"]
+__all__ = [
+    "SOURCES", "build_all", "check", "entry", "libraries_from", "library", "nvcc_path",
+]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -41,6 +48,10 @@ NVCC_FLAGS = (
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}
+#: Entry points with their argument types set, by (library, symbol).
+_entries: Dict[tuple, ctypes._CFuncPtr] = {}
+#: Libraries loaded by :func:`libraries_from`, by directory.
+_foreign: Dict[Path, Dict[str, ctypes.CDLL]] = {}
 #: ptxas resource report (registers, shared memory, spills) per library.
 PTXAS_LOG: Dict[str, str] = {}
 
@@ -98,14 +109,54 @@ def build_all(names: Iterable[str] = SOURCES) -> Dict[str, Path]:
         return targets
 
 
+def _open(path: Path) -> ctypes.CDLL:
+    return ctypes.CDLL(str(path))
+
+
 def library(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built on first use."""
     lib = _loaded.get(name)
     if lib is None:
         path = build_all([name])[name]
         with _lock:
-            lib = _loaded.setdefault(name, ctypes.CDLL(str(path)))
+            lib = _loaded.setdefault(name, _open(path))
     return lib
+
+
+def entry(name: str, symbol: str, argtypes: Sequence) -> ctypes._CFuncPtr:
+    """C entry point ``symbol`` of :func:`library` ``(name)``, returning a
+    C int, with ``argtypes`` set; cached per loaded library, so it follows
+    :func:`libraries_from`."""
+    lib = library(name)
+    fn = _entries.get((lib, symbol))
+    if fn is None:
+        fn = getattr(lib, symbol)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+        _entries[lib, symbol] = fn
+    return fn
+
+
+@contextlib.contextmanager
+def libraries_from(directory: Path):
+    """Inside the block, :func:`library` returns ``directory/lib<name>.so``
+    for every source (another build of the same C interface, such as the
+    parent commit's) in place of this tree's, and so every wrapper
+    launches that build's kernels; after it, this tree's again."""
+    directory = Path(directory)
+    libs = _foreign.get(directory)
+    if libs is None:
+        libs = _foreign[directory] = {n: _open(directory / f"lib{n}.so") for n in SOURCES}
+    with _lock:
+        saved = dict(_loaded)
+        _loaded.clear()
+        _loaded.update(libs)
+    try:
+        yield libs
+    finally:
+        with _lock:
+            _loaded.clear()
+            _loaded.update(saved)
 
 
 def check(name: str, code: int) -> None:

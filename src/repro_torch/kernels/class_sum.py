@@ -10,7 +10,6 @@ and the design).  :func:`class_sum_cuda` launches it;
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 
@@ -26,13 +25,10 @@ def class_sum_plain(fired: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
     return cl.class_sums(fired, weights)
 
 
-@functools.cache
 def _entry():
     """The C entry point, built and loaded on first use."""
-    fn = _build.library("class_sum").class_sum
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+    return _build.entry("class_sum", "class_sum",
+                        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
 
 
 def class_sum_cuda(fired: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:

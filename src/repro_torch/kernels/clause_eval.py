@@ -12,7 +12,6 @@ are the plain PyTorch versions.
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 
@@ -45,14 +44,11 @@ def clause_eval_sparse_plain(
     return cl.eval_clauses_sparse(lit_packed, exclude_packed)
 
 
-@functools.cache
 def _entry(name: str):
     """The C entry point ``name``, built and loaded on first use."""
-    fn = getattr(_build.library("clause_eval"), name)
     n_ptrs = 4 if name == "clause_eval" else 3
-    fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+    return _build.entry("clause_eval", name,
+                        [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 6 + [ctypes.c_void_p])
 
 
 def _launch(wrapper, name: str, ptrs, lit: torch.Tensor, c: int, csrf: bool) -> torch.Tensor:

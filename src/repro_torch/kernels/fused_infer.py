@@ -12,7 +12,6 @@ the patch axis in chunks so their ``[B, Pc, C, W]`` temporary stays small.
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 
@@ -49,14 +48,11 @@ def fused_infer_sparse_plain(
     return cl.class_sums(cl.eval_clauses_sparse(lit_packed, exclude_packed), weights_active)
 
 
-@functools.cache
 def _entry(name: str):
     """The C entry point ``name``, built and loaded on first use."""
-    fn = getattr(_build.library("fused_infer"), name)
     n_ptrs = 5 if name == "fused_infer" else 4
-    fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+    return _build.entry("fused_infer", name,
+                        [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 7 + [ctypes.c_void_p])
 
 
 def _check_weights(weights: torch.Tensor, c: int) -> None:

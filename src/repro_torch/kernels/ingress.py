@@ -11,7 +11,6 @@ kernel's yardstick on the card.
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 
@@ -23,11 +22,24 @@ from repro_torch.core.patches import (
 )
 from repro_torch.kernels import _build
 
-__all__ = ["ingress_pack_cuda", "ingress_pack_plain"]
+__all__ = ["ingress_pack_cuda", "ingress_pack_plain", "shared_bytes"]
 
-#: Shared memory one block may use on Hopper: the literal-code table
-#: (32 * W int32) and the image (Y * X bytes) must fit.
+#: Shared memory one block may use on Hopper: the image's row bitmasks
+#: and the output tile of :func:`shared_bytes` must fit.
 MAX_SHARED_BYTES = 232448
+#: Words of the kernel's shared output tile (``kTileWords``): an image
+#: whose P*W words exceed it is done in chunks of whole patches.
+TILE_WORDS = 12288
+
+
+def shared_bytes(spec: PatchSpec) -> int:
+    """Dynamic shared memory of one launch, as the C entry point sizes it:
+    Y rows of ceil(X / 32) + 1 words, and a tile of ``chunk`` patches of W
+    words (all P when they fit :data:`TILE_WORDS`, else as many whole
+    patches as fit, at least one)."""
+    p, w = spec.n_patches, spec.n_words
+    chunk = p if p * w <= TILE_WORDS else max(TILE_WORDS // w, 1)
+    return 4 * (spec.image_y * ((spec.image_x + 31) // 32 + 1) + chunk * w)
 
 
 def ingress_pack_plain(bool_images: torch.Tensor, spec: PatchSpec) -> torch.Tensor:
@@ -36,13 +48,10 @@ def ingress_pack_plain(bool_images: torch.Tensor, spec: PatchSpec) -> torch.Tens
     return pack_bits(make_literals(feats), spec.n_words)
 
 
-@functools.cache
 def _entry():
     """The C entry point, built and loaded on first use."""
-    fn = _build.library("ingress_pack").ingress_pack
-    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+    return _build.entry("ingress_pack", "ingress_pack",
+                        [ctypes.c_void_p] * 2 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
 
 
 def _check_spec(bool_images: torch.Tensor, spec: PatchSpec) -> None:
@@ -66,7 +75,7 @@ def ingress_pack_cuda(bool_images: torch.Tensor, spec: PatchSpec) -> torch.Tenso
     _check_spec(bool_images, spec)
     if not bool_images.is_cuda:
         raise ValueError("ingress_pack_cuda needs a CUDA tensor")
-    smem = 32 * spec.n_words * 4 + spec.image_y * spec.image_x
+    smem = shared_bytes(spec)
     if smem > MAX_SHARED_BYTES:
         raise ValueError(
             f"geometry needs {smem} bytes of shared memory per block; the "

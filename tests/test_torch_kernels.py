@@ -7,6 +7,8 @@ CUDA kernels themselves are held against these plain versions on the
 card by ``chip_smoke.py``.
 """
 
+import ctypes
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -18,7 +20,9 @@ from repro.kernels import ops as jops
 from repro.kernels import ref
 from repro_torch.convert import words_from_uint32, words_to_uint32
 from repro_torch.core.patches import PatchSpec
-from repro_torch.kernels import _build, ops, registry
+from repro_torch.kernels import (
+    _build, class_sum, clause_eval, fused_infer, ingress, ops, registry,
+)
 from repro_torch.kernels.class_sum import class_sum_cuda
 from repro_torch.kernels.clause_eval import clause_eval_cuda, clause_eval_sparse_cuda
 from repro_torch.kernels.fused_infer import fused_infer_cuda, fused_infer_sparse_cuda
@@ -38,6 +42,8 @@ INGRESS_GEOMETRIES = {
     "noisy_xor": dict(image_x=4, image_y=4, window_x=2, window_y=2),
     "stride2": dict(image_x=12, image_y=12, window_x=4, window_y=4, stride_x=2, stride_y=2),
     "whole_image": dict(image_x=11, image_y=9, window_x=11, window_y=9),
+    # Rows and window runs wider than 32 columns, W even.
+    "wide": dict(image_x=48, image_y=20, window_x=36, window_y=6, stride_x=3, stride_y=2),
 }
 
 
@@ -114,6 +120,72 @@ def test_ingress_pack_plain_matches_interpreted_pallas():
     want = jops.ingress_pack(jnp.asarray(imgs), JPatchSpec(**kw), backend="interpret")
     got = ops.ingress_pack(torch.from_numpy(imgs), PatchSpec(**kw))
     np.testing.assert_array_equal(np.asarray(want), words_to_uint32(got))
+
+
+def _run_words(imgs: np.ndarray, spec: PatchSpec) -> np.ndarray:
+    """numpy model of ``csrc/ingress_pack.cu``'s word assembly: uint8 0/1
+    ``[B, Y, X]`` -> uint32 ``[B, P, W]``.  Rows are packed into 32-bit
+    bitmasks (plus one zero word); word w of every patch is built from the
+    chunks of bit runs that overlap it: a window chunk is a funnel shift
+    of two row words, a thermometer chunk a mask of low bits, and the
+    second half of the literals is complemented.  The run walk depends on
+    w alone, as it is warp-uniform in the kernel; patches are the vector
+    axis, as lanes are."""
+    b, y, x = imgs.shape
+    rs = (x + 31) // 32 + 1
+    cols = np.zeros((b, y, rs * 32), np.uint64)
+    cols[:, :, :x] = imgs != 0
+    rows = (cols.reshape(b, y, rs, 32) << np.arange(32, dtype=np.uint64)).sum(-1)
+    p = np.arange(spec.n_patches)
+    py, px = p // spec.bx, p % spec.bx
+    n_win, n_pos_y, o = spec.n_window_features, spec.n_pos_y_bits, spec.n_features
+    full = np.uint64(0xFFFFFFFF)
+
+    def low_bits(n):
+        return (np.uint64(1) << np.clip(n, 0, 32).astype(np.uint64)) - np.uint64(1)
+
+    out = np.zeros((b, spec.n_patches, spec.n_words), np.uint64)
+    for w in range(spec.n_words):
+        lbase, lend = 32 * w, min(32 * w + 32, spec.n_literals)
+        l = lbase
+        while l < lend:
+            neg = l >= o
+            f = l - o if neg else l
+            if f < n_win:
+                wy, off = divmod(f, spec.window_x)
+                n = spec.window_x - off
+                col = px * spec.stride_x + off
+                row = rows[:, py * spec.stride_y + wy]                  # [B, P, rs]
+                lo = np.take_along_axis(row, (col // 32)[None, :, None], -1)[..., 0]
+                hi = np.take_along_axis(row, (col // 32 + 1)[None, :, None], -1)[..., 0]
+                v = ((hi << np.uint64(32)) | lo) >> (col % 32).astype(np.uint64) & full
+            elif f < n_win + n_pos_y:
+                n = n_win + n_pos_y - f
+                v = np.broadcast_to(low_bits(py - (f - n_win)), (b, spec.n_patches))
+            else:
+                n = o - f
+                v = np.broadcast_to(low_bits(px - (f - n_win - n_pos_y)), (b, spec.n_patches))
+            n = min(n, lend - l)
+            if neg:
+                v = ~v & full
+            out[..., w] |= (v & low_bits(np.array(n))) << np.uint64(l - lbase)
+            l += n
+    return out.astype(np.uint32)
+
+
+@pytest.mark.parametrize("name", sorted(INGRESS_GEOMETRIES))
+def test_ingress_run_words_match_plain_and_interpreted_pallas(name):
+    """The CUDA ingress kernel's run-based word formula, modelled in numpy,
+    against the plain version and the Pallas kernel in interpret mode."""
+    kw = INGRESS_GEOMETRIES[name]
+    spec = PatchSpec(**kw)
+    imgs = (np.random.default_rng(6).random((3, spec.image_y, spec.image_x)) > 0.5)
+    imgs = imgs.astype(np.uint8)
+    got = _run_words(imgs, spec)
+    plain = words_to_uint32(ops.ingress_pack(torch.from_numpy(imgs), spec))
+    np.testing.assert_array_equal(got, plain)
+    want = jops.ingress_pack(jnp.asarray(imgs), JPatchSpec(**kw), backend="interpret")
+    np.testing.assert_array_equal(got, np.asarray(want))
 
 
 def test_fused_infer_from_images_chains_both_kernels():
@@ -284,3 +356,64 @@ def test_registry_names_every_kernel():
         assert k.replaces.split()[1] in (repo / path).read_text().splitlines()[int(line) - 1]
     registry.reset_launches()
     assert registry.launch_counts() == dict.fromkeys(names, 0)
+
+
+@pytest.mark.parametrize("geometry, chunk", [
+    (dict(image_x=28, image_y=28, window_x=10, window_y=10), 361),   # whole image
+    (dict(image_x=64, image_y=64, window_x=10, window_y=10), 945),   # 12288 // 13
+])
+def test_ingress_shared_bytes_follow_the_kernels_chunk_rule(geometry, chunk):
+    """The wrapper sizes its shared-memory check as the C entry point sizes
+    the launch: row bitmasks plus a tile of whole patches."""
+    spec = PatchSpec(**geometry)
+    rows = spec.image_y * ((spec.image_x + 31) // 32 + 1)
+    assert ingress.shared_bytes(spec) == 4 * (rows + chunk * spec.n_words)
+    assert chunk * spec.n_words <= max(ingress.TILE_WORDS, spec.n_words)
+
+
+class _FakeFn:
+    def __init__(self, path, symbol):
+        self.path, self.symbol = path, symbol
+
+
+class _FakeLib:
+    """Stands in for a loaded library: hands out entry points tagged with
+    the path it was loaded from."""
+
+    def __init__(self, path):
+        self.path = str(path)
+
+    def __getattr__(self, symbol):
+        fn = _FakeFn(self.path, symbol)
+        setattr(self, symbol, fn)
+        return fn
+
+
+@pytest.mark.parametrize("module, args, library", [
+    (ingress, (), "ingress_pack"),
+    (fused_infer, ("fused_infer",), "fused_infer"),
+    (fused_infer, ("fused_infer_sparse",), "fused_infer"),
+    (clause_eval, ("clause_eval",), "clause_eval"),
+    (clause_eval, ("clause_eval_sparse",), "clause_eval"),
+    (class_sum, (), "class_sum"),
+])
+def test_libraries_from_swaps_the_wrappers_entry_points(monkeypatch, tmp_path, module,
+                                                        args, library):
+    """Inside ``libraries_from(d)`` a wrapper's entry point comes from
+    ``d/lib<name>.so``; before and after, from this tree's build."""
+    monkeypatch.setattr(_build, "_open", _FakeLib)
+    monkeypatch.setattr(_build, "_loaded",
+                        {n: _FakeLib(f"tree/lib{n}.so") for n in _build.SOURCES})
+    monkeypatch.setattr(_build, "_entries", {})
+    monkeypatch.setattr(_build, "_foreign", {})
+    symbol = args[0] if args else library
+    before = module._entry(*args)
+    assert (before.path, before.symbol) == (f"tree/lib{library}.so", symbol)
+    assert before.restype is ctypes.c_int and before.argtypes
+    for _ in range(2):                       # a second entry loads nothing anew
+        with _build.libraries_from(tmp_path / "parent"):
+            inside = module._entry(*args)
+            assert inside.path == str(tmp_path / "parent" / f"lib{library}.so")
+            assert inside.symbol == symbol and inside.argtypes == before.argtypes
+        assert module._entry(*args) is before
+    assert len(_build._foreign) == 1
