@@ -8,7 +8,9 @@ this file and builds the CUDA kernels from ``src/repro_torch/csrc``).
 
   1. environment: the card's name and power limit (``nvidia-smi``), the
      torch and CUDA versions, the integer ceiling (SMs x 64 results per
-     clock x the highest SM clock), and the kernels' build time (one
+     clock x the highest SM clock), the int8 tensor-core ceiling (SMs x
+     4,096 multiply-adds per clock x the same clock, printed beside the
+     data sheet's 1,979 TOPS dense), and the kernels' build time (one
      ``nvcc`` per source, all started together; with a ``git archive``
      export of the parent commit in ``_parent/``, its sources too);
   2. each CUDA kernel against its plain PyTorch version on the card,
@@ -20,7 +22,12 @@ this file and builds the CUDA kernels from ``src/repro_torch/csrc``).
      CSRF on and off, both density extremes, a saturating pool and the
      envelope corner; the sparse kernels also at C_a of 0, 1 and 37 and
      on ``analyze_sparsity(pad_to=...)`` images; the class-sum kernel at
-     (B, C, M) = (256, 128, 10), (3, 70, 10) and (2, 1024, 64);
+     (B, C, M) = (256, 128, 10), (3, 70, 10), (2, 1024, 64), (256, 1000,
+     10), (17, 88, 10), (300, 128, 10), (1, 1, 1) and (40, 3004, 20)
+     (past the envelope: the kernel refills its stages, with 4-byte
+     copies), each with random bits and with one-hot fired rows against
+     weights ``((m*C + c) mod 255) - 127`` (a swapped fragment shows
+     there), with uint8 and bool fired;
   3. the main paths: ``ServingEngine.register`` -> ``classify`` of the
      ``convcotm-mnist`` configuration (full width, seeded weights) with
      requests of 1, 3, 64, 256 and 300 images.  First the ``fused`` path
@@ -35,12 +42,18 @@ this file and builds the CUDA kernels from ``src/repro_torch/csrc``).
      ``kernel`` path's class sums;
   4. times at bucket 256 with CUDA events (median of repeats after
      warm-up; a spin kernel holds the card while the host enqueues each
-     window, so the times are the card's): the ingress kernel, each tile
-     kernel on the boundary and the few-include pool, and the class
-     sums, each beside its plain version, the least time the card could
-     take, the parent commit's kernel when ``_parent/`` holds it (timed
-     in turns: parent, this tree, this tree, parent) and, for the class
-     sums, one ``torch.matmul``; classify throughput at bucket 256 and
+     window, so the times are the card's): the launch floor (a kernel
+     that does nothing, ``torch.cuda._sleep(0)``, before and after the
+     kernels), the ingress kernel, each tile kernel on the boundary and
+     the few-include pool, and the class sums on the few-include pool's
+     fired bits (C=128, M=10) and at the envelope (C=1024, M=64, seeded
+     bits, int8 weights over the full range), each beside its plain
+     version, the least time the card could take, the parent commit's
+     kernel when ``_parent/`` holds it (timed in turns: parent, this
+     tree, this tree, parent) and, for the class sums, one f32
+     ``torch.matmul`` and one ``torch._int_mm`` (int8, classes padded to
+     16 outside the window; null, with its message, where it refuses the
+     shape); classify throughput at bucket 256 and
      latency at bucket 1 on ``fused`` and ``fused_sparse``, a profile of
      each; then one ``{"kernels": [...]}`` line.
 
@@ -65,6 +78,10 @@ HBM_BYTES_PER_S = 3.35e12
 #: 32-bit integer and logic results per clock per SM on compute capability
 #: 9.0 (CUDA C++ Programming Guide, arithmetic instruction throughput).
 INT32_PER_CLOCK_PER_SM = 64
+#: Dense int8 tensor-core multiply-adds per clock per SM on an H100 (132
+#: SMs x 4,096 x 1.83 GHz boost = 1,979 TOPS at 2 operations each, the
+#: data sheet's dense int8 rate).
+INT8_MMA_PER_CLOCK_PER_SM = 4096
 #: A git-archive export of the parent commit; when present, its kernels
 #: are built and timed beside this tree's, in the same run on one card.
 PARENT = Path(__file__).resolve().parent / "_parent"
@@ -125,17 +142,18 @@ def time_ms(fn, *, inner: int, repeats: int = 11, warmup: int = 3) -> tuple[floa
     return statistics.median(samples), held_all
 
 
-def int32_ops_per_s() -> float:
-    """The card's integer/logic ceiling: SMs x 64 results per clock x the
-    highest SM clock ``nvidia-smi`` reports."""
+def ceilings() -> tuple[float, float]:
+    """The card's ceilings from its SM count and the highest SM clock
+    ``nvidia-smi`` reports: integer/logic results per second (64 per clock
+    per SM) and int8 tensor-core multiply-adds per second (4,096)."""
     import torch
 
     mhz = subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.split()[0]
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    return sms * INT32_PER_CLOCK_PER_SM * float(mhz) * 1e6
+    per_clock = torch.cuda.get_device_properties(0).multi_processor_count * float(mhz) * 1e6
+    return per_clock * INT32_PER_CLOCK_PER_SM, per_clock * INT8_MMA_PER_CLOCK_PER_SM
 
 
 def bound(nbytes: float, ops: float, ops_per_s: float) -> tuple[float, str]:
@@ -297,10 +315,13 @@ def main() -> int:
     build_s = time.perf_counter() - t
     print(f"[env] built {list(_build.SOURCES)} in {build_s:.2f} s"
           f"{' (and the parent commit from _parent/)' if parent_dir else ''}")
-    ops_per_s = int32_ops_per_s()
+    ops_per_s, mma_per_s = ceilings()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     print(f"[env] integer ceiling {ops_per_s:.4g} results/s "
-          f"({torch.cuda.get_device_properties(0).multi_processor_count} SMs x "
-          f"{INT32_PER_CLOCK_PER_SM}/clock x max SM clock)")
+          f"({sms} SMs x {INT32_PER_CLOCK_PER_SM}/clock x max SM clock)")
+    print(f"[env] int8 tensor-core ceiling {mma_per_s:.4g} multiply-adds/s ({sms} SMs x "
+          f"{INT8_MMA_PER_CLOCK_PER_SM}/clock x max SM clock; {2 * mma_per_s / 1e12:.0f} TOPS "
+          f"at 2 operations each, against the data sheet's 1,979 TOPS dense)")
     for name, log in _build.PTXAS_LOG.items():
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
@@ -427,17 +448,30 @@ def main() -> int:
           f"analyze_sparsity of C_a={n_active['few40']} with pad_to {list(pads)} "
           f"(csrf on, off)")
 
-    for b, c, m in ((256, 128, 10), (3, 70, 10), (2, 1024, 64)):
-        fired = rand_bits((b, c), 0.5)
-        w = torch.randint(-127, 128, (m, c), generator=gen, device=dev, dtype=torch.int32)
-        want = ops.class_sum(fired, w, backend="plain")
-        for f in (fired, fired.to(torch.bool)):
-            got = ops.class_sum(f, w)
-            torch.cuda.synchronize()
-            check(got.dtype == torch.int32 and torch.equal(got, want),
-                  f"class_sum differs from plain: B={b} C={c} M={m} fired {f.dtype}")
-    print("[kernel] class_sum == plain: (B,C,M) = (256,128,10), (3,70,10), (2,1024,64) "
-          "(uint8 and bool fired)")
+    # Random bits, and one-hot fired rows against weights that differ in
+    # every (class, clause): each sum is then one weight, so a swapped
+    # row, class or clause in an mma fragment changes it.
+    class_sum_geoms = ((256, 128, 10), (3, 70, 10), (2, 1024, 64), (256, 1000, 10),
+                       (17, 88, 10), (300, 128, 10), (1, 1, 1), (40, 3004, 20))
+    for b, c, m in class_sum_geoms:
+        rows = torch.arange(b, device=dev)
+        onehot = torch.zeros((b, c), dtype=torch.uint8, device=dev)
+        onehot[rows, (rows * 7) % c] = 1
+        ramp = (torch.arange(m * c, device=dev).reshape(m, c) % 255 - 127).to(torch.int8)
+        for kind, fired, w in (
+            ("random", rand_bits((b, c), 0.5),
+             torch.randint(-127, 128, (m, c), generator=gen, device=dev, dtype=torch.int32)),
+            ("one-hot", onehot, ramp),
+        ):
+            want = ops.class_sum(fired, w, backend="plain")
+            for f in (fired, fired.to(torch.bool)):
+                got = ops.class_sum(f, w)
+                torch.cuda.synchronize()
+                check(got.dtype == torch.int32 and torch.equal(got, want),
+                      f"class_sum differs from plain: B={b} C={c} M={m} {kind} fired {f.dtype}")
+    print(f"[kernel] class_sum == plain: (B,C,M) = "
+          f"{', '.join(str(g).replace(' ', '') for g in class_sum_geoms)} "
+          f"(random and one-hot fired, uint8 and bool)")
 
     # --- 3a. main path of slice 1: the engine on the fused path --------------
     engine = ServingEngine(max_batch=256)
@@ -571,7 +605,7 @@ def main() -> int:
     # Bytes: each input read once, each output written once.  Operations:
     # one per output word (ingress), one LOP3 per word test these inputs
     # need (tile kernels), one multiply-add per (image, class, clause)
-    # (class sums).
+    # (class sums, over the int8 tensor-core ceiling).
     cases = [("ingress_pack", None,
               lambda: ops.ingress_pack(bool_imgs, spec),
               lambda: ops.ingress_pack(bool_imgs, spec, backend="plain"),
@@ -597,19 +631,49 @@ def main() -> int:
             fn = getattr(ops, name)
             cases.append((name, pool, lambda fn=fn, a=args: fn(*a),
                           lambda fn=fn, a=args: fn(*a, backend="plain"), cost))
+    # The class sums on two inputs: few40's fired bits (the paper's C=128,
+    # M=10) and the envelope (C=1024, M=64: seeded bits at density 0.5,
+    # int8 weights over the full range).  Each has two library yardsticks,
+    # their inputs made once outside the windows: an f32 torch.matmul and
+    # torch._int_mm (int8 x int8 -> int32, classes padded to 16).
     s40 = placed["few40", "kernel"]
     fired40 = ops.clause_eval(lits, s40.include_packed, s40.nonempty)
-    csargs = (fired40, s40.weights)
-    fired_f = fired40.to(torch.float32)                  # library inputs, made once
-    weights_ft = s40.weights.to(torch.float32).t().contiguous()
-    cases.append(("class_sum", "few40", lambda: ops.class_sum(*csargs),
-                  lambda: ops.class_sum(*csargs, backend="plain"),
-                  (b * c + m * c + b * m * 4, b * m * c)))
-    torch.cuda.synchronize()
-    check(torch.equal(torch.matmul(fired_f, weights_ft).to(torch.int32),
-                      ops.class_sum(*csargs)),
-          "torch.matmul class sums differ from the class_sum kernel")
+    env_c, env_m = 1024, 64
+    class_sum_inputs = {
+        "few40": (fired40, s40.weights),
+        "envelope": (rand_bits((b, env_c), 0.5),
+                     torch.randint(-128, 128, (env_m, env_c), generator=gen, device=dev,
+                                   dtype=torch.int8)),
+    }
+    libraries = {}
+    for pool, (fired, wts) in class_sum_inputs.items():
+        nc, nm = wts.shape[1], wts.shape[0]
+        f32 = (fired.to(torch.float32), wts.to(torch.float32).t().contiguous())
+        w_pad = torch.zeros((-(-nm // 16) * 16, nc), dtype=torch.int8, device=dev)
+        w_pad[:nm] = wts
+        i8 = (fired.view(torch.int8), w_pad.t())
+        want = ops.class_sum(fired, wts)
+        torch.cuda.synchronize()
+        check(torch.equal(torch.matmul(*f32).to(torch.int32), want),
+              f"torch.matmul class sums differ from the class_sum kernel ({pool})")
+        try:
+            check(torch.equal(torch._int_mm(*i8)[:, :nm], want),
+                  f"torch._int_mm class sums differ from the class_sum kernel ({pool})")
+            int_mm = lambda i8=i8: torch._int_mm(*i8)          # noqa: E731
+        except RuntimeError as e:
+            print(f"[time] torch._int_mm refuses the class sums ({pool}, B={b} C={nc} "
+                  f"M={nm} padded to {w_pad.shape[0]}): {e}")
+            int_mm = None
+        libraries["class_sum", pool] = (lambda f32=f32: torch.matmul(*f32), int_mm)
+        cases.append(("class_sum", pool, lambda a=(fired, wts): ops.class_sum(*a),
+                      lambda a=(fired, wts): ops.class_sum(*a, backend="plain"),
+                      (b * nc + nm * nc + b * nm * 4, b * nm * nc)))
 
+    def launch_floor() -> float:
+        """ms per call of a kernel that does nothing, in the same windows."""
+        return time_ms(lambda: torch.cuda._sleep(0), inner=20)[0]
+
+    floors = [launch_floor()]
     rows = []
     for name, pool, fn, plain_fn, (nbytes, nops) in cases:
         got, want = fn(), plain_fn()
@@ -635,34 +699,58 @@ def main() -> int:
         ms = statistics.mean(t_new)
         parent_ms = statistics.mean(t_old) if t_old else None
         plain_ms, plain_held = time_ms(plain_fn, inner=3, repeats=5, warmup=1)
-        library_ms, lib_held = (time_ms(lambda: torch.matmul(fired_f, weights_ft), inner=20)
-                                if name == "class_sum" else (None, True))
-        unheld += [k for k, h in (("plain_ms", plain_held), ("library_ms", lib_held)) if not h]
-        bound_ms, bound_by = bound(nbytes, nops, ops_per_s)
+        matmul_fn, int_mm_fn = libraries.get((name, pool), (None, None))
+        library_ms, lib_held = time_ms(matmul_fn, inner=20) if matmul_fn else (None, True)
+        int_mm_ms, int_mm_held = time_ms(int_mm_fn, inner=20) if int_mm_fn else (None, True)
+        unheld += [k for k, h in (("plain_ms", plain_held), ("library_ms", lib_held),
+                                  ("int_mm_ms", int_mm_held)) if not h]
+        # The class sums' multiply-adds run on the int8 tensor cores; the
+        # other kernels' word tests and words have no tensor-core form.
+        bound_ms, bound_by = bound(nbytes, nops,
+                                   mma_per_s if name == "class_sum" else ops_per_s)
         # Launches on the main paths: both serving drives; class_sum, which
         # no path calls, from its own window.
-        count = (launches3[name] if name == "class_sum"
-                 else launches[name] + launches2[name])
+        main_path = launches[name] + launches2[name]
+        count = launches3[name] if name == "class_sum" else main_path
         k = registry.KERNELS[name]
         rows.append({
             "name": name, "route": "cuda", "source": k.source, "replaces": k.replaces,
             "pool": pool, "launches": count, "max_abs_err": err,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": library_ms,
+            # Launches by the serving drives alone (class_sum: 0, its
+            # "launches" come from its own window).
+            "main_path_launches": main_path,
+            # torch._int_mm on the same bits (class sums; null where it
+            # refuses the shape or for the other kernels).
+            "int_mm_ms": int_mm_ms,
+            # A kernel that does nothing, in the same windows (mean of the
+            # readings before and after the kernels; set below).
+            "launch_floor_ms": None,
             # The parent commit's kernel on the same inputs, in turns with
             # this tree's (null without a parent export).
             "parent_ms": parent_ms,
             # The times above that include host gaps (see time_ms).
             "host_gaps_in": sorted(set(unheld)),
         })
-        lib = f", torch.matmul {library_ms:.5f} ms" if library_ms is not None else ""
+        lib = (f", torch.matmul {library_ms:.5f} ms" if library_ms is not None else "") + (
+            f", torch._int_mm {int_mm_ms:.5f} ms" if int_mm_ms is not None else "")
         old = (f", parent {parent_ms:.5f} ms (turns {', '.join(f'{x:.5f}' for x in t_old)}; "
                f"this tree {', '.join(f'{x:.5f}' for x in t_new)})" if t_old else "")
-        print(f"[time] {name} B={b}{f' {pool} pool' if pool else ''}"
+        where = (f" envelope (C={env_c} M={env_m})" if pool == "envelope"
+                 else f" {pool} pool" if pool else "")
+        print(f"[time] {name} B={b}{where}"
               f"{f' (C_a={c_as[pool]})' if 'sparse' in name else ''}: kernel {ms:.5f} ms"
-              f"{old}, plain {plain_ms:.5f} ms{lib}, bound {bound_ms:.5f} ms "
+              f"{old}, plain {plain_ms:.5f} ms{lib}, bound {bound_ms:.3g} ms "
               f"({bound_by}: {nbytes} B, {nops} ops)"
               f"{f'; host gaps in {sorted(set(unheld))}' if unheld else ''}")
+
+    floors.append(launch_floor())
+    floor_ms = statistics.mean(floors)
+    for row in rows:
+        row["launch_floor_ms"] = floor_ms
+    print(f"[time] launch floor: {floor_ms:.5f} ms per call of torch.cuda._sleep(0) "
+          f"(before the kernels {floors[0]:.5f}, after {floors[1]:.5f}; windows of 20)")
 
     # How often CSRF can end a clause's patch walk early on this pool: a
     # clause stops at the first patch group where it fires.

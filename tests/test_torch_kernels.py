@@ -230,7 +230,15 @@ def test_fused_infer_sparse_plain_matches_oracle(b, p, c, nlit, csrf):
     np.testing.assert_array_equal(np.asarray(want), got.numpy())
 
 
-@pytest.mark.parametrize("b,c,m", [(256, 128, 10), (3, 70, 10), (2, 1024, 64), (1, 1, 1)])
+# (B, C, M) of the class sums: the paper's pool, ragged C (70 misaligns
+# every fired row, 88 is the few40 active pool), the envelope (C=1024,
+# M=64) at two batches, Table III's 1000 clauses, a B tail past a 16-image
+# tile, and the smallest case.
+CLASS_SUM_SHAPES = [(256, 128, 10), (3, 70, 10), (2, 1024, 64), (1, 1, 1), (256, 1000, 10),
+                    (256, 1024, 64), (17, 88, 10), (300, 128, 10)]
+
+
+@pytest.mark.parametrize("b,c,m", CLASS_SUM_SHAPES)
 def test_class_sum_plain_matches_oracle(b, c, m):
     rng = np.random.default_rng(b + c + m)
     fired = (rng.random((b, c)) > 0.5).astype(np.uint8)
@@ -241,6 +249,157 @@ def test_class_sum_plain_matches_oracle(b, c, m):
     np.testing.assert_array_equal(want, got.numpy())
     np.testing.assert_array_equal(
         want, ops.class_sum(torch.from_numpy(fired.astype(bool)), torch.from_numpy(w)).numpy())
+
+
+# csrc/class_sum.cu's tiling: images and classes per block, warps (the
+# clause-axis split), clauses per staged chunk, stages, shared row stride.
+CS_IMAGES, CS_CLASSES, CS_WARPS = 16, 16, 8
+CS_CHUNK = 32 * CS_WARPS
+CS_STAGES = 1024 // CS_CHUNK
+CS_STRIDE = CS_CHUNK + 16
+
+
+def _copy_width(c: int) -> int:
+    """The launch's cp.async width for 16-byte aligned bases: the widest of
+    16, 8 and 4 bytes that divides C, else bytewise."""
+    return next((v for v in (16, 8, 4) if c % v == 0), 1)
+
+
+def _ldmatrix_x4(stage: np.ndarray, addr: np.ndarray) -> np.ndarray:
+    """``ldmatrix.m8n8.x4.b16`` on a flat byte array: lane l gives the row
+    address ``addr[l]`` of row l % 8 of matrix l // 8 and receives, as
+    register j, bytes 4 (l % 4) .. +3 of row l // 4 of matrix j.  Returns
+    uint8 ``[32 lanes, 4 registers, 4 bytes]``."""
+    assert (addr % 16 == 0).all()
+    lane = np.arange(32)
+    rows = addr[8 * np.arange(4)[None, :] + (lane >> 2)[:, None]]           # [32, 4]
+    return stage[rows[..., None] + 4 * (lane & 3)[:, None, None] + np.arange(4)]
+
+
+def _mma_m16n8k32(acc: np.ndarray, a: np.ndarray, b0: np.ndarray, b1: np.ndarray) -> None:
+    """``mma.sync.m16n8k32.row.col.s32.s8.s8.s32`` from the PTX fragment
+    layouts, g = lane // 4, q = lane % 4: A register i holds row g (+8 for
+    odd i), bytes 4q .. 4q+3 (+16 for i >= 2); B registers 0/1 hold column
+    g, rows 4q .. 4q+3 (+16); accumulator i holds row g (+8 for i >= 2),
+    column 2q + (i % 2)."""
+    lane = np.arange(32)
+    g, q = lane >> 2, lane & 3
+    a8, bb = a.view(np.int8).astype(np.int64), np.stack([b0, b1], 1).view(np.int8)
+    A = np.zeros((16, 32), np.int64)
+    B = np.zeros((32, 8), np.int64)
+    for i in range(4):
+        A[(g + 8 * (i & 1))[:, None], (4 * q + 16 * (i >> 1))[:, None] + np.arange(4)] = a8[:, i]
+    for i in range(2):
+        B[(4 * q + 16 * i)[:, None] + np.arange(4), g[:, None]] = bb[:, i]
+    D = A @ B
+    for i in range(4):
+        acc[:, i] += D[g + 8 * (i >> 1), 2 * q + (i & 1)]
+
+
+def _class_sum_tiles(fired: np.ndarray, w: np.ndarray, vec=None) -> np.ndarray:
+    """numpy model of ``csrc/class_sum.cu``: fired 0/1 uint8 ``[B, C]``,
+    int8 weights ``[M, C]`` -> int32 ``[B, M]``.  Each block (16 images x
+    16 classes) stages chunks of 256 clauses in ``vec``-byte copies (fired
+    rows, then weight rows; bytes past C, images past B and classes past M
+    zero-filled); warp w takes the w-th 32-byte k-step of each chunk,
+    loads its fragments with ldmatrix from the padded rows and runs one
+    mma per n8 tile; the warps' partial tiles are added and only b < B,
+    m < M are written, each exactly once.  Stage bytes the copies do not
+    write hold garbage, so a read past the chunk shows."""
+    b, c = fired.shape
+    m = w.shape[0]
+    vec = vec or _copy_width(c)
+    assert c % vec == 0 and CS_CHUNK % vec == 0
+    rows, per_row = CS_IMAGES + CS_CLASSES, CS_CHUNK // vec
+    tiles = CS_CLASSES // 8
+    lane = np.arange(32)
+    g, q = lane >> 2, lane & 3
+    src = (fired.astype(np.uint8), w.astype(np.int8).view(np.uint8))
+    out = np.zeros((b, m), np.int64)
+    written = np.zeros((b, m), np.int64)
+    rng = np.random.default_rng(0)
+    for b0 in range(0, b, CS_IMAGES):
+        for m0 in range(0, m, CS_CLASSES):
+            acc = np.zeros((CS_WARPS, tiles, 32, 4), np.int64)
+            for ch in range(-(-c // CS_CHUNK)):          # stage ch % CS_STAGES: no state kept
+                stage = rng.integers(0, 256, (rows, CS_STRIDE), dtype=np.uint8)
+                copies = np.zeros((rows, CS_STRIDE), np.int64)
+                i = np.arange(rows * per_row)
+                r, k = i // per_row, (i % per_row) * vec
+                cc = ch * CS_CHUNK + k
+                image = r < CS_IMAGES
+                idx = np.where(image, b0 + r, m0 + r - CS_IMAGES)
+                valid = (cc < c) & (idx < np.where(image, b, m))
+                for j in range(vec):
+                    byte = np.zeros(len(i), np.uint8)
+                    for which in (0, 1):
+                        sel = valid & (image == (which == 0))
+                        byte[sel] = src[which][idx[sel], cc[sel] + j]
+                    stage[r, k + j] = byte
+                    copies[r, k + j] += 1
+                assert (copies[:, :CS_CHUNK] == 1).all() and not copies[:, CS_CHUNK:].any()
+                flat = stage.reshape(-1)
+                for warp in range(CS_WARPS):
+                    if ch * CS_CHUNK + 32 * warp >= c:   # the k-step lies past C
+                        continue
+                    a_off = ((lane & 7) + (lane & 8)) * CS_STRIDE + (lane >> 4) * 16 + 32 * warp
+                    b_off = ((CS_IMAGES + (lane & 7) + ((lane >> 4) << 3)) * CS_STRIDE
+                             + ((lane >> 3) & 1) * 16 + 32 * warp)
+                    a = _ldmatrix_x4(flat, a_off)
+                    for t in range(0, tiles, 2):
+                        bf = _ldmatrix_x4(flat, b_off + 8 * t * CS_STRIDE)
+                        _mma_m16n8k32(acc[warp, t], a, bf[:, 0], bf[:, 1])
+                        _mma_m16n8k32(acc[warp, t + 1], a, bf[:, 2], bf[:, 3])
+            part = np.zeros((CS_WARPS, CS_IMAGES, CS_CLASSES), np.int64)
+            for t in range(tiles):
+                for i in range(4):
+                    part[:, (g + 8 * (i >> 1)), 8 * t + 2 * q + (i & 1)] = acc[:, t, :, i]
+            v = part.sum(0)
+            nb, nm = min(CS_IMAGES, b - b0), min(CS_CLASSES, m - m0)
+            out[b0 : b0 + nb, m0 : m0 + nm] = v[:nb, :nm]
+            written[b0 : b0 + nb, m0 : m0 + nm] += 1
+    assert (written == 1).all()
+    return out.astype(np.int32)
+
+
+def _class_sum_inputs(b, c, m, kind):
+    """Seeded random bits and weights over the int8 range, or one-hot fired
+    rows against weights ``((m*C + c) mod 255) - 127``, which differ in
+    every (class, clause): each sum is then one weight, so a swapped row,
+    class or clause of a fragment shows."""
+    if kind == "one-hot":
+        fired = np.zeros((b, c), np.uint8)
+        fired[np.arange(b), (np.arange(b) * 7) % c] = 1
+        return fired, (np.arange(m * c).reshape(m, c) % 255 - 127).astype(np.int8)
+    rng = np.random.default_rng(b * 7 + c + m)
+    return ((rng.random((b, c)) > 0.5).astype(np.uint8),
+            rng.integers(-128, 128, (m, c)).astype(np.int8))
+
+
+@pytest.mark.parametrize("kind", ["random", "one-hot"])
+@pytest.mark.parametrize("b,c,m", CLASS_SUM_SHAPES + [(40, 3004, 20)])
+def test_class_sum_tile_model_matches_plain_and_oracle(b, c, m, kind):
+    """The CUDA class-sum kernel's tiling (K chunks with zero fill, n8 tiles
+    with padded classes, 16-image tiles with the B tail, the K split across
+    warps), modelled in numpy, against the plain version and the oracle;
+    C = 3004 refills the stage ring, in 4-byte copies."""
+    fired, w = _class_sum_inputs(b, c, m, kind)
+    got = _class_sum_tiles(fired, w)
+    plain = ops.class_sum(torch.from_numpy(fired), torch.from_numpy(w))
+    np.testing.assert_array_equal(got, plain.numpy())
+    want = np.asarray(ref.class_sum_ref(jnp.asarray(fired), jnp.asarray(w)))
+    np.testing.assert_array_equal(got, want)
+
+
+def test_class_sum_tile_model_matches_interpreted_pallas():
+    """The model on a ragged case (B tail, C = 88 not a multiple of 16, M
+    padded to 16), with every copy width the launch can pick for it,
+    against the Pallas kernel in interpret mode."""
+    fired, w = _class_sum_inputs(17, 88, 10, "random")
+    want = np.asarray(jops.class_sum(jnp.asarray(fired), jnp.asarray(w.astype(np.int32)),
+                                     backend="interpret"))
+    for vec in (8, 4, 1):
+        np.testing.assert_array_equal(_class_sum_tiles(fired, w, vec), want)
 
 
 @pytest.mark.parametrize("kernel", ["clause_eval", "clause_eval_sparse", "fused_infer_sparse",
