@@ -39,7 +39,22 @@ this file and builds the CUDA kernels from ``src/repro_torch/csrc``).
      card and the plain composition on the CPU.  No path calls the
      class-sum kernel: in a window of its own it sums the clause-eval
      kernel's fired bits of the same requests, which must equal the
-     ``kernel`` path's class sums;
+     ``kernel`` path's class sums.  Then the adaptive and trainer paths,
+     each drive in a launch window of its own: ``convcotm-fmnist`` (adaptive Gaussian
+     ingress, block 11, c 2) on ``fused`` and ``fused_sparse`` with
+     requests of 1, 3, 256 and 300 images, equal to the CPU plain
+     composition and to the host ingress; the trainer at full width (6
+     batch-mode steps of 100) on the card and on the CPU from the same
+     draws, equal models; the trainer on the card (``fit``, 2 epochs of
+     4,000 glyphs, 800 test, the card's own generator: samples/s per
+     epoch, accuracy, the median samples/s over 15 further epochs of 40
+     steps on a copy of the model, a ``torch.profiler`` split of a step
+     into draws, matmul, feedback and apply); the trained model frozen, registered and
+     served on ``fused`` and ``fused_sparse`` and through
+     ``infer_packed(use_kernel=True)``, equal to ``evaluate``'s matmul
+     predictions on every test image; its 5,632-byte register image and a
+     ``save_servable`` / ``restore_servable`` round trip, same predictions
+     and digest;
   4. times at bucket 256 with CUDA events (median of repeats after
      warm-up; a spin kernel holds the card while the host enqueues each
      window, so the times are the card's): the launch floor (a kernel
@@ -214,6 +229,37 @@ def fused_word_tests(lit, inc, ne) -> int:
     return total
 
 
+def device_rows(rows):
+    """The profiler's rows of work on the card (kernels, copies, memsets).
+    An operator's row repeats its kernels' device time, and an annotation
+    spans them, so the busy time sums these rows only."""
+    from torch.autograd import DeviceType
+
+    return [e for e in rows if getattr(e, "device_type", None) == DeviceType.CUDA
+            and not e.key.startswith("train.")]
+
+
+def dev_us(e) -> float:
+    """A profiler row's device time, its children's included."""
+    v = getattr(e, "device_time_total", None)
+    return v if v is not None else e.cuda_time_total
+
+
+def self_dev_us(e) -> float:
+    """A profiler row's own device time."""
+    v = getattr(e, "self_device_time_total", None)
+    return v if v is not None else e.self_cuda_time_total
+
+
+def print_top_device(label: str, on_card, n: int, unit: str) -> None:
+    """The eight rows of work on the card with the most device time, per
+    ``unit`` (``n`` units profiled)."""
+    for e in sorted(on_card, key=self_dev_us, reverse=True)[:8]:
+        if self_dev_us(e):
+            print(f"[profile] {label}: device {self_dev_us(e) / n:9.2f} us/{unit} "
+                  f"x{e.count // n:<3d} {e.key[:80]}")
+
+
 def profile_classify(engine, arch: str, imgs, reps: int, label: str) -> None:
     """Where a classify's time goes: ``torch.profiler`` over ``reps``
     requests; prints the device's busy share of the wall time (kernels,
@@ -229,23 +275,16 @@ def profile_classify(engine, arch: str, imgs, reps: int, label: str) -> None:
             engine.classify(arch, imgs)
         wall_us = (time.perf_counter() - t) * 1e6
     rows = prof.key_averages()
-
-    def dev_us(e):
-        v = getattr(e, "self_device_time_total", None)
-        return v if v is not None else e.self_cuda_time_total
-
-    busy = sum(dev_us(e) for e in rows)
+    on_card = device_rows(rows)
+    busy = sum(self_dev_us(e) for e in on_card)
     if not busy:
         print(f"[profile] {label}: the profiler captured no device time (not measured)")
         return
-    copies = sum(dev_us(e) for e in rows if "memcpy" in e.key.lower())
+    copies = sum(self_dev_us(e) for e in on_card if "memcpy" in e.key.lower())
     print(f"[profile] {label}: {reps} requests, wall {wall_us / reps:.1f} us/request, "
           f"device busy {busy / reps:.1f} us/request ({100 * busy / wall_us:.1f}% of wall; "
           f"copies {copies / reps:.1f} us), idle {100 * (1 - busy / wall_us):.1f}%")
-    for e in sorted(rows, key=dev_us, reverse=True)[:8]:
-        if dev_us(e):
-            print(f"[profile] {label}: device {dev_us(e) / reps:9.2f} us/request "
-                  f"x{e.count // reps:<3d} {e.key[:80]}")
+    print_top_device(label, on_card, reps, "request")
     for e in sorted(rows, key=lambda e: e.self_cpu_time_total, reverse=True)[:8]:
         print(f"[profile] {label}: host {e.self_cpu_time_total / reps:9.2f} us/request "
               f"x{e.count // reps:<3d} {e.key[:80]}")
@@ -270,6 +309,285 @@ def classify_times(engine, name: str, imgs256, img1) -> str:
             f"request, {n_iter} requests); bucket 1: median "
             f"{statistics.median(lat) * 1e6:.1f} us, p90 {lat[int(0.9 * len(lat))] * 1e6:.1f} "
             f"us over {len(lat)} requests")
+
+
+def same_result(a, b) -> bool:
+    import numpy as np
+
+    return (np.array_equal(a.predictions, b.predictions)
+            and np.array_equal(a.class_sums, b.class_sums))
+
+
+def adaptive_serving(engine, cpu, pools, registry, dev) -> dict:
+    """The adaptive path: ``convcotm-fmnist`` (adaptive Gaussian ingress,
+    block 11, c 2) served on ``fused`` and ``fused_sparse`` with requests of
+    1, 3, 256 and 300 glyph images and noise; the card's class sums and
+    predictions must equal the CPU plain composition's.  Returns the launch
+    counts of the card drive."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.convcotm import BOOLEANIZE_METHOD, COTM_CONFIGS
+    from repro_torch.core.booleanize import adaptive_gaussian_booleanize
+    from repro_torch.data import synthetic_glyphs
+
+    arch = "convcotm-fmnist"
+    cfg, method = COTM_CONFIGS[arch], BOOLEANIZE_METHOD[arch]
+    check(method == "adaptive", f"{arch} booleanizes with {method}")
+    glyphs = synthetic_glyphs(n_train=560, n_test=0, seed=SEED + 3)[0]
+    noise = np.random.default_rng(SEED + 3).integers(0, 256, (560, 28, 28), dtype=np.uint8)
+    sizes = (1, 3, 256, 300)
+    requests, at = [], 0
+    for n in sizes:
+        requests.append(np.concatenate([glyphs[at : at + n - n // 2], noise[at : at + n // 2]]))
+        at += n
+    names = {"fused": pools["few"], "fused_sparse": pools["few40"]}
+    for path, model in names.items():
+        for eng in (engine, cpu):
+            eng.register(f"{arch}/{path}", model, cfg, booleanize_method=method, path=path)
+        check(engine.ingress_spec(f"{arch}/{path}").resolved_method == "adaptive"
+              and engine.ingress_spec(f"{arch}/{path}").block_size == 11
+              and engine.ingress_spec(f"{arch}/{path}").c == 2.0,
+              f"{arch}/{path}: ingress {engine.ingress_spec(f'{arch}/{path}')}")
+        engine.warmup(f"{arch}/{path}")
+    registry.reset_launches()
+    served = {(path, i): engine.classify(f"{arch}/{path}", r)
+              for path in names for i, r in enumerate(requests)}
+    launches = registry.launch_counts()
+    print(f"[engine] launches during classify of {arch} (adaptive ingress) on "
+          f"{list(names)}: {launches}")
+    for name in ("ingress_pack", "fused_infer", "fused_infer_sparse"):
+        check(launches[name] > 0, f"kernel {name} was not launched on the adaptive paths")
+    for path in names:
+        for i, (n, r) in enumerate(zip(sizes, requests)):
+            res = served[path, i]
+            check(res.class_sums.shape == (n, cfg.n_classes), f"{path}: bad result shape")
+            check(same_result(res, cpu.classify(f"{arch}/{path}", r)),
+                  f"{arch} request of {n}: {path} on the card differs from the CPU plain "
+                  f"composition")
+            check(same_result(res, cpu.classify(f"{arch}/{path}", r, ingress="host")),
+                  f"{arch} request of {n}: {path} differs from the host ingress")
+        check(bool(served[path, 2].class_sums.any()), f"{arch}/{path}: every class sum is 0")
+    # The adaptive bits themselves, card against CPU, on every request.
+    for r in requests:
+        x = torch.from_numpy(r)
+        check(torch.equal(adaptive_gaussian_booleanize(x.to(dev)).cpu(),
+                          adaptive_gaussian_booleanize(x)),
+              "adaptive booleanize on the card differs from the CPU")
+    ones = float(adaptive_gaussian_booleanize(torch.from_numpy(requests[2])).float().mean())
+    print(f"[engine] {arch}: fused, fused_sparse == plain (CPU) == host ingress (CPU) on "
+          f"requests of {list(sizes)} (glyphs and noise); adaptive bits card == CPU "
+          f"({ones:.3f} of the bits set)")
+    return launches
+
+
+def trainer_card_equals_cpu(dev) -> None:
+    """The trainer at full width (convcotm-mnist, P=361, 2o=272, C=128) takes
+    the same batch-mode steps on the card and on the CPU from the same draws
+    (made on a CPU generator and copied); the models must be equal."""
+    import torch
+
+    from repro_torch.configs.convcotm import COTM_CONFIGS
+    from repro_torch.core.train import make_draws
+    from repro_torch.data import PipelineState, synthetic_glyphs
+    from repro_torch.train.tm_engine import TrainerEngine
+
+    cfg = COTM_CONFIGS["convcotm-mnist"]
+    b, steps = 100, 6
+    tx, ty, _, _ = synthetic_glyphs(n_train=b * steps, n_test=0, seed=SEED + 5)
+    card = TrainerEngine(cfg, batch_size=b)
+    host = TrainerEngine(cfg, batch_size=b, device="cpu")
+    check(card.device.type == "cuda", f"trainer runs on {card.device}")
+    ds_card, ds_cpu = card.prepare(tx, ty), host.prepare(tx, ty)
+    check(torch.equal(ds_card.literals.cpu(), ds_cpu.literals),
+          "prepared literals differ between the card and the CPU")
+    g = torch.Generator().manual_seed(SEED + 7)
+    draws = [make_draws(g, b, cfg) for _ in range(steps)]
+    m0 = host.init_model(torch.Generator().manual_seed(SEED))
+    t = time.perf_counter()
+    _, m_cpu, _, n_cpu = host.run_epoch(iter(draws), m0, ds_cpu, PipelineState(seed=SEED))
+    cpu_s = time.perf_counter() - t
+    m0_card = type(m0)(ta_state=m0.ta_state.to(dev), weights=m0.weights.to(dev))
+    _, m_card, _, n_card = card.run_epoch(iter(draws), m0_card, ds_card,
+                                          PipelineState(seed=SEED))
+    torch.cuda.synchronize()
+    check(n_cpu == n_card == b * steps, f"trained {n_cpu} and {n_card} samples")
+    check(torch.equal(m_card.ta_state.cpu(), m_cpu.ta_state)
+          and torch.equal(m_card.weights.cpu(), m_cpu.weights),
+          "trainer: the card's model differs from the CPU's on the same draws")
+    moved = int((m_cpu.ta_state != m0.ta_state).sum())
+    check(moved > 0 and bool((m_cpu.weights != m0.weights).any()),
+          "trainer: the steps changed no TA state or no weight")
+    print(f"[train] card == CPU: {steps} batch-mode steps of {b} at full width (P=361, "
+          f"2o=272, C=128) from the same draws: ta_state and weights equal ({moved} TA "
+          f"states and {int((m_cpu.weights != m0.weights).sum())} weights moved; CPU "
+          f"{cpu_s:.2f} s)")
+
+
+def profile_train_steps(trainer, model, ds, gen, steps: int, card: str) -> None:
+    """Where a training step's time goes on the card: ``torch.profiler`` over
+    ``steps`` batch-mode steps, split by the step's annotations (draws,
+    matmul, feedback, apply)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repro_torch.core.train import _step_literals, make_draws
+
+    b, cfg = trainer.batch_size, trainer.config
+    ix = torch.arange(b, device=ds.literals.device)
+    lits, labels = ds.literals[ix], ds.labels[ix]
+
+    def step(m):
+        with record_function("train.draws"):
+            d = make_draws(gen, b, cfg)
+        return _step_literals(d, m, lits, labels, cfg, "batch")
+
+    model = step(model)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        for _ in range(steps):
+            model = step(model)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t) * 1e6
+    rows = prof.key_averages()
+    kernels = device_rows(rows)
+    busy = sum(self_dev_us(e) for e in kernels)
+    parts = {}
+    for e in rows:
+        if e.key.startswith("train."):
+            cpu_us, gpu_us = parts.get(e.key, (0.0, 0.0))
+            parts[e.key] = (cpu_us + e.cpu_time_total, max(gpu_us, dev_us(e)))
+    print(f"[profile] train step (batch 100, full width): {steps} steps, wall "
+          f"{wall_us / steps:.1f} us/step, device busy {busy / steps:.1f} us/step "
+          f"({100 * busy / wall_us:.1f}% of wall), idle {100 * (1 - busy / wall_us):.1f}% | "
+          f"{card}")
+    for key in ("train.draws", "train.matmul", "train.feedback", "train.apply"):
+        cpu_us, gpu_us = parts.get(key, (0.0, 0.0))
+        gpu = f"{gpu_us / steps:.1f} us" if gpu_us else "not measured"
+        print(f"[profile] train step {key[6:]}: host {cpu_us / steps:.1f} us/step, device "
+              f"range {gpu}/step")
+    print_top_device("train step", kernels, steps, "step")
+
+
+def train_rate(trainer, model, ds, gen, epochs: int, card: str) -> None:
+    """The trainer's rate over a window longer than one epoch: ``epochs``
+    further batch-mode epochs on a copy of ``model`` (no evaluation), each
+    timed by ``fit`` from its first launch to the card's last step; prints
+    the median, the least and the most samples/s and the steps covered."""
+    from repro_torch.core.cotm import CoTMModel
+
+    copy = CoTMModel(ta_state=model.ta_state.clone(), weights=model.weights.clone())
+    *_, reports = trainer.fit(gen, copy, ds, epochs=epochs)
+    rates = sorted(r.samples_per_s for r in reports)
+    steps = sum(r.samples for r in reports) // trainer.batch_size
+    print(f"[train] rate: median {statistics.median(rates):.1f} samples/s over {epochs} "
+          f"epochs of {steps // epochs} steps ({steps} steps of batch "
+          f"{trainer.batch_size}, full width, batch mode; least {rates[0]:.1f}, most "
+          f"{rates[-1]:.1f}) | {card}")
+
+
+def trainer_on_card(engine, registry, dev, card: str) -> dict:
+    """The trainer on the card and the train -> serve hand-off: fit 2
+    epochs on 4,000 glyphs (800 test) with the card's own generator, then
+    freeze_servable -> register -> classify the test split on ``fused``
+    (and ``fused_sparse``, and ``infer_packed(use_kernel=True)``); the
+    predictions must equal evaluate's matmul path on every image.  Then the
+    register image and a servable checkpoint round trip.  Returns the
+    launch counts of the serving drive."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.checkpoint.checkpointer import restore_servable, save_servable
+    from repro_torch.configs.convcotm import COTM_CONFIGS
+    from repro_torch.core.cotm import infer_packed
+    from repro_torch.core.ingress import IngressSpec, apply_ingress
+    from repro_torch.core.model_io import model_size_bytes, pack_model, unpack_model
+    from repro_torch.data import synthetic_glyphs
+    from repro_torch.serve.servable import servable_digest
+    from repro_torch.train.tm_engine import TrainerEngine
+
+    arch = "convcotm-mnist"
+    cfg = COTM_CONFIGS[arch]
+    tx, ty, vx, vy = synthetic_glyphs(n_train=4000, n_test=800, seed=SEED)
+    trainer = TrainerEngine(cfg, batch_size=100)
+    t = time.perf_counter()
+    train_ds, eval_ds = trainer.prepare(tx, ty), trainer.prepare(vx, vy)
+    torch.cuda.synchronize()
+    prep_s = time.perf_counter() - t
+    gen = trainer.draws_generator(SEED)
+    model = trainer.init_model(torch.Generator().manual_seed(SEED))
+    gen, model, state, reports = trainer.fit(gen, model, train_ds, epochs=2, eval_ds=eval_ds)
+    for r in reports:
+        print(f"[train] convcotm-mnist on glyphs (4,000 train / 800 test), batch 100, batch "
+              f"mode: epoch {r.epoch}: {r.samples_per_s:.1f} samples/s ({r.samples} samples "
+              f"in {r.seconds:.4f} s), evaluate accuracy {r.accuracy:.4f} | {card}")
+    acc = trainer.evaluate(model, eval_ds)
+    check(acc == reports[-1].accuracy, "evaluate is not deterministic")
+    print(f"[train] prepare (ingress of 4,800 images to literals on the card) {prep_s:.3f} s")
+    train_rate(trainer, model, train_ds, gen, 15, card)
+    profile_train_steps(trainer, model, train_ds, gen, 20, card)
+
+    servable = trainer.freeze_servable(model, state)
+    check(servable.version.epoch == 2 and servable.version.digest == servable_digest(servable),
+          f"frozen servable stamp {servable.version}")
+    want = trainer.predict(model, eval_ds).cpu().numpy()
+    for path in ("fused", "fused_sparse"):
+        engine.register(f"{arch}/trained/{path}", servable, path=path)
+        engine.warmup(f"{arch}/trained/{path}")
+    spec = IngressSpec(cfg.patch)
+    words = apply_ingress(spec, torch.from_numpy(vx[:256]).to(dev))
+    torch.cuda.synchronize()
+    registry.reset_launches()
+    res = {path: engine.classify(f"{arch}/trained/{path}", vx) for path in ("fused",
+                                                                           "fused_sparse")}
+    pk_pred, pk_sums = infer_packed(model, words, cfg, use_kernel=True)
+    pk_pred = pk_pred.cpu().numpy()
+    launches = registry.launch_counts()
+    print(f"[engine] launches while serving the trained model (fused, fused_sparse; "
+          f"infer_packed(use_kernel=True)): {launches}")
+    for name in ("ingress_pack", "fused_infer", "fused_infer_sparse", "clause_eval"):
+        check(launches[name] > 0, f"kernel {name} was not launched serving the trained model")
+    for path, r in res.items():
+        check(np.array_equal(r.predictions, want),
+              f"trained model: {path} predictions differ from evaluate's on "
+              f"{int((r.predictions != want).sum())} of {len(want)} images")
+        served_acc = float((r.predictions == vy).sum()) / len(vy)
+        check(served_acc == acc, f"{path} accuracy {served_acc} != evaluate's {acc}")
+    check(np.array_equal(res["fused"].class_sums, res["fused_sparse"].class_sums),
+          "trained model: fused and fused_sparse class sums differ")
+    check(np.array_equal(pk_pred, want[:256]),
+          "infer_packed(use_kernel=True) differs from evaluate's predictions")
+    n_active = engine.servable(f"{arch}/trained/fused_sparse").sparsity.n_active
+    print(f"[engine] trained model (C_a={n_active} of {cfg.n_clauses} active): fused == "
+          f"fused_sparse == evaluate (matmul) on all {len(want)} test images, accuracy "
+          f"{acc:.4f}; infer_packed(use_kernel=True) == evaluate on 256")
+
+    blob = pack_model(model, cfg)
+    check(len(blob) == model_size_bytes(cfg) == 5632, f"register image of {len(blob)} bytes")
+    unpacked = unpack_model(blob, cfg)                  # the card by default
+    check(unpacked.ta_state.device == dev, f"unpack_model placed the model on "
+          f"{unpacked.ta_state.device}, not on {dev}")
+    engine.register(f"{arch}/unpacked", unpacked, cfg, path="fused")
+    check(np.array_equal(engine.classify(f"{arch}/unpacked", vx).predictions, want),
+          "the unpacked register image classifies differently")
+    with tempfile.TemporaryDirectory() as d:
+        save_servable(servable, d, state.epoch)
+        restored, step = restore_servable(cfg, d)           # the card by default
+    check(restored.include_packed.device == dev, f"restore_servable placed the servable "
+          f"on {restored.include_packed.device}, not on {dev}")
+    check(step == state.epoch and restored.version == servable.version
+          and servable_digest(restored) == servable.version.digest,
+          f"restored servable stamp {restored.version} != {servable.version}")
+    engine.register(f"{arch}/restored", restored, path="fused")
+    check(np.array_equal(engine.classify(f"{arch}/restored", vx).predictions, want),
+          "the restored servable classifies differently")
+    print(f"[image] register image {len(blob)} bytes; unpack_model -> register -> fused: same "
+          f"predictions; save_servable -> restore_servable: same predictions and digest "
+          f"{servable.version.digest}")
+    return launches
 
 
 def main() -> int:
@@ -590,6 +908,12 @@ def main() -> int:
               f"== dense (card) == plain (CPU), and class_sum(clause_eval) == kernel path, "
               f"on requests of {list(sizes)}")
 
+    # --- 3c. main paths of the adaptive ingress, the trainer and the hand-off -
+    launches_adaptive = adaptive_serving(engine, cpu, {"few": few_model, "few40": few40_model},
+                                  registry, dev)
+    trainer_card_equals_cpu(dev)
+    launches_trained = trainer_on_card(engine, registry, dev, card)
+
     # --- 4. times at bucket 256 ----------------------------------------------
     b = 256
     spec = cfg.patch
@@ -708,9 +1032,10 @@ def main() -> int:
         # other kernels' word tests and words have no tensor-core form.
         bound_ms, bound_by = bound(nbytes, nops,
                                    mma_per_s if name == "class_sum" else ops_per_s)
-        # Launches on the main paths: both serving drives; class_sum, which
+        # Launches on the main paths: every serving drive; class_sum, which
         # no path calls, from its own window.
-        main_path = launches[name] + launches2[name]
+        adaptive_trained = launches_adaptive[name] + launches_trained[name]
+        main_path = launches[name] + launches2[name] + adaptive_trained
         count = launches3[name] if name == "class_sum" else main_path
         k = registry.KERNELS[name]
         rows.append({
@@ -721,6 +1046,9 @@ def main() -> int:
             # Launches by the serving drives alone (class_sum: 0, its
             # "launches" come from its own window).
             "main_path_launches": main_path,
+            # Of those, the launches of the adaptive serving drive and of
+            # the trained model's (fused, fused_sparse, infer_packed).
+            "adaptive_trained_launches": adaptive_trained,
             # torch._int_mm on the same bits (class sums; null where it
             # refuses the shape or for the other kernels).
             "int_mm_ms": int_mm_ms,

@@ -1,14 +1,15 @@
-"""PyTorch / CUDA port of the ConvCoTM serving path, for NVIDIA Hopper.
+"""PyTorch / CUDA port of the ConvCoTM serving path and trainer, for NVIDIA Hopper.
 
 A second package beside ``repro`` (the JAX reference).  It imports
 ``torch`` and numpy only: never ``jax`` and nothing of ``repro``; the
 tests hold it bit for bit against the reference.  Layout follows the
-reference package module by module (``core/``, ``kernels/``,
-``serve/``, ``launch/``).  Every TPU kernel of the reference has a CUDA
-C++ counterpart under ``csrc/``: ingress pack, fused clause-eval + class
-sums (dense and active pool), clause eval (dense and active pool) and
-class sums; they serve the ``fused``, ``kernel``, ``sparse`` and
-``fused_sparse`` eval paths.
+reference package module by module (``core/``, ``kernels/``, ``serve/``,
+``data/``, ``train/``, ``checkpoint/``, ``launch/``).  Every TPU kernel of
+the reference has a CUDA C++ counterpart under ``csrc/``: ingress pack,
+fused clause-eval + class sums (dense and active pool), clause eval
+(dense and active pool) and class sums; they serve the ``fused``,
+``kernel``, ``sparse`` and ``fused_sparse`` eval paths, for models served
+as they are and for models the trainer hands over.
 
 Entry points run on the CUDA card unless the caller passes
 ``device="cpu"`` (see :func:`resolve_device`); with no device given and

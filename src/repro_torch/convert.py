@@ -7,6 +7,9 @@ bit patterns.  These helpers take and give numpy arrays (anything
 ``np.asarray`` accepts), so this package needs nothing of the
 reference's to read its state: ``freeze`` on both sides of
 :func:`model_from_arrays` gives the same register image.
+:func:`draws_from_arrays` builds a training step's :class:`TrainDraws`
+from arrays, such as the uniforms and Gumbel noise the reference's
+``jax.random`` keys give, so both packages can take the same step.
 """
 
 from __future__ import annotations
@@ -15,8 +18,15 @@ import numpy as np
 import torch
 
 from repro_torch.core.cotm import CoTMModel
+from repro_torch.core.train import TrainDraws
 
-__all__ = ["model_from_arrays", "words_from_uint32", "words_to_uint32"]
+__all__ = [
+    "draws_from_arrays",
+    "model_from_arrays",
+    "model_to_arrays",
+    "words_from_uint32",
+    "words_to_uint32",
+]
 
 
 def model_from_arrays(ta_state, weights, device="cpu") -> CoTMModel:
@@ -33,6 +43,30 @@ def model_from_arrays(ta_state, weights, device="cpu") -> CoTMModel:
         ta_state=torch.tensor(ta, dtype=torch.uint8, device=device),
         weights=torch.tensor(w.astype(np.int32), dtype=torch.int32, device=device),
     )
+
+
+def model_to_arrays(model: CoTMModel):
+    """A port ``CoTMModel`` -> the reference's arrays (``ta_state`` uint8
+    ``[C, 2o]``, ``weights`` int32 ``[m, C]``), as numpy."""
+    return (model.ta_state.detach().cpu().numpy().astype(np.uint8),
+            model.weights.detach().cpu().numpy().astype(np.int32))
+
+
+def draws_from_arrays(gumbel, neg, u_t, u_q, u_ia1, u_ia0, u_ib, device="cpu") -> TrainDraws:
+    """A :class:`TrainDraws` from numpy arrays: float32 ``gumbel [B, P, C]``,
+    integer ``neg [B]``, float32 ``u_t``/``u_q [B, C]`` and
+    ``u_ia1``/``u_ia0``/``u_ib [B, C, 2o]``.  Float arrays must already be
+    float32: a conversion would change the draws."""
+    floats = dict(gumbel=gumbel, u_t=u_t, u_q=u_q, u_ia1=u_ia1, u_ia0=u_ia0, u_ib=u_ib)
+    out = {}
+    for name, arr in floats.items():
+        arr = np.asarray(arr)
+        if arr.dtype != np.float32:
+            raise TypeError(f"{name} must be float32, got {arr.dtype}")
+        out[name] = torch.tensor(arr, device=device)
+    b = out["u_t"].shape[0]
+    neg = np.asarray(neg).astype(np.int64).reshape(b)
+    return TrainDraws(neg=torch.tensor(neg, device=device), **out)
 
 
 def words_to_uint32(words: torch.Tensor) -> np.ndarray:

@@ -6,7 +6,10 @@ and it is nonempty (the ``Empty`` signal, paper Sec. IV-D).
 
 Three equal evaluation paths: dense 0/1 literals, packed int32 words, and
 a float32 matmul of violation counts; plus the packed test over the
-active clause pool's exclude words.  Each walks the patch axis in
+active clause pool's exclude words.  The per-patch outputs
+(:func:`patch_clause_outputs`, :func:`patch_clause_outputs_matmul`) feed
+training, where an empty clause outputs 1 (so it can learn its first
+includes) instead of the ``Empty`` signal's 0.  Each walks the patch axis in
 chunks so its ``[B, Pc, C, .]`` temporary stays small; the OR over chunks
 is the same OR.
 """
@@ -17,6 +20,8 @@ import torch
 
 __all__ = [
     "clause_nonempty",
+    "patch_clause_outputs",
+    "patch_clause_outputs_matmul",
     "eval_clauses_dense",
     "eval_clauses_bitpacked",
     "eval_clauses_sparse",
@@ -38,6 +43,39 @@ def patch_chunk(b: int, c: int, k: int, p: int) -> int:
 def clause_nonempty(include: torch.Tensor) -> torch.Tensor:
     """[C, 2o] 0/1 include mask -> [C] bool nonempty flags."""
     return (include > 0).any(dim=-1)
+
+
+def patch_clause_outputs(
+    literals: torch.Tensor, include: torch.Tensor, training: bool = False
+) -> torch.Tensor:
+    """Per-patch clause outputs before the sequential OR, from uint8 0/1
+    literals ``[B, P, 2o]`` and include ``[C, 2o]``: uint8 0/1 ``[B, P, C]``.
+    With ``training`` an empty clause outputs 1, else 0."""
+    b, p, n = literals.shape
+    c = include.shape[0]
+    inc = include[None, None] > 0                        # [1, 1, C, 2o]
+    out = torch.empty((b, p, c), dtype=torch.uint8, device=literals.device)
+    step = patch_chunk(b, c, n, p)
+    for p0 in range(0, p, step):
+        lit = literals[:, p0 : p0 + step, None, :]       # [B, Pc, 1, 2o]
+        out[:, p0 : p0 + step] = (~(inc & (lit == 0)).any(dim=-1)).to(torch.uint8)
+    if not training:
+        out &= clause_nonempty(include).to(torch.uint8)[None, None]
+    return out
+
+
+def patch_clause_outputs_matmul(
+    literals: torch.Tensor, include: torch.Tensor, training: bool = False
+) -> torch.Tensor:
+    """:func:`patch_clause_outputs` as a float32 matmul of violation counts
+    ``(1 - literals) @ includeᵀ``: a clause fires on a patch iff its count
+    is 0.  Operands are 0/1 and counts at most 2o <= 8192 < 2^24, so the
+    counts are exact on both devices (in TF32 too); only ``== 0`` is read."""
+    neg = (1 - literals).to(torch.float32)               # [B, P, 2o]
+    fires = torch.matmul(neg, include.to(torch.float32).t()) == 0   # [B, P, C]
+    if not training:
+        fires &= clause_nonempty(include)[None, None]
+    return fires.to(torch.uint8)
 
 
 def eval_clauses_dense(literals: torch.Tensor, include: torch.Tensor) -> torch.Tensor:

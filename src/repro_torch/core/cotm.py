@@ -5,6 +5,10 @@
   * ``weights``: int32 ``[m, C]`` signed clause weights (int8 range on the
     ASIC; :func:`repro_torch.serve.servable.freeze` clamps them).
 
+:func:`infer` and :func:`infer_packed` run Algorithm 1 through the eval
+path registry (``serve/paths.py``), freezing the model on every call;
+long-running callers freeze once and serve through ``serve/engine.py``.
+
 Random initialisation takes an explicit ``torch.Generator``.  Its numbers
 differ from ``jax.random``'s for the same seed; to hold the port against
 the reference, carry the reference's arrays across with
@@ -14,6 +18,7 @@ the reference, carry the reference's arrays across with
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional, Tuple
 
 import torch
 
@@ -26,6 +31,8 @@ __all__ = [
     "MAX_GEOMETRY",
     "init_model",
     "init_boundary_model",
+    "infer",
+    "infer_packed",
 ]
 
 TA_HALF = 128          # N: include iff state >= N (8-bit TA)
@@ -61,14 +68,24 @@ MAX_GEOMETRY = GeometryBounds()
 
 @dataclasses.dataclass(frozen=True)
 class CoTMConfig:
-    """Static hyper-parameters of a ConvCoTM (paper values as defaults)."""
+    """Static hyper-parameters of a ConvCoTM (paper values as defaults).
+
+    Field names, order and defaults equal the reference's, so ``repr``
+    (which :func:`repro_torch.serve.servable.servable_digest` hashes) is
+    the same string in both packages."""
 
     n_clauses: int = 128
     n_classes: int = 10
     patch: PatchSpec = dataclasses.field(default_factory=PatchSpec)
-    T: int = 500                 # class-sum clip threshold (training)
-    s: float = 10.0              # specificity (training)
+    # Training hyper-parameters (TMU-compatible).
+    T: int = 500                 # class-sum clip threshold
+    s: float = 10.0              # specificity
+    boost_true_positive: bool = True
+    max_included_literals: Optional[int] = None   # literal budget
     eval_path: str = "matmul"    # default serving path (serve/paths.py)
+    # Training-time clause evaluation in core/train.py: 'matmul' (float32
+    # violation counts) or 'dense' (the [P, C, 2o] broadcast); equal.
+    train_eval: str = "matmul"
 
     def __post_init__(self):
         if not MAX_GEOMETRY.admits(
@@ -84,6 +101,11 @@ class CoTMConfig:
     @property
     def n_literals(self) -> int:
         return self.patch.n_literals
+
+    @property
+    def model_bits(self) -> int:
+        """Register-image size: TA actions + 8-bit weights (45,056 for the paper)."""
+        return self.n_clauses * self.n_literals + self.n_classes * self.n_clauses * 8
 
 
 @dataclasses.dataclass
@@ -125,3 +147,47 @@ def init_boundary_model(
         generator=generator, device=generator.device,
     ).to(torch.uint8)
     return model
+
+
+def infer(
+    model: CoTMModel, images: torch.Tensor, config: CoTMConfig
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Algorithm 1 for booleanized uint8 0/1 images ``[B, Y, X]`` (or
+    ``[B, Y, X, Z, U]``) on the eval path ``config.eval_path``; returns
+    (predictions int32 ``[B]``, class sums int32 ``[B, m]``)."""
+    from repro_torch.core import clauses as cl
+    from repro_torch.core.patches import extract_patch_features, make_literals, pack_bits
+    from repro_torch.serve import paths as sp
+    from repro_torch.serve.servable import freeze
+
+    sm = freeze(model, config)
+    path = sp.get_path(config.eval_path)
+    lits = make_literals(extract_patch_features(images, config.patch))
+    if path.input_form == sp.PACKED:
+        lits = pack_bits(lits)
+    v = sp.run_path(path, sm, lits)
+    return cl.argmax_predict(v), v
+
+
+def infer_packed(
+    model: CoTMModel,
+    lit_packed: torch.Tensor,
+    config: CoTMConfig,
+    use_kernel: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Inference from packed int32 literal words ``[B, P, W]``: on
+    ``config.eval_path`` when it takes packed literals, else on
+    ``bitpacked``; ``use_kernel`` takes the ``kernel`` path (the CUDA
+    clause-eval kernel on the card)."""
+    from repro_torch.core import clauses as cl
+    from repro_torch.serve import paths as sp
+    from repro_torch.serve.servable import freeze
+
+    if use_kernel:
+        path = sp.get_path("kernel")
+    else:
+        path = sp.get_path(config.eval_path)
+        if path.input_form != sp.PACKED:
+            path = sp.get_path("bitpacked")
+    v = sp.run_path(path, freeze(model, config), lit_packed)
+    return cl.argmax_predict(v), v

@@ -8,9 +8,12 @@ ingress-pack kernel, which writes only the packed words to device memory
 (as the reference drops into its Pallas kernel on the TPU); a CPU tensor
 takes the plain composition.
 
-Ported methods: ``threshold`` (MNIST) and ``none`` (inputs already
-booleanized).  Adaptive-Gaussian and thermometer ingress are not ported
-yet and are refused.
+Methods: ``threshold`` (MNIST), ``adaptive`` (alias
+``adaptive_gaussian``; FMNIST/KMNIST), ``thermometer`` (scaled-up
+configurations) and ``none`` (inputs already booleanized).  The packed
+route of a Z=U=1 geometry feeds the booleanized bits of any method to the
+ingress-pack kernel; multi-channel and thermometer geometries take the
+plain composition on both devices.
 """
 
 from __future__ import annotations
@@ -20,7 +23,11 @@ from typing import Tuple
 
 import torch
 
-from repro_torch.core.booleanize import threshold_booleanize
+from repro_torch.core.booleanize import (
+    adaptive_gaussian_booleanize,
+    thermometer_encode,
+    threshold_booleanize,
+)
 from repro_torch.core.patches import (
     PatchSpec,
     extract_patch_features,
@@ -29,49 +36,85 @@ from repro_torch.core.patches import (
 )
 from repro_torch.kernels.ops import ingress_pack
 
-__all__ = ["IngressSpec", "apply_booleanize", "apply_ingress", "raw_trailing_shape"]
+__all__ = [
+    "IngressSpec",
+    "apply_booleanize",
+    "apply_ingress",
+    "device_ingress",
+    "raw_trailing_shape",
+]
 
-_METHODS = ("threshold", "none")
+#: Method aliases: the paper's FMNIST/KMNIST preprocessing is OpenCV's
+#: adaptiveThreshold with a Gaussian window; both spellings are one method.
+_METHOD_ALIASES = {"adaptive_gaussian": "adaptive"}
+_METHODS = ("threshold", "adaptive", "thermometer", "none")
 
 
 @dataclasses.dataclass(frozen=True)
 class IngressSpec:
     """Static description of one raw -> literals ingress.
 
-    ``method``: 'threshold' or 'none'; ``packed`` selects the literal form
-    of the target eval path (int32 words, or dense uint8 0/1).
+    ``method``: 'threshold', 'adaptive'/'adaptive_gaussian',
+    'thermometer' or 'none'; ``packed`` selects the literal form of the
+    target eval path (int32 words, or dense uint8 0/1).  ``threshold``,
+    ``block_size``/``c`` and ``levels`` are the knobs of the threshold,
+    adaptive and thermometer methods.
     """
 
     patch: PatchSpec
     method: str = "threshold"
     packed: bool = True
     threshold: int = 75
+    block_size: int = 11
+    c: float = 2.0
+    levels: int = 1
 
     def __post_init__(self):
-        if self.method not in _METHODS:
+        m = _METHOD_ALIASES.get(self.method, self.method)
+        if m not in _METHODS:
             raise ValueError(
-                f"booleanization method {self.method!r} is not ported; "
-                f"expected one of {_METHODS}"
+                f"unknown booleanization method {self.method!r}; "
+                f"expected one of {_METHODS} (or 'adaptive_gaussian')"
             )
+        if m == "thermometer" and self.levels != self.patch.therm_bits:
+            raise ValueError(
+                f"thermometer levels={self.levels} must equal the patch "
+                f"spec's therm_bits={self.patch.therm_bits}"
+            )
+
+    @property
+    def resolved_method(self) -> str:
+        return _METHOD_ALIASES.get(self.method, self.method)
 
 
 def raw_trailing_shape(spec: IngressSpec) -> Tuple[int, ...]:
     """Expected trailing dims of a raw input batch for this ingress:
     ``[Y, X]``, plus ``Z`` for multi-channel geometries, plus ``U`` for
-    pre-booleanized thermometer inputs."""
+    pre-booleanized thermometer inputs (the thermometer method makes U
+    itself, so its raw input has none)."""
     p = spec.patch
     shape: Tuple[int, ...] = (p.image_y, p.image_x)
     if p.channels > 1:
         shape += (p.channels,)
-    if spec.method == "none" and p.therm_bits > 1:
+    if spec.resolved_method == "none" and p.therm_bits > 1:
         shape += (p.therm_bits,)
     return shape
 
 
 def apply_booleanize(spec: IngressSpec, raw: torch.Tensor) -> torch.Tensor:
-    if spec.method == "none":
+    """The booleanize stage of the ingress, on ``raw``'s device."""
+    m = spec.resolved_method
+    if m == "none":
         return raw.to(torch.uint8)
-    return threshold_booleanize(raw, spec.threshold)
+    if m == "threshold":
+        return threshold_booleanize(raw, spec.threshold)
+    if m == "adaptive":
+        return adaptive_gaussian_booleanize(raw, spec.block_size, spec.c)
+    # thermometer: appends the U axis (dropped again for one level).
+    out = thermometer_encode(raw, spec.levels)
+    if spec.levels == 1:
+        out = out[..., 0]
+    return out
 
 
 def _with_feature_axes(bits: torch.Tensor, patch: PatchSpec) -> torch.Tensor:
@@ -103,3 +146,9 @@ def apply_ingress(spec: IngressSpec, raw: torch.Tensor) -> torch.Tensor:
     if spec.packed:
         return pack_bits(lits, spec.patch.n_words)
     return lits
+
+
+#: The standalone ingress of the reference (raw -> literals in one call),
+#: which the training engine's dataset freezing uses.  Plain here: there
+#: is no graph to compile, so it is :func:`apply_ingress` itself.
+device_ingress = apply_ingress

@@ -12,13 +12,23 @@ run on the card in between.  :meth:`ServingEngine.dispatch` returns an
 :class:`InFlightClassify` without waiting; its ``result()`` waits on a
 CUDA event recorded after the last copy.
 
+Request forms, as in the reference: raw pixels (the default, ingress on
+the device), ``ingress='host'`` (the host pipeline
+``data.pipeline.preprocess_for_serving``, then the literal-form step) and
+``preprocessed=True`` (literals already in the path's input form: dense
+uint8 ``[n, P, 2o]`` or packed uint32 ``[n, P, W]``).  The host route
+equals the device route bit for bit.
+
 Batch bucketing: requests are padded to the nearest power of two, clamped
 to ``max_batch``; longer requests are served in ``max_batch`` slices.
 Padding rows are zero images whose results are sliced off; no row can
 affect another.  Buckets bound the set of shapes the kernels and the
 caching allocator ever see, as they bound jit compiles in the reference.
 
-Autotuning, meshes, fault injection and hot swap are not ported yet.
+Each registered model carries a :class:`ServableVersion` stamp (the
+engine assigns the monotonic id; epoch, step and digest come from the
+servable's own stamp when it has one).  Autotuning, meshes, fault
+injection and hot swap are not ported yet.
 """
 
 from __future__ import annotations
@@ -35,8 +45,15 @@ from repro_torch import resolve_device
 from repro_torch.core import clauses as cl
 from repro_torch.core.cotm import CoTMConfig, CoTMModel
 from repro_torch.core.ingress import IngressSpec, raw_trailing_shape
-from repro_torch.serve.paths import get_path, resolve_path, run_path_raw
-from repro_torch.serve.servable import ServableModel, analyze_sparsity, freeze
+from repro_torch.data.pipeline import preprocess_for_serving
+from repro_torch.serve.paths import PACKED, get_path, resolve_path, run_path, run_path_raw
+from repro_torch.serve.servable import (
+    ServableModel,
+    ServableVersion,
+    analyze_sparsity,
+    freeze,
+    servable_digest,
+)
 
 __all__ = ["ClassifyResult", "InFlightClassify", "ServeStats", "ServingEngine"]
 
@@ -100,9 +117,11 @@ class ServeStats:
 class _Entry:
     servable: ServableModel
     booleanize_method: str
+    booleanize_kw: Dict
     path_name: str
     ingress: IngressSpec
     stats: ServeStats
+    version: ServableVersion
 
 
 class InFlightClassify:
@@ -174,13 +193,18 @@ class ServingEngine:
         *,
         booleanize_method: str = "threshold",
         path: Optional[str] = None,
+        booleanize_kw: Optional[Dict] = None,
+        version: Optional[ServableVersion] = None,
     ) -> ServableModel:
         """Freeze (if needed), attach the sparsity image
         (:func:`analyze_sparsity`), move to the engine's device once, and
         register a model under a dataset key.  ``path`` defaults to the
-        config's ``eval_path``.  A ``ServableModel`` given here is copied,
-        not moved: ``nn.Module.to`` works in place, and the caller's image
-        stays where it was."""
+        config's ``eval_path``; ``booleanize_kw`` (``threshold``,
+        ``block_size``, ``c``, ``levels``) sets the ingress knobs of both
+        request routes.  ``version`` (or the servable's own stamp) gives
+        epoch, step and digest; the id is the slot's next.  A
+        ``ServableModel`` given here is copied, not moved: ``nn.Module.to``
+        works in place, and the caller's image stays where it was."""
         if isinstance(model, ServableModel):
             servable = copy.deepcopy(model)
         else:
@@ -189,16 +213,41 @@ class ServingEngine:
             servable = freeze(model, config)
         path_name = path or servable.config.eval_path
         eval_path = get_path(path_name)
-        ingress = eval_path.ingress_spec(servable.config.patch, method=booleanize_method)
+        booleanize_kw = dict(booleanize_kw or {})
+        ingress = eval_path.ingress_spec(servable.config.patch, method=booleanize_method,
+                                         **booleanize_kw)
+        source = version if version is not None else servable.version
+        prev = self._servables.get(name)
+        stamp = ServableVersion(
+            version=prev.version.version + 1 if prev is not None else 1,
+            epoch=source.epoch if source else 0,
+            step=source.step if source else 0,
+            digest=source.digest if source and source.digest else servable_digest(servable),
+        )
         servable = analyze_sparsity(servable).to(self.device)
         self._servables[name] = _Entry(
             servable=servable,
             booleanize_method=booleanize_method,
+            booleanize_kw=booleanize_kw,
             path_name=path_name,
             ingress=ingress,
             stats=ServeStats(),
+            version=stamp,
         )
         return servable
+
+    def models(self) -> Tuple[str, ...]:
+        return tuple(self._servables)
+
+    def servable(self, name: str) -> ServableModel:
+        return self._servables[name].servable
+
+    def ingress_spec(self, name: str) -> IngressSpec:
+        return self._servables[name].ingress
+
+    def version(self, name: str) -> ServableVersion:
+        """The stamp of the model served under ``name``."""
+        return self._servables[name].version
 
     def stats(self, name: str) -> ServeStats:
         return self._servables[name].stats
@@ -239,11 +288,15 @@ class ServingEngine:
         return done
 
     @torch.inference_mode()
-    def _submit_bucket(self, entry: _Entry, arr: np.ndarray, record_hit: bool = True):
-        """Pad one <= max_batch slice to its bucket and run the raw classify
-        step without waiting; returns ``(host_out, n, bucket)``, where
-        ``host_out`` is int32 ``[bucket, 1 + m]`` (predictions, class sums)
-        that is complete once the device has caught up."""
+    def _submit_bucket(self, entry: _Entry, arr: np.ndarray, record_hit: bool = True,
+                       form: str = "raw"):
+        """Pad one <= max_batch slice to its bucket and run the classify
+        step (raw pixels, or literals in the path's form) without waiting;
+        returns ``(host_out, n, bucket)``, where ``host_out`` is int32
+        ``[bucket, 1 + m]`` (predictions, class sums) that is complete once
+        the device has caught up."""
+        if arr.dtype == np.uint32:
+            arr = arr.view(np.int32)          # packed words: same bits
         n = arr.shape[0]
         bucket = self.bucket_for(n)
         on_card = self.device.type == "cuda"
@@ -253,7 +306,11 @@ class ServingEngine:
         buf[:n] = arr
         buf[n:] = 0
         x = host.to(self.device, non_blocking=True)
-        v = run_path_raw(get_path(entry.path_name), entry.servable, x, entry.ingress)
+        path = get_path(entry.path_name)
+        if form == "raw":
+            v = run_path_raw(path, entry.servable, x, entry.ingress)
+        else:
+            v = run_path(path, entry.servable, x)
         out = torch.cat([cl.argmax_predict(v)[:, None], v], dim=1)
         if on_card:
             host_out = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
@@ -280,16 +337,60 @@ class ServingEngine:
             )
         return raw
 
-    def dispatch(self, name: str, images) -> InFlightClassify:
-        """Submit one raw request batch and return without waiting on the
-        device; requests over ``max_batch`` go in ``max_batch`` slices."""
+    def _validate_preprocessed(self, lits: np.ndarray, entry: _Entry) -> None:
+        """Refuse literals that are not in the path's input form: dense
+        uint8 ``[n, P, 2o]`` or packed uint32 ``[n, P, W]``."""
+        spec = entry.servable.config.patch
+        if get_path(entry.path_name).input_form == PACKED:
+            want = (np.uint32, (spec.n_patches, spec.n_words),
+                    f"packed uint32 [n, P={spec.n_patches}, W={spec.n_words}]")
+        else:
+            want = (np.uint8, (spec.n_patches, spec.n_literals),
+                    f"dense uint8 [n, P={spec.n_patches}, 2o={spec.n_literals}]")
+        if lits.ndim != 3 or lits.shape[1:] != want[1] or lits.dtype != want[0]:
+            raise ValueError(
+                f"preprocessed literals for eval path {entry.path_name!r} must be "
+                f"{want[2]}; got {lits.dtype} {list(lits.shape)} (use "
+                f"data.pipeline.preprocess_for_serving(..., packed="
+                f"{get_path(entry.path_name).input_form == PACKED}))"
+            )
+
+    def preprocess(self, name: str, raw_images, *, preprocessed: bool = False) -> np.ndarray:
+        """The host-side ingress of a registered model: literals in its
+        path's input form (with ``preprocessed``, the input is only
+        checked against that form)."""
+        entry = self._servables[name]
+        if len(raw_images) == 0:
+            raise ValueError("empty request")
+        if preprocessed:
+            lits = np.asarray(raw_images)
+            self._validate_preprocessed(lits, entry)
+            return lits
+        return preprocess_for_serving(
+            raw_images, entry.servable.config.patch, method=entry.booleanize_method,
+            packed=get_path(entry.path_name).input_form == PACKED, **entry.booleanize_kw,
+        )
+
+    def dispatch(self, name: str, images, *, preprocessed: bool = False,
+                 ingress: str = "device") -> InFlightClassify:
+        """Submit one request batch and return without waiting on the
+        device: raw pixels (ingress on the device, or ``ingress='host'``),
+        or with ``preprocessed`` literals in the path's input form.
+        Requests over ``max_batch`` go in ``max_batch`` slices."""
+        if ingress not in ("device", "host"):
+            raise ValueError(f"ingress must be 'device' or 'host', got {ingress!r}")
         entry = self._servables[name]
         t0 = time.perf_counter()
-        arr = self.validate_raw(name, images)
+        if preprocessed or ingress == "host":
+            arr = self.preprocess(name, images, preprocessed=preprocessed)
+            form = "literals"
+        else:
+            arr = self.validate_raw(name, images)
+            form = "raw"
         t1 = time.perf_counter()
         n = arr.shape[0]
         parts: List = [
-            self._submit_bucket(entry, arr[i : i + self.max_batch])
+            self._submit_bucket(entry, arr[i : i + self.max_batch], form=form)
             for i in range(0, n, self.max_batch)
         ]
         done = None
@@ -298,6 +399,8 @@ class ServingEngine:
             done.record(torch.cuda.current_stream(self.device))
         return InFlightClassify(entry, parts, n, t0, t1, done)
 
-    def classify(self, name: str, images) -> ClassifyResult:
-        """Classify one raw request batch (``dispatch(...).result()``)."""
-        return self.dispatch(name, images).result()
+    def classify(self, name: str, images, *, preprocessed: bool = False,
+                 ingress: str = "device") -> ClassifyResult:
+        """Classify one request batch (``dispatch(...).result()``)."""
+        return self.dispatch(name, images, preprocessed=preprocessed,
+                             ingress=ingress).result()

@@ -8,12 +8,18 @@ moves it to the card once and every batch after touches literals only.
 
 :func:`analyze_sparsity` attaches the active-clause image
 (:class:`ClauseSparsity`, a submodule, so it moves with the servable) that
-the sparse eval paths read.  Version stamps and digests are not ported yet.
+the sparse eval paths read.  A servable carries an optional lifecycle
+stamp (:class:`ServableVersion`, the ``version`` attribute), whose
+:func:`servable_digest` is the same string in both packages for the same
+model, and an optional ``tuned`` kernel plan, kept as the reference's
+plan JSON (an opaque string) until the autotuner is ported.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import dataclasses
+import hashlib
+from typing import Dict, Optional
 
 import torch
 from torch import nn
@@ -22,7 +28,54 @@ from repro_torch.core import clauses as cl
 from repro_torch.core.cotm import WEIGHT_MAX, WEIGHT_MIN, CoTMConfig, CoTMModel
 from repro_torch.core.patches import pack_bits
 
-__all__ = ["ClauseSparsity", "ServableModel", "active_pad", "analyze_sparsity", "freeze"]
+__all__ = [
+    "ClauseSparsity",
+    "ServableModel",
+    "ServableVersion",
+    "active_pad",
+    "analyze_sparsity",
+    "freeze",
+    "servable_digest",
+]
+
+
+@dataclasses.dataclass(frozen=True)
+class ServableVersion:
+    """Identity stamp of one served model version: the engine-assigned
+    monotonic id, the training cursor (epoch, step) the weights came from,
+    and the content digest of the register image."""
+
+    version: int = 0
+    epoch: int = 0
+    step: int = 0
+    digest: str = ""
+
+    def as_dict(self) -> Dict:
+        return {"version": self.version, "epoch": self.epoch, "step": self.step,
+                "digest": self.digest}
+
+    @classmethod
+    def from_dict(cls, d) -> "ServableVersion":
+        """Parse a checkpoint-manifest stamp; a missing or malformed one
+        gives the v0 stamp."""
+        if not isinstance(d, dict):
+            return cls()
+        try:
+            return cls(version=int(d.get("version", 0)), epoch=int(d.get("epoch", 0)),
+                       step=int(d.get("step", 0)), digest=str(d.get("digest", "")))
+        except (TypeError, ValueError):
+            return cls()
+
+
+def servable_digest(servable: "ServableModel") -> str:
+    """Content hash (12 hex characters) of a frozen model: the config's
+    repr, the include bits and the clamped weights, as the reference
+    hashes them.  Equal digests classify identically."""
+    h = hashlib.sha256()
+    h.update(repr(servable.config).encode())
+    h.update(servable.include.detach().cpu().contiguous().numpy().tobytes())
+    h.update(servable.weights.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()[:12]
 
 
 class ClauseSparsity(nn.Module):
@@ -69,7 +122,9 @@ class ServableModel(nn.Module):
       * ``nonempty``       bool ``[C]`` empty-clause mask (Sec. IV-D)
       * ``weights``        int8 ``[m, C]`` clamped clause weights
 
-    and the optional submodule ``sparsity`` (:func:`analyze_sparsity`).
+    and the optional submodule ``sparsity`` (:func:`analyze_sparsity`);
+    plain attributes ``config``, ``version`` (a :class:`ServableVersion`
+    or None) and ``tuned`` (a kernel plan's JSON string or None).
     """
 
     include: torch.Tensor
@@ -79,7 +134,8 @@ class ServableModel(nn.Module):
     sparsity: Optional[ClauseSparsity]
 
     def __init__(self, include, include_packed, nonempty, weights, config: CoTMConfig,
-                 sparsity: Optional[ClauseSparsity] = None):
+                 sparsity: Optional[ClauseSparsity] = None, *,
+                 version: Optional[ServableVersion] = None, tuned: Optional[str] = None):
         super().__init__()
         self.register_buffer("include", include)
         self.register_buffer("include_packed", include_packed)
@@ -87,6 +143,8 @@ class ServableModel(nn.Module):
         self.register_buffer("weights", weights)
         self.register_module("sparsity", sparsity)
         self.config = config
+        self.version = version
+        self.tuned = tuned
 
     @property
     def n_clauses(self) -> int:
@@ -164,4 +222,5 @@ def analyze_sparsity(
         weights=weights,
     )
     return ServableModel(servable.include, servable.include_packed, servable.nonempty,
-                         servable.weights, servable.config, sparsity=sparsity)
+                         servable.weights, servable.config, sparsity=sparsity,
+                         version=servable.version, tuned=servable.tuned)

@@ -153,8 +153,12 @@ def test_apply_ingress_multichannel_none_matches_reference():
 
 
 def test_ingress_spec_refuses_unported_methods():
-    with pytest.raises(ValueError, match="not ported"):
-        IngressSpec(PatchSpec(), method="adaptive")
+    """Every method of the reference is ported now; a method outside its
+    set is refused by both packages."""
+    for spec_cls, patch in ((IngressSpec, PatchSpec()), (JIngressSpec, JPatchSpec())):
+        with pytest.raises(ValueError, match="unknown booleanization method"):
+            spec_cls(patch, method="otsu")
+    assert IngressSpec(PatchSpec(), method="adaptive_gaussian").resolved_method == "adaptive"
 
 
 def test_class_sums_and_argmax_match_reference():
