@@ -54,7 +54,21 @@ this file and builds the CUDA kernels from ``src/repro_torch/csrc``).
      ``infer_packed(use_kernel=True)``, equal to ``evaluate``'s matmul
      predictions on every test image; its 5,632-byte register image and a
      ``save_servable`` / ``restore_servable`` round trip, same predictions
-     and digest;
+     and digest.  Then the serving stack (``[service]`` lines), each drive
+     in a launch window of its own: ``swap`` and ``rollback`` on the card
+     (the rollback restores the displaced tensors, O(1)) and
+     ``load_checkpoint`` of the trained model in both flavours; a
+     ``ServingService`` under 4,096 single-image raw requests at an offered
+     5,000 req/s while 8 swaps between two pools and a rollback land, every
+     result equal to a direct classify of its version, one version per
+     microbatch, no future hung, ingress_pack and fused_infer launched once
+     per engine slice; a chaos soak (5% malformed, 5% abandoned, three
+     injected engine errors) whose circuit breaker steps ``fused ->
+     matmul``, with fused_infer launched before the trip and never after;
+     and one lifecycle round (train, shadow, promote or reject) on the card.
+     The swap storm runs under ``torch.profiler``, which splits the
+     service's time per microbatch into device busy and dispatch host
+     time;
   4. times at bucket 256 with CUDA events (median of repeats after
      warm-up; a spin kernel holds the card while the host enqueues each
      window, so the times are the card's): the launch floor (a kernel
@@ -81,6 +95,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -494,7 +509,8 @@ def trainer_on_card(engine, registry, dev, card: str) -> dict:
     (and ``fused_sparse``, and ``infer_packed(use_kernel=True)``); the
     predictions must equal evaluate's matmul path on every image.  Then the
     register image and a servable checkpoint round trip.  Returns the
-    launch counts of the serving drive."""
+    launch counts of the serving drive and the trained model (with its
+    servable, test split and predictions)."""
     import tempfile
 
     import numpy as np
@@ -587,10 +603,309 @@ def trainer_on_card(engine, registry, dev, card: str) -> dict:
     print(f"[image] register image {len(blob)} bytes; unpack_model -> register -> fused: same "
           f"predictions; save_servable -> restore_servable: same predictions and digest "
           f"{servable.version.digest}")
+    trained = {"model": model, "servable": servable, "epoch": state.epoch, "vx": vx,
+               "vy": vy, "want": want}
+    return launches, trained
+
+
+def engine_lifecycle(cfg, method, pools, trained, dev) -> None:
+    """[service] part 1: swap and rollback of the ``svc`` slot on the card
+    (the rollback restores the very tensors it displaced: O(1), no H2D),
+    and ``load_checkpoint`` of the trained model in both flavours, equal
+    to its predictions."""
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.checkpoint.checkpointer import save_pytree, save_servable
+    from repro_torch.serve.engine import ServingEngine
+
+    eng = ServingEngine(max_batch=256)
+    eng.register("svc", pools["a"], cfg, booleanize_method=method, path="fused")
+    v1 = eng.version("svc")
+    ptr = eng.servable("svc").include_packed.data_ptr()
+    v2 = eng.swap("svc", pools["b"], cfg)
+    swapped = eng.servable("svc").include_packed
+    check(swapped.device == dev and swapped.data_ptr() != ptr,
+          f"swap installed an image on {swapped.device} at the old address")
+    v3 = eng.rollback("svc")
+    check(eng.servable("svc").include_packed.data_ptr() == ptr,
+          "rollback did not restore the displaced tensors (not O(1))")
+    check((v1.version, v2.version, v3.version) == (1, 2, 3) and v3.digest == v1.digest
+          and v2.digest != v1.digest, f"stamps {v1} {v2} {v3}")
+    print(f"[service] engine lifecycle on the card: register v1 ({v1.digest}) -> swap v2 "
+          f"({v2.digest}) -> rollback v3 ({v3.digest}); include_packed at {ptr:#x} before "
+          f"the swap and after the rollback (O(1), no H2D)")
+    stamp = trained["servable"].version
+    with tempfile.TemporaryDirectory() as d:
+        save_pytree(trained["model"], f"{d}/model", trained["epoch"])
+        save_servable(trained["servable"], f"{d}/servable", trained["epoch"])
+        for flavour in ("model", "servable"):
+            eng.load_checkpoint(f"trained/{flavour}", f"{d}/{flavour}", cfg,
+                                booleanize_method=method, path="fused")
+    for flavour in ("model", "servable"):
+        res = eng.classify(f"trained/{flavour}", trained["vx"])
+        check(np.array_equal(res.predictions, trained["want"]),
+              f"load_checkpoint ({flavour}) classifies differently from the trained model")
+        check(eng.version(f"trained/{flavour}").digest == stamp.digest,
+              f"load_checkpoint ({flavour}) digest {eng.version(f'trained/{flavour}')}")
+    print(f"[service] load_checkpoint of the trained model (save_pytree and save_servable): "
+          f"fused predictions equal the trained model's on all {len(trained['want'])} test "
+          f"images, digest {stamp.digest}")
+
+
+async def _swap_storm(service, cfg, requests, rate, events):
+    """Open-loop load of ``requests`` at ``rate`` with ``events`` (swap to a
+    model, or ``None`` for a rollback) spread over the load; returns the
+    load report, every admitted future's outcome (a TimeoutError when it
+    hung), the stamps the events installed and the seconds to the last
+    result."""
+    import asyncio
+
+    from repro_torch.serve.loadgen import poisson_open_loop
+
+    loop = asyncio.get_running_loop()
+    await service.start()
+    t0 = loop.time()
+    load = asyncio.create_task(poisson_open_loop(service, "svc", requests, rate, seed=SEED))
+    gap = len(requests) / rate / (len(events) + 1)
+    stamps = []
+    for model in events:
+        await asyncio.sleep(gap)
+        stamps.append(await (service.rollback("svc") if model is None
+                             else service.swap("svc", model, cfg)))
+    report = await load
+    t_load = loop.time() - t0
+    outcomes = await asyncio.gather(
+        *(asyncio.wait_for(asyncio.shield(f), 60.0) for _, f in report.admitted),
+        return_exceptions=True)
+    wall = loop.time() - t0
+    await service.stop(drain=True)
+    return report, outcomes, stamps, t_load, wall
+
+
+def service_swap_storm(cfg, method, pools, registry, card) -> dict:
+    """[service] part 2: ``ServingService`` over the ``svc`` slot under
+    4,096 single-image raw requests at an offered 5,000 req/s, with 8 swaps
+    alternating between the two pools and one rollback landing meanwhile.
+    Every result equals a direct classify, on a second engine, of the pool
+    its version's digest names; no microbatch holds two versions; nothing
+    hangs; ingress_pack and fused_infer launch once per engine slice.
+    The drive runs under ``torch.profiler``, whose CUDA trace covers every
+    thread, and ``engine.dispatch`` is timed around each call on the
+    dispatch thread, which splits the wall time per microbatch into the
+    card's busy time (kernels and copies, the swaps' included) and the
+    dispatch's host time.  Returns the drive's launch counts."""
+    import asyncio
+    import collections
+
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.serve.engine import ServingEngine
+    from repro_torch.serve.service import ServiceConfig, ServingService
+
+    eng = ServingEngine(max_batch=256)
+    eng.register("svc", pools["a"], cfg, booleanize_method=method, path="fused")
+    eng.warmup("svc")
+    v1 = eng.version("svc")
+    spent = []
+    dispatch = eng.dispatch
+
+    def timed_dispatch(*args, **kw):
+        t = time.perf_counter()
+        handle = dispatch(*args, **kw)
+        spent.append(time.perf_counter() - t)
+        return handle
+
+    eng.dispatch = timed_dispatch
+    rng = np.random.default_rng(SEED + 11)
+    images = rng.integers(0, 256, (4096, 28, 28), dtype=np.uint8)
+    requests = [images[i : i + 1] for i in range(len(images))]
+    events = [pools["b"], pools["a"], pools["b"], pools["a"], None,
+              pools["b"], pools["a"], pools["b"], pools["a"]]
+    direct = ServingEngine(max_batch=256)
+    want = {}
+    for key in ("a", "b"):
+        direct.register(key, pools[key], cfg, booleanize_method=method, path="fused")
+        want[direct.version(key).digest] = direct.classify(key, images)
+    check(not np.array_equal(*(w.predictions for w in want.values())),
+          "the two pools predict alike: a swap would not show")
+    service = ServingService(eng, ServiceConfig(max_delay_us=200.0))
+    registry.reset_launches()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        report, outcomes, stamps, t_load, wall = asyncio.run(
+            _swap_storm(service, cfg, requests, 5000.0, events))
+    launches = registry.launch_counts()
+    digests = {v1.version: v1.digest, **{s.version: s.digest for s in stamps}}
+    check(len(stamps) == 9 and [s.version for s in stamps] == list(range(2, 11)),
+          f"lifecycle events installed {[s.version for s in stamps]}")
+    hung = sum(isinstance(o, asyncio.TimeoutError) for o in outcomes)
+    failed = [o for o in outcomes if isinstance(o, BaseException)]
+    check(hung == 0 and not failed and report.rejected == 0
+          and len(report.admitted) == len(requests),
+          f"swap storm: hung {hung}, failed {failed[:3]}, rejected {report.rejected}")
+    by_batch = collections.defaultdict(set)
+    seen = collections.Counter()
+    for (i, _), res in zip(report.admitted, outcomes):
+        w = want[digests[res.version]]
+        check(np.array_equal(res.predictions, w.predictions[i : i + 1])
+              and np.array_equal(res.class_sums, w.class_sums[i : i + 1]),
+              f"request {i} (v{res.version}) differs from a direct classify of its version")
+        by_batch[res.batch_id].add(res.version)
+        seen[res.version] += 1
+    check(all(len(v) == 1 for v in by_batch.values()), "a microbatch holds two versions")
+    st = service.stats("svc")
+    slices = sum(h["batches"] for h in st.occupancy_hist.values())
+    check(launches["ingress_pack"] == launches["fused_infer"] == slices > 0,
+          f"launches {launches} != {slices} engine slices")
+    print(f"[service] swap storm: {len(requests)} single-image raw requests at an offered "
+          f"5,000 req/s ({len(requests) / t_load:.1f} req/s submitted, "
+          f"{st.completed / wall:.1f} req/s completed), 8 swaps and 1 rollback (v2..v10); "
+          f"every result == a direct classify of its version; {len(by_batch)} microbatches, "
+          f"each on one version; results per version {dict(sorted(seen.items()))}; hung {hung}")
+    print(f"[service] swap storm latency p50 {st.p50_latency_us:.1f} us, p99 "
+          f"{st.p99_latency_us:.1f} us; mean occupancy {st.mean_occupancy:.4f}; occupancy "
+          f"{st.occupancy_hist}; split ingress {st.ingress_us_per_image:.2f} / device "
+          f"{st.device_us_per_image:.2f} us/img | {card}")
+    print(f"[service] launches during the swap storm: {launches} ({slices} engine slices)")
+    n = st.batches
+    check(len(spent) == n, f"{len(spent)} dispatches for {n} microbatches")
+    on_card = device_rows(prof.key_averages())
+    busy = sum(self_dev_us(e) for e in on_card)
+    wall_us, host = wall * 1e6, sum(spent) * 1e6
+    device = (f"device busy {busy / n:.1f} us/microbatch ({100 * busy / wall_us:.2f}% of "
+              f"wall), idle {100 * (1 - busy / wall_us):.2f}%" if busy
+              else "device busy not measured (the profiler captured no device time)")
+    print(f"[profile] service swap storm: {n} microbatches ({len(requests) / n:.2f} images "
+          f"each): wall {wall_us / n:.1f} us/microbatch; {device}; engine.dispatch on the "
+          f"dispatch thread {host / n:.1f} us/microbatch ({100 * host / wall_us:.1f}% of "
+          f"wall) | {card}")
+    print_top_device("service swap storm", on_card, n, "microbatch")
+    return launches
+
+
+async def _chaos(service, requests, imgs):
+    from repro_torch.serve.faults import chaos_soak
+
+    await service.start()
+    tally = await chaos_soak(service, "chaos", requests, 2000.0, seed=SEED,
+                             malformed_frac=0.05, abandon_frac=0.05, gather_timeout_s=60.0)
+    after = await service.submit("chaos", imgs)
+    await service.stop(drain=True)
+    return tally, after
+
+
+def service_chaos(cfg, method, pools, cpu, registry, card) -> dict:
+    """[service] part 3: ``chaos_soak`` (512 single-image raw requests at
+    2,000 req/s, 5% malformed, 5% abandoned) against a service whose engine
+    fails its 9th to 11th dispatches, one request per microbatch so each
+    failure feeds the breaker: at ``failure_threshold`` 3 it steps
+    ``fused -> matmul``.  No future hangs; fused_infer launched before the
+    trip and never after; a request after the trip equals the CPU plain
+    composition.  Returns the launch counts."""
+    import asyncio
+
+    import numpy as np
+
+    from repro_torch.serve.engine import ServingEngine
+    from repro_torch.serve.faults import DegradationPolicy, FaultPlan
+    from repro_torch.serve.service import ServiceConfig, ServingService
+
+    plan = FaultPlan(engine_error_at=(9, 10, 11))
+    eng = ServingEngine(max_batch=256, faults=plan)
+    eng.register("chaos", pools["a"], cfg, booleanize_method=method, path="fused")
+    eng.warmup("chaos")
+    cpu.register("chaos", pools["a"], cfg, booleanize_method=method, path="fused")
+    at_trip = []
+    degrade = eng.degrade_path
+
+    def degrade_and_note(name):
+        at_trip.append(registry.launch_counts())
+        return degrade(name)
+
+    eng.degrade_path = degrade_and_note
+    rng = np.random.default_rng(SEED + 12)
+    requests = list(rng.integers(0, 256, (512, 1, 28, 28), dtype=np.uint8))
+    imgs = rng.integers(0, 256, (64, 28, 28), dtype=np.uint8)
+    service = ServingService(eng, ServiceConfig(max_delay_us=200.0, max_coalesce=1),
+                             faults=plan, policy=DegradationPolicy(failure_threshold=3))
+    registry.reset_launches()
+    tally, after = asyncio.run(_chaos(service, requests, imgs))
+    launches = registry.launch_counts()
+    health = tally["health"]
+    print(f"[service] chaos soak: {tally} | {card}")
+    check(tally["hung"] == 0, f"chaos soak: {tally['hung']} futures hung")
+    check(tally["ok"] + tally["expired"] + tally["faulted"] + tally["stopped"]
+          == tally["admitted"] + tally["abandoned"] and tally["faulted"] == 3
+          and tally["malformed"] > 0 and tally["abandoned"] > 0,
+          f"chaos soak tally {tally}")
+    check(len(at_trip) == 1 and health["fallback_path"] == "matmul"
+          and eng.stats("chaos").fallback_path == "matmul"
+          and eng.stats("chaos").degrade_steps == 1, f"breaker: health {health}")
+    before = at_trip[0]
+    check(before["fused_infer"] > 0 and launches["fused_infer"] == before["fused_infer"],
+          f"fused_infer launches: {before['fused_infer']} before the trip, "
+          f"{launches['fused_infer']} at the end")
+    want = cpu.classify("chaos", imgs)
+    check(np.array_equal(after.predictions, want.predictions)
+          and np.array_equal(after.class_sums, want.class_sums),
+          "after the trip the service differs from the CPU plain composition")
+    print(f"[service] breaker: fused -> matmul after 3 injected engine errors (health "
+          f"{health['state']}); launches at the trip {before}, at the end {launches}; a "
+          f"64-image request after the trip == plain (CPU)")
+    return launches
+
+
+def lifecycle_round(cfg, method, trained, registry, card) -> dict:
+    """[service] part 4: one ``LifecycleDriver.run_round`` on the card:
+    train 1 epoch of 4,000 glyphs from the initial model, shadow the
+    candidate on ``fused`` against the live version on 256 test images,
+    gate, promote (checkpointed) or reject.  Returns the launch counts."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.data import synthetic_glyphs
+    from repro_torch.launch.lifecycle import LifecycleConfig, LifecycleDriver
+    from repro_torch.serve.engine import ServingEngine
+    from repro_torch.train.tm_engine import TrainerEngine
+
+    tx, ty, _, _ = synthetic_glyphs(n_train=4000, n_test=0, seed=SEED + 13)
+    trainer = TrainerEngine(cfg, batch_size=100)
+    model = trainer.init_model(torch.Generator().manual_seed(SEED))
+    eng = ServingEngine(max_batch=256)
+    eng.register("life", trainer.freeze_servable(model), booleanize_method=method,
+                 path="fused")
+    with tempfile.TemporaryDirectory() as d:
+        driver = LifecycleDriver(trainer, eng, "life",
+                                 config=LifecycleConfig(min_agreement=0.0, shadow_requests=256),
+                                 ckpt_dir=d, booleanize_method=method, eval_path="fused")
+        registry.reset_launches()
+        t = time.perf_counter()
+        _, model, state, rep = driver.run_round(
+            trainer.draws_generator(SEED), model, trainer.prepare(tx, ty), trained["vx"],
+            trained["vy"], epochs=1)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+        launches = registry.launch_counts()
+        saved = sorted(os.listdir(d))
+    check(rep.n == 256 and state.epoch == 1 and launches["fused_infer"] > 0,
+          f"lifecycle round: report {rep}, launches {launches}")
+    if rep.promoted:
+        check(eng.version_id("life") == rep.promoted_version == 2
+              and eng.version("life").digest == rep.candidate_digest
+              and saved == ["step_00000002"], f"promotion: {eng.version('life')}, {saved}")
+    else:
+        check(eng.version_id("life") == 1 and not saved, "a rejected candidate was installed")
+    print(f"[service] lifecycle round on the card ({dt:.3f} s: 1 epoch of 4,000 glyphs, "
+          f"shadow on fused over 256 test images): {rep.as_dict()} | {card}")
+    print(f"[service] launches during the lifecycle round: {launches}")
     return launches
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
@@ -673,6 +988,8 @@ def main() -> int:
     check(n_active["empty"] == 0, "all-empty pool has an active clause")
 
     # --- 2. kernels against their plain versions ----------------------------
+    phase_s = {"1 environment and build": time.perf_counter() - t_start}
+    t_phase = time.perf_counter()
     gen = torch.Generator(device=dev).manual_seed(SEED)
 
     def rand_bits(shape, p_one):
@@ -792,6 +1109,8 @@ def main() -> int:
           f"(random and one-hot fired, uint8 and bool)")
 
     # --- 3a. main path of slice 1: the engine on the fused path --------------
+    phase_s["2 kernels == plain"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
     engine = ServingEngine(max_batch=256)
     engine.register(arch, model, cfg, booleanize_method=method, path="fused")
     engine.register(f"{arch}/dense", model, cfg, booleanize_method=method, path="dense")
@@ -909,12 +1228,25 @@ def main() -> int:
               f"on requests of {list(sizes)}")
 
     # --- 3c. main paths of the adaptive ingress, the trainer and the hand-off -
+    phase_s["3a-3b fused, kernel and sparse paths"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
     launches_adaptive = adaptive_serving(engine, cpu, {"few": few_model, "few40": few40_model},
                                   registry, dev)
     trainer_card_equals_cpu(dev)
-    launches_trained = trainer_on_card(engine, registry, dev, card)
+    launches_trained, trained = trainer_on_card(engine, registry, dev, card)
+
+    # --- 3d. the serving stack: lifecycle, service, chaos, lifecycle round --
+    phase_s["3c adaptive, trainer, hand-off"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
+    svc_pools = {"a": few40_model, "b": few_model}
+    engine_lifecycle(cfg, method, svc_pools, trained, dev)
+    launches_storm = service_swap_storm(cfg, method, svc_pools, registry, card)
+    launches_chaos = service_chaos(cfg, method, svc_pools, cpu, registry, card)
+    launches_round = lifecycle_round(cfg, method, trained, registry, card)
 
     # --- 4. times at bucket 256 ----------------------------------------------
+    phase_s["3d service"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
     b = 256
     spec = cfg.patch
     raw = torch.from_numpy(rng.integers(0, 256, (b, 28, 28), dtype=np.uint8)).to(dev)
@@ -1035,7 +1367,8 @@ def main() -> int:
         # Launches on the main paths: every serving drive; class_sum, which
         # no path calls, from its own window.
         adaptive_trained = launches_adaptive[name] + launches_trained[name]
-        main_path = launches[name] + launches2[name] + adaptive_trained
+        service = launches_storm[name] + launches_chaos[name] + launches_round[name]
+        main_path = launches[name] + launches2[name] + adaptive_trained + service
         count = launches3[name] if name == "class_sum" else main_path
         k = registry.KERNELS[name]
         rows.append({
@@ -1049,6 +1382,9 @@ def main() -> int:
             # Of those, the launches of the adaptive serving drive and of
             # the trained model's (fused, fused_sparse, infer_packed).
             "adaptive_trained_launches": adaptive_trained,
+            # Of those, the launches of the service drives (swap storm,
+            # chaos soak, lifecycle round).
+            "service_launches": service,
             # torch._int_mm on the same bits (class sums; null where it
             # refuses the shape or for the other kernels).
             "int_mm_ms": int_mm_ms,
@@ -1098,6 +1434,8 @@ def main() -> int:
     for label, name in (("fused", arch), ("fused_sparse", sparse_name)):
         for blabel, imgs, reps in (("bucket 256", imgs256, 20), ("bucket 1", img1, 50)):
             profile_classify(engine, name, imgs, reps, f"{label} {blabel}")
+    phase_s["4 times and profiles"] = time.perf_counter() - t_phase
+    print(f"[env] phase seconds: {', '.join(f'{k} {v:.2f}' for k, v in phase_s.items())}")
     print(f"[env] {card} | build {build_s:.2f} s")
 
     print(json.dumps({"kernels": rows}))

@@ -1,4 +1,4 @@
-"""PyTorch / CUDA port of the ConvCoTM serving path and trainer, for NVIDIA Hopper.
+"""PyTorch / CUDA port of the ConvCoTM serving stack and trainer, for NVIDIA Hopper.
 
 A second package beside ``repro`` (the JAX reference).  It imports
 ``torch`` and numpy only: never ``jax`` and nothing of ``repro``; the
@@ -9,7 +9,11 @@ the reference has a CUDA C++ counterpart under ``csrc/``: ingress pack,
 fused clause-eval + class sums (dense and active pool), clause eval
 (dense and active pool) and class sums; they serve the ``fused``,
 ``kernel``, ``sparse`` and ``fused_sparse`` eval paths, for models served
-as they are and for models the trainer hands over.
+as they are and for models the trainer hands over.  Above the engine sit
+the reference's async service (``serve/service.py``: admission,
+microbatching, deadlines, quarantine, the circuit breaker), its hot swap
+and rollback, and the train -> shadow -> promote lifecycle
+(``launch/lifecycle.py``).
 
 Entry points run on the CUDA card unless the caller passes
 ``device="cpu"`` (see :func:`resolve_device`); with no device given and

@@ -2,17 +2,29 @@
 ``repro/launch/serve.py``).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch convcotm-mnist \
-        --requests 32 --max-batch 256 [--eval-path fused_sparse] [--device cpu]
+        --requests 32 --max-batch 256 [--eval-path fused_sparse] \
+        [--ingress host] [--ckpt-dir DIR] [--device cpu]
 
-The model is a boundary-initialised ConvCoTM made from ``--seed`` (no
-trained weights ship with the repo), and the requests are random raw
-uint8 images of mixed sizes from the same seed: enough to drive the
-whole raw -> predictions path and measure throughput, not accuracy.
+``--service`` runs the same model behind the asyncio ``ServingService``
+(bounded queue, latency-aware microbatching, graceful drain) under an
+open-loop Poisson arrival stream of single-image requests:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch convcotm-mnist \
+        --service --rate 2000 --requests 512 --max-delay-us 200 \
+        [--submit-form raw|preprocessed|host] [--deadline-s S] \
+        [--malformed-frac F] [--abandon-frac F]
+
+The model comes from ``--ckpt-dir`` (either checkpoint flavour, through
+``ServingEngine.load_checkpoint``) or is a boundary-initialised ConvCoTM
+made from ``--seed``.  Requests are drawn from the arch's test split
+(1,024 images; the synthetic glyphs stand in when the IDX files are
+absent); accuracy is printed for a restored model.
 """
 
 from __future__ import annotations
 
 import argparse
+import asyncio
 import json
 
 import numpy as np
@@ -20,10 +32,31 @@ import torch
 
 from repro_torch.configs.convcotm import BOOLEANIZE_METHOD, COTM_CONFIGS
 from repro_torch.core.cotm import init_boundary_model
+from repro_torch.data import get_dataset
 from repro_torch.serve.engine import ServingEngine
 from repro_torch.serve.paths import available_paths
 
-__all__ = ["serve_tm"]
+__all__ = ["serve_tm", "serve_tm_service"]
+
+
+def _tm_engine(arch: str, *, max_batch: int, eval_path: str | None, ckpt_dir: str | None,
+               seed: int, device):
+    """The engine with ``arch`` registered (restored from ``ckpt_dir``, or a
+    seeded boundary model) and the test split requests are drawn from;
+    returns ``(engine, vx, vy, source)``."""
+    cfg = COTM_CONFIGS[arch]
+    method = BOOLEANIZE_METHOD[arch]
+    dataset = arch.split("-", 1)[1]               # convcotm-mnist -> mnist
+    _, _, vx, vy, source = get_dataset(dataset, n_test=1024)
+    engine = ServingEngine(max_batch=max_batch, device=device)
+    if ckpt_dir is not None:
+        engine.load_checkpoint(arch, ckpt_dir, cfg, booleanize_method=method, path=eval_path)
+        print(f"{arch}: restored model from {ckpt_dir}")
+    else:
+        model = init_boundary_model(torch.Generator().manual_seed(seed), cfg)
+        engine.register(arch, model, cfg, booleanize_method=method, path=eval_path)
+        print(f"{arch}: serving a boundary-initialised model ({source} data)")
+    return engine, vx, vy, source
 
 
 def serve_tm(
@@ -31,26 +64,28 @@ def serve_tm(
     *,
     n_requests: int = 32,
     max_batch: int = 256,
-    eval_path: str = "fused",
+    eval_path: str | None = "fused",
+    ckpt_dir: str | None = None,
     seed: int = 0,
+    ingress: str = "device",
     device=None,
 ) -> dict:
-    """Register a seeded boundary model of ``arch``, warm every bucket, and
-    serve ``n_requests`` requests of 1..max_batch random images; returns
-    the engine's statistics."""
-    cfg = COTM_CONFIGS[arch]
-    engine = ServingEngine(max_batch=max_batch, device=device)
-    model = init_boundary_model(torch.Generator().manual_seed(seed), cfg)
-    engine.register(arch, model, cfg, booleanize_method=BOOLEANIZE_METHOD[arch],
-                    path=eval_path)
+    """Warm every bucket, then serve ``n_requests`` requests of
+    1..max_batch test images through ``classify`` (``ingress='host'``
+    replays the host pipeline); returns the engine's statistics."""
+    engine, vx, vy, source = _tm_engine(arch, max_batch=max_batch, eval_path=eval_path,
+                                        ckpt_dir=ckpt_dir, seed=seed, device=device)
     warmed = engine.warmup(arch)
-    print(f"{arch}: serving a boundary-initialised model on {engine.device} "
-          f"({engine.resolved_path(arch)} path); warmed buckets {list(warmed)}")
+    print(f"{arch}: on {engine.device} ({engine.resolved_path(arch)} path); warmed "
+          f"buckets {list(warmed)}")
     rng = np.random.default_rng(seed)
-    shape = (cfg.patch.image_y, cfg.patch.image_x)
+    correct = total = 0
     for _ in range(n_requests):
         n = int(rng.integers(1, max_batch + 1))
-        engine.classify(arch, rng.integers(0, 256, (n,) + shape, dtype=np.uint8))
+        idx = rng.integers(0, len(vx), n)
+        res = engine.classify(arch, vx[idx], ingress=ingress)
+        correct += int((res.predictions == vy[idx].astype(np.int64)).sum())
+        total += n
     st = engine.stats(arch)
     print(
         f"{arch}: {st.images} images in {st.requests} requests | "
@@ -59,6 +94,91 @@ def serve_tm(
         f"{st.mean_ingress_us:,.0f} + device {st.mean_device_us:,.0f}) | "
         f"bucket hits {dict(sorted(st.bucket_hits.items()))}"
     )
+    if ckpt_dir is not None:
+        print(f"{arch}: accuracy {correct / total:.4f} on {source} test data")
+    return st.as_dict()
+
+
+async def serve_tm_service(
+    arch: str,
+    *,
+    n_requests: int = 256,
+    rate: float = 2000.0,
+    max_batch: int = 256,
+    max_delay_us: float = 200.0,
+    high_water: int = 4096,
+    eval_path: str | None = "fused",
+    ckpt_dir: str | None = None,
+    seed: int = 0,
+    submit_form: str = "raw",
+    deadline_s: float | None = None,
+    malformed_frac: float = 0.0,
+    abandon_frac: float = 0.0,
+    device=None,
+) -> dict:
+    """Drive the async ``ServingService`` with open-loop Poisson arrivals
+    of single-image requests at ``rate`` req/s, then drain gracefully;
+    returns the service's statistics.
+
+    ``submit_form``: ``'raw'`` pixels (ingress on the device, once per
+    microbatch), ``'preprocessed'`` (the pool preprocessed once up front,
+    so the run measures the service spine alone) or ``'host'`` (the
+    per-request host ingress).  ``deadline_s`` stamps every request,
+    ``malformed_frac`` corrupts that fraction of submissions (refused at
+    validation) and ``abandon_frac`` models clients that stop waiting;
+    every admitted future still resolves.
+    """
+    from repro_torch.serve.loadgen import poisson_open_loop
+    from repro_torch.serve.service import ServiceConfig, ServingService
+
+    if submit_form not in ("raw", "preprocessed", "host"):
+        raise ValueError(f"unknown submit_form {submit_form!r}")
+    engine, vx, vy, source = _tm_engine(arch, max_batch=max_batch, eval_path=eval_path,
+                                        ckpt_dir=ckpt_dir, seed=seed, device=device)
+    engine.warmup(arch)
+    pool = engine.preprocess(arch, vx) if submit_form == "preprocessed" else np.asarray(vx)
+
+    service = ServingService(engine, ServiceConfig(max_delay_us=max_delay_us,
+                                                   high_water=high_water))
+    await service.start()
+    rng = np.random.default_rng(seed)
+    idx = rng.integers(0, len(vx), n_requests)
+    loop = asyncio.get_running_loop()
+    t0 = loop.time()
+    report = await poisson_open_loop(
+        service, arch, [pool[j : j + 1] for j in idx], rate, seed=seed,
+        preprocessed=submit_form == "preprocessed", host_ingress=submit_form == "host",
+        deadline_s=deadline_s, malformed_frac=malformed_frac, abandon_frac=abandon_frac,
+    )
+    admitted = report.admitted
+    # Abandoned futures resolve too; with a deadline some resolve as
+    # ServiceExpired.
+    outcomes = await asyncio.gather(*(f for _, f in admitted + report.abandoned),
+                                    return_exceptions=True)
+    await service.stop(drain=True)
+    wall = loop.time() - t0
+
+    st = service.stats(arch)
+    print(
+        f"{arch}: offered {n_requests / wall:,.0f} req/s | completed {st.completed} "
+        f"({st.completed / wall:,.0f}/s), rejected {report.rejected} | "
+        f"p50 {st.p50_latency_us:,.0f} us p99 {st.p99_latency_us:,.0f} us | "
+        f"split ingress {st.ingress_us_per_image:,.0f} / device "
+        f"{st.device_us_per_image:,.0f} us/img | mean occupancy {st.mean_occupancy:.2f} | "
+        f"occupancy hist {st.occupancy_hist}"
+    )
+    health = service.health()
+    print(f"{arch}: health {health.state}, path {engine.resolved_path(arch)}, "
+          f"fallback_path {health.fallback_path}, dispatch failures "
+          f"{health.dispatch_failures}")
+    if deadline_s is not None or malformed_frac or abandon_frac:
+        print(f"{arch}: faults — expired {st.expired}, malformed {report.malformed}, "
+              f"abandoned {len(report.abandoned)} (all resolved)")
+    results = [(i, r) for (i, _), r in zip(admitted, outcomes)
+               if not isinstance(r, BaseException)]
+    if ckpt_dir is not None and results:
+        correct = sum(int(r.predictions[0]) == int(vy[idx[i]]) for i, r in results)
+        print(f"{arch}: accuracy {correct / len(results):.4f} on {source} test data")
     return st.as_dict()
 
 
@@ -68,15 +188,46 @@ def main(argv=None) -> None:
     ap.add_argument("--requests", type=int, default=32)
     ap.add_argument("--max-batch", type=int, default=256)
     ap.add_argument("--eval-path", default="fused", choices=available_paths())
+    ap.add_argument("--ckpt-dir", default=None,
+                    help="serve the newest checkpoint here (a trainer's model or a "
+                         "save_servable image)")
+    ap.add_argument("--ingress", default="device", choices=["device", "host"],
+                    help="raw-request ingress: on the device, or the host pipeline")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card; 'cpu' runs the "
                          "plain versions)")
+    ap.add_argument("--service", action="store_true",
+                    help="serve through the asyncio ServingService")
+    ap.add_argument("--rate", type=float, default=2000.0,
+                    help="Poisson arrival rate, requests/s (--service)")
+    ap.add_argument("--max-delay-us", type=float, default=200.0,
+                    help="microbatch coalescing deadline (--service)")
+    ap.add_argument("--high-water", type=int, default=4096,
+                    help="queued-image admission limit (--service)")
+    ap.add_argument("--submit-form", default="raw", choices=["raw", "preprocessed", "host"],
+                    help="request form of --service submissions")
+    ap.add_argument("--deadline-s", type=float, default=None,
+                    help="per-request deadline in seconds (--service); requests "
+                         "past it are shed with ServiceExpired before dispatch")
+    ap.add_argument("--malformed-frac", type=float, default=0.0,
+                    help="fraction of submissions shape-corrupted, to be refused at "
+                         "validation (--service)")
+    ap.add_argument("--abandon-frac", type=float, default=0.0,
+                    help="fraction of admitted requests whose client walks away; "
+                         "their futures still resolve (--service)")
     args = ap.parse_args(argv)
-    stats = serve_tm(
-        args.arch, n_requests=args.requests, max_batch=args.max_batch,
-        eval_path=args.eval_path, seed=args.seed, device=args.device,
-    )
+    common = dict(max_batch=args.max_batch, eval_path=args.eval_path,
+                  ckpt_dir=args.ckpt_dir, seed=args.seed, device=args.device)
+    if args.service:
+        stats = asyncio.run(serve_tm_service(
+            args.arch, n_requests=args.requests, rate=args.rate,
+            max_delay_us=args.max_delay_us, high_water=args.high_water,
+            submit_form=args.submit_form, deadline_s=args.deadline_s,
+            malformed_frac=args.malformed_frac, abandon_frac=args.abandon_frac, **common,
+        ))
+    else:
+        stats = serve_tm(args.arch, n_requests=args.requests, ingress=args.ingress, **common)
     print(json.dumps(stats))
 
 

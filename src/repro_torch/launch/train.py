@@ -11,7 +11,8 @@ same device seeded from ``--seed``, a checkpoint (model, cursor,
 generator state) after every epoch.  A restarted run resumes from the
 newest checkpoint and finishes the requested epochs with the draws an
 uninterrupted run would have used; a checkpoint written with another
-batch size, mode or seed is refused.
+batch size, mode or seed, or on another device type (whose generator
+draws other numbers), is refused.
 """
 
 from __future__ import annotations
@@ -28,6 +29,27 @@ from repro_torch.data import PipelineState, get_dataset
 from repro_torch.train.tm_engine import TrainerEngine
 
 __all__ = ["run_tm_training"]
+
+
+def _generator_state(extra: Dict, gen: torch.Generator, device: torch.device,
+                     ckpt_dir: str) -> torch.Tensor:
+    """The saved draw-generator state, if ``gen`` can take it.  A CUDA and
+    a CPU generator keep different states and draw different numbers, so a
+    checkpoint written on another device type is refused.  A checkpoint
+    that names no device is taken only when its state has the length of
+    ``gen``'s."""
+    state = torch.tensor(extra["generator"], dtype=torch.uint8)
+    saved = extra.get("generator_device")
+    if saved is None and state.numel() == gen.get_state().numel():
+        return state
+    if saved != device.type:
+        raise ValueError(
+            f"checkpoint at {ckpt_dir} holds the draw generator of a "
+            f"{saved or 'different'} device; resuming on {device.type} would break "
+            f"the draw sequence: resume on {saved or 'the device it was trained on'} "
+            f"or use a fresh directory"
+        )
+    return state
 
 
 def run_tm_training(
@@ -71,7 +93,7 @@ def run_tm_training(
                 f"matching flags or a fresh directory"
             )
         state = PipelineState.from_dict(extra["pipeline"])
-        gen.set_state(torch.tensor(extra["generator"], dtype=torch.uint8))
+        gen.set_state(_generator_state(extra, gen, engine.device, ckpt_dir))
         print(f"{arch}: resumed from epoch {state.epoch} (step {step})")
 
     ckpt = Checkpointer(ckpt_dir) if ckpt_dir else None
@@ -86,6 +108,7 @@ def run_tm_training(
             ckpt.save(model, state.epoch, extra={
                 "pipeline": state.as_dict(),
                 "generator": gen.get_state().tolist(),
+                "generator_device": gen.device.type,
                 "trainer": trainer_meta,
             })
     if ckpt:

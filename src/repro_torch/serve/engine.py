@@ -1,4 +1,4 @@
-"""Batched ConvCoTM serving engine (core of ``repro/serve/engine.py``).
+"""Batched ConvCoTM serving engine (counterpart of ``repro/serve/engine.py``).
 
 Models are frozen once into :class:`ServableModel` register images, moved
 to the engine's device, and registered under a dataset key; raw uint8
@@ -10,7 +10,11 @@ sums packed into one int32 ``[bucket, 1 + m]`` tensor; booleanize,
 patches, literals, packing, clause evaluation, class sums and argmax all
 run on the card in between.  :meth:`ServingEngine.dispatch` returns an
 :class:`InFlightClassify` without waiting; its ``result()`` waits on a
-CUDA event recorded after the last copy.
+CUDA event recorded after the last copy.  Every launch and copy of a
+request goes on the calling thread's current stream of the engine's
+card (the default stream unless the caller sets another), so requests
+dispatched from a worker thread and the transfers of a swap on a third
+thread run in the order they were issued.
 
 Request forms, as in the reference: raw pixels (the default, ingress on
 the device), ``ingress='host'`` (the host pipeline
@@ -23,18 +27,30 @@ Batch bucketing: requests are padded to the nearest power of two, clamped
 to ``max_batch``; longer requests are served in ``max_batch`` slices.
 Padding rows are zero images whose results are sliced off; no row can
 affect another.  Buckets bound the set of shapes the kernels and the
-caching allocator ever see, as they bound jit compiles in the reference.
+caching allocator ever see, as they bound jit compiles in the reference;
+``ServeStats.compiled_buckets`` lists the buckets run so far.
 
-Each registered model carries a :class:`ServableVersion` stamp (the
-engine assigns the monotonic id; epoch, step and digest come from the
-servable's own stamp when it has one).  Autotuning, meshes, fault
-injection and hot swap are not ported yet.
+Lifecycle and faults, as in the reference: each registered model carries
+a :class:`ServableVersion` stamp (the engine assigns the monotonic id;
+epoch, step and digest come from the servable's own stamp when it has
+one).  :meth:`ServingEngine.swap` installs new weights under live load
+and :meth:`ServingEngine.rollback` restores the displaced image in O(1);
+an engine lock (:meth:`ServingEngine.swap_guard`) pins one version across
+every slice of a dispatch, and each :class:`InFlightClassify` holds the
+image it was dispatched on until its result is read.
+:meth:`ServingEngine.degrade_path` steps a model down the degradation
+chain, and a ``faults`` plan (``serve/faults.py``) may fail a dispatch
+before any work.  Autotuning and meshes are not ported yet: a tuned plan
+rides on a servable as an opaque string, and the engine serves one card.
 """
 
 from __future__ import annotations
 
 import copy
 import dataclasses
+import json
+import os
+import threading
 import time
 from typing import Dict, List, Optional, Tuple
 
@@ -46,7 +62,14 @@ from repro_torch.core import clauses as cl
 from repro_torch.core.cotm import CoTMConfig, CoTMModel
 from repro_torch.core.ingress import IngressSpec, raw_trailing_shape
 from repro_torch.data.pipeline import preprocess_for_serving
-from repro_torch.serve.paths import PACKED, get_path, resolve_path, run_path, run_path_raw
+from repro_torch.serve.paths import (
+    PACKED,
+    degraded_fallback,
+    get_path,
+    resolve_path,
+    run_path,
+    run_path_raw,
+)
 from repro_torch.serve.servable import (
     ServableModel,
     ServableVersion,
@@ -56,6 +79,9 @@ from repro_torch.serve.servable import (
 )
 
 __all__ = ["ClassifyResult", "InFlightClassify", "ServeStats", "ServingEngine"]
+
+#: The request forms a bucket is run in.
+FORMS = ("literals", "raw")
 
 
 def _torch_dtype(dtype: np.dtype) -> torch.dtype:
@@ -72,11 +98,14 @@ class ClassifyResult:
     bucket: int               # largest padded batch size executed
     ingress_s: float = 0.0    # host-side validation share
     device_s: float = 0.0     # dispatch -> results on the host share
+    version: int = 0          # monotonic id of the version that computed it
 
 
 @dataclasses.dataclass
 class ServeStats:
-    """Running per-model accounting."""
+    """Running per-model accounting.  ``devices`` and ``data_shards`` are 1
+    (one card); ``autotune`` stays empty until the autotuner is ported;
+    ``fallback_path`` and ``degrade_steps`` record the degradation chain."""
 
     requests: int = 0
     images: int = 0
@@ -84,6 +113,12 @@ class ServeStats:
     ingress_s: float = 0.0
     device_s: float = 0.0
     bucket_hits: Dict[int, int] = dataclasses.field(default_factory=dict)
+    compiled_buckets: Tuple[int, ...] = ()
+    devices: int = 1
+    data_shards: int = 1
+    autotune: Dict = dataclasses.field(default_factory=dict)
+    fallback_path: Optional[str] = None
+    degrade_steps: int = 0
 
     @property
     def classifications_per_s(self) -> float:
@@ -101,6 +136,11 @@ class ServeStats:
     def mean_device_us(self) -> float:
         return self.device_s / self.requests * 1e6 if self.requests else 0.0
 
+    @property
+    def per_device_bucket_hits(self) -> Dict[int, int]:
+        """Bucket hits keyed by the rows each device executed."""
+        return {b // self.data_shards: h for b, h in self.bucket_hits.items()}
+
     def as_dict(self) -> Dict:
         return {
             "requests": self.requests,
@@ -110,6 +150,13 @@ class ServeStats:
             "mean_ingress_us": self.mean_ingress_us,
             "mean_device_us": self.mean_device_us,
             "bucket_hits": dict(self.bucket_hits),
+            "compiled_buckets": list(self.compiled_buckets),
+            "devices": self.devices,
+            "data_shards": self.data_shards,
+            "per_device_bucket_hits": dict(self.per_device_bucket_hits),
+            "autotune": dict(self.autotune),
+            "fallback_path": self.fallback_path,
+            "degrade_steps": self.degrade_steps,
         }
 
 
@@ -122,6 +169,12 @@ class _Entry:
     ingress: IngressSpec
     stats: ServeStats
     version: ServableVersion
+    # (form, bucket) pairs run on this image; reset when the image changes.
+    compiled: set = dataclasses.field(default_factory=set)
+    # The image and stamp a swap displaced, kept whole for rollback().
+    previous: Optional[Tuple[ServableModel, ServableVersion]] = None
+    # The stamped image servable() hands out, until the entry changes.
+    stamped: Optional[ServableModel] = None
 
 
 class InFlightClassify:
@@ -129,17 +182,22 @@ class InFlightClassify:
 
     ``result()`` waits for the device, slices off the bucket padding,
     records the request's stats and returns the :class:`ClassifyResult`;
-    it is idempotent.
+    it is idempotent.  Until then it holds the register image it was
+    dispatched on, so a swap cannot free tensors that queued kernels read.
     """
 
     def __init__(self, entry: _Entry, parts, n: int, t0: float, t_dispatch: float,
-                 done: Optional[torch.cuda.Event]):
+                 done: Optional[torch.cuda.Event], version: int = 0,
+                 servable: Optional[ServableModel] = None):
         self._entry = entry
         self._parts = parts            # [(host int32 [bucket, 1 + m], n_i, bucket)]
         self._n = n
         self._t0 = t0
         self._t_dispatch = t_dispatch
         self._done = done              # None on the CPU: already complete
+        # Version id captured under the engine lock at dispatch.
+        self.version = version
+        self._servable = servable
         self._result: Optional[ClassifyResult] = None
 
     def result(self) -> ClassifyResult:
@@ -147,6 +205,7 @@ class InFlightClassify:
             return self._result
         if self._done is not None:
             self._done.synchronize()
+        self._servable = None
         t2 = time.perf_counter()
         out = np.concatenate([h.numpy()[:ni] for h, ni, _ in self._parts])
         ingress_s = self._t_dispatch - self._t0
@@ -164,6 +223,7 @@ class InFlightClassify:
             bucket=max(b for _, _, b in self._parts),
             ingress_s=ingress_s,
             device_s=device_s,
+            version=self.version,
         )
         return self._result
 
@@ -174,16 +234,50 @@ class ServingEngine:
     ``device``: where the register images live and the classify steps run;
     by default the current CUDA card, and with no card a ``RuntimeError``
     (pass ``device="cpu"`` to run the plain versions on the CPU).
+    ``faults``: an optional :class:`~repro_torch.serve.faults.FaultPlan`
+    whose ``on_engine_dispatch`` runs at the top of every dispatch (chaos
+    tests).  There is no ``mesh``: the engine serves on one device.
     """
 
-    def __init__(self, max_batch: int = 256, *, device=None):
+    def __init__(self, max_batch: int = 256, *, device=None, faults=None):
         if max_batch < 1:
             raise ValueError("max_batch must be >= 1")
         self.max_batch = max_batch
         self.device = resolve_device(device)
+        self.faults = faults
         self._servables: Dict[str, _Entry] = {}
+        # Serialises entry changes (swap, rollback, degrade) against
+        # dispatch, which captures (image, version) under it.  Re-entrant,
+        # so the service can pin one version across a multi-form
+        # microbatch (swap_guard) around its own dispatch calls.
+        self._lock = threading.RLock()
+
+    @property
+    def devices(self) -> int:
+        """Devices the engine serves on (one card)."""
+        return 1
+
+    @property
+    def data_shards(self) -> int:
+        """Batch shards per dispatched bucket (1: no mesh)."""
+        return 1
 
     # --- registry ---------------------------------------------------------
+
+    @staticmethod
+    def _stamp(servable: ServableModel, source: Optional[ServableVersion]) -> ServableVersion:
+        """Epoch, step and digest from ``source`` (the digest is computed
+        when ``source`` has none); the caller sets the monotonic id under
+        the engine lock."""
+        return ServableVersion(
+            epoch=source.epoch if source else 0,
+            step=source.step if source else 0,
+            digest=source.digest if source and source.digest else servable_digest(servable),
+        )
+
+    def _next_version_id(self, name: str) -> int:
+        prev = self._servables.get(name)
+        return prev.version.version + 1 if prev is not None else 1
 
     def register(
         self,
@@ -195,6 +289,7 @@ class ServingEngine:
         path: Optional[str] = None,
         booleanize_kw: Optional[Dict] = None,
         version: Optional[ServableVersion] = None,
+        tuned: Optional[str] = None,
     ) -> ServableModel:
         """Freeze (if needed), attach the sparsity image
         (:func:`analyze_sparsity`), move to the engine's device once, and
@@ -202,9 +297,11 @@ class ServingEngine:
         config's ``eval_path``; ``booleanize_kw`` (``threshold``,
         ``block_size``, ``c``, ``levels``) sets the ingress knobs of both
         request routes.  ``version`` (or the servable's own stamp) gives
-        epoch, step and digest; the id is the slot's next.  A
+        epoch, step and digest; the id is the slot's next.  ``tuned`` (a
+        kernel plan's JSON) rides on the image unapplied.  A
         ``ServableModel`` given here is copied, not moved: ``nn.Module.to``
-        works in place, and the caller's image stays where it was."""
+        works in place, and the caller's image stays where it was.  The
+        dispatched image carries no stamp; :meth:`servable` adds it."""
         if isinstance(model, ServableModel):
             servable = copy.deepcopy(model)
         else:
@@ -217,30 +314,80 @@ class ServingEngine:
         ingress = eval_path.ingress_spec(servable.config.patch, method=booleanize_method,
                                          **booleanize_kw)
         source = version if version is not None else servable.version
-        prev = self._servables.get(name)
-        stamp = ServableVersion(
-            version=prev.version.version + 1 if prev is not None else 1,
-            epoch=source.epoch if source else 0,
-            step=source.step if source else 0,
-            digest=source.digest if source and source.digest else servable_digest(servable),
-        )
-        servable = analyze_sparsity(servable).to(self.device)
-        self._servables[name] = _Entry(
-            servable=servable,
-            booleanize_method=booleanize_method,
-            booleanize_kw=booleanize_kw,
-            path_name=path_name,
-            ingress=ingress,
-            stats=ServeStats(),
-            version=stamp,
-        )
+        servable = analyze_sparsity(servable)
+        if tuned is not None:
+            servable = servable.replace(tuned=tuned)
+        stamp = self._stamp(servable, source)
+        servable = servable.replace(version=None).to(self.device)
+        with self._lock:
+            self._servables[name] = _Entry(
+                servable=servable,
+                booleanize_method=booleanize_method,
+                booleanize_kw=booleanize_kw,
+                path_name=path_name,
+                ingress=ingress,
+                stats=ServeStats(devices=self.devices, data_shards=self.data_shards),
+                version=dataclasses.replace(stamp, version=self._next_version_id(name)),
+            )
         return servable
 
+    def load_checkpoint(
+        self,
+        name: str,
+        directory: str,
+        config: CoTMConfig,
+        *,
+        step: Optional[int] = None,
+        booleanize_method: str = "threshold",
+        path: Optional[str] = None,
+    ) -> ServableModel:
+        """Restore a model from a checkpoint directory (written by either
+        package) and register it.  Both flavours: a ``CoTMModel`` tree from
+        the trainer, or a register image from ``save_servable`` (the
+        lifecycle's promote); the manifest's leaf names tell them apart."""
+        from repro_torch.checkpoint.checkpointer import (
+            latest_step,
+            restore_pytree,
+            restore_servable,
+        )
+
+        resolved = latest_step(directory) if step is None else step
+        if resolved is None:
+            raise FileNotFoundError(f"no committed checkpoint under {directory}")
+        manifest = os.path.join(directory, f"step_{resolved:08d}", "manifest.json")
+        with open(manifest) as f:
+            leaves = json.load(f).get("leaves", {})
+        if "include" in leaves and ".ta_state" not in leaves:
+            # The stamp and the plan ride on the image itself.
+            servable, _ = restore_servable(config, directory, resolved, device="cpu")
+            return self.register(name, servable, booleanize_method=booleanize_method,
+                                 path=path)
+        template = CoTMModel(
+            ta_state=torch.zeros((config.n_clauses, config.n_literals), dtype=torch.uint8),
+            weights=torch.zeros((config.n_classes, config.n_clauses), dtype=torch.int32),
+        )
+        model, _, extra = restore_pytree(template, directory, resolved, device="cpu")
+        extra = extra or {}
+        stamp = ServableVersion.from_dict(extra.get("servable_version"))
+        tuned = extra.get("tuned_plan")
+        return self.register(
+            name, model, config, booleanize_method=booleanize_method, path=path,
+            tuned=tuned if isinstance(tuned, str) and tuned else None,
+            version=stamp if stamp != ServableVersion() else None,
+        )
+
     def models(self) -> Tuple[str, ...]:
-        return tuple(self._servables)
+        return tuple(sorted(self._servables))
 
     def servable(self, name: str) -> ServableModel:
-        return self._servables[name].servable
+        """The register image being served, stamped with the live
+        :class:`ServableVersion` (the dispatched image carries none);
+        repeated reads of one install return the same object."""
+        with self._lock:
+            entry = self._servables[name]
+            if entry.stamped is None:
+                entry.stamped = entry.servable.replace(version=entry.version)
+            return entry.stamped
 
     def ingress_spec(self, name: str) -> IngressSpec:
         return self._servables[name].ingress
@@ -248,6 +395,10 @@ class ServingEngine:
     def version(self, name: str) -> ServableVersion:
         """The stamp of the model served under ``name``."""
         return self._servables[name].version
+
+    def version_id(self, name: str) -> int:
+        """Monotonic id of the version served under ``name``."""
+        return self._servables[name].version.version
 
     def stats(self, name: str) -> ServeStats:
         return self._servables[name].stats
@@ -259,6 +410,112 @@ class ServingEngine:
         entry = self._servables[name]
         return resolve_path(get_path(entry.path_name), entry.servable).name
 
+    # --- lifecycle --------------------------------------------------------
+
+    def swap_guard(self):
+        """The engine lock, for callers that pin one version across several
+        ``dispatch`` calls (re-entrant with dispatch's own locking)."""
+        return self._lock
+
+    def swap(
+        self,
+        name: str,
+        model: CoTMModel | ServableModel,
+        config: Optional[CoTMConfig] = None,
+        *,
+        version: Optional[ServableVersion] = None,
+        tuned: Optional[str] = None,
+        retune: bool = False,
+    ) -> ServableVersion:
+        """Replace ``name``'s weights under live load; returns the new stamp.
+
+        The new image keeps the slot's eval path, ingress and booleanize
+        knobs; its config must equal the live one.  It is frozen, analysed
+        (sparsity padded to the pow2 bin, so versions share shapes) and
+        moved to the device before the lock is taken; the install itself
+        is a pointer swap.  Dispatches already made complete on the old
+        image, which their handles hold; the displaced image is kept
+        whole for :meth:`rollback`.  ``tuned`` pins a plan; by default
+        the live one is carried over.  ``retune`` needs the autotuner,
+        which is not ported yet.
+        """
+        if retune:
+            raise NotImplementedError("swap(retune=True) needs the autotuner, which is not "
+                                      "ported yet")
+        entry = self._servables[name]
+        if isinstance(model, ServableModel):
+            candidate = copy.deepcopy(model)
+        else:
+            if config is None:
+                raise ValueError("config required when swapping in a CoTMModel")
+            candidate = freeze(model, config)
+        live_cfg = entry.servable.config
+        if candidate.config != live_cfg:
+            raise ValueError(
+                f"swap({name!r}) config mismatch: a swap replaces weights only; got "
+                f"{candidate.config!r}, serving {live_cfg!r} (re-register for a "
+                f"geometry change)"
+            )
+        source = version if version is not None else candidate.version
+        candidate = analyze_sparsity(candidate.replace(sparsity=None), pad_to="pow2")
+        stamp = self._stamp(candidate, source)
+        carried = entry.servable.tuned if tuned is None else tuned
+        candidate = candidate.replace(tuned=carried, version=None).to(self.device)
+        with self._lock:
+            stamp = dataclasses.replace(stamp, version=entry.version.version + 1)
+            entry.previous = (entry.servable, entry.version)
+            entry.servable = candidate
+            entry.version = stamp
+            entry.compiled = set()
+            entry.stamped = None
+        return stamp
+
+    def rollback(self, name: str) -> ServableVersion:
+        """Restore the image the last swap displaced, in O(1): no freeze,
+        no analysis, no transfer.  The restored weights get a fresh id with
+        the prior stamp's epoch, step and digest; a second rollback flips
+        back."""
+        entry = self._servables[name]
+        with self._lock:
+            if entry.previous is None:
+                raise ValueError(f"rollback({name!r}): no previous version (nothing was "
+                                 f"swapped)")
+            prev_servable, prev_stamp = entry.previous
+            entry.previous = (entry.servable, entry.version)
+            entry.servable = prev_servable
+            entry.version = dataclasses.replace(prev_stamp,
+                                                version=entry.version.version + 1)
+            entry.compiled = set()
+            entry.stamped = None
+            return entry.version
+
+    def degrade_path(self, name: str) -> Optional[str]:
+        """Move ``name`` one step down the degradation chain
+        (:func:`~repro_torch.serve.paths.degraded_fallback`: sparse -> dense
+        twin, fused -> matmul, ... -> dense), rebuilding its ingress for
+        the fallback's literal form and dropping its tuned plan.  Results
+        stay bit-identical.  Returns the new path, or None at the bottom."""
+        entry = self._servables[name]
+        with self._lock:
+            nxt = degraded_fallback(entry.path_name)
+            if nxt is None:
+                return None
+            entry.path_name = nxt
+            entry.ingress = get_path(nxt).ingress_spec(
+                entry.servable.config.patch, method=entry.booleanize_method,
+                **entry.booleanize_kw)
+            entry.servable = entry.servable.replace(tuned=None)
+            entry.compiled = set()
+            entry.stamped = None
+            entry.stats.fallback_path = nxt
+            entry.stats.degrade_steps += 1
+            return nxt
+
+    def shrink_mesh(self) -> None:
+        """Nothing to shrink on one card: returns None, as the reference
+        does for an unmeshed engine."""
+        return None
+
     # --- serving ----------------------------------------------------------
 
     def bucket_for(self, n: int) -> int:
@@ -267,25 +524,43 @@ class ServingEngine:
             raise ValueError("empty request")
         return min(1 << (n - 1).bit_length(), self.max_batch)
 
-    def warmup(self, name: str, buckets=None) -> Tuple[int, ...]:
-        """Run one zero batch per bucket (default: every power of two up to
-        ``max_batch``), so the kernels are built and loaded and the
-        allocators hold every bucket's buffers before the first request.
-        Request statistics stay untouched.  Returns the buckets run."""
+    def warmup(self, name: str, buckets=None, *, forms=FORMS) -> Tuple[int, ...]:
+        """Run one zero batch per bucket and form (default: every power of
+        two up to ``max_batch``, raw and literals), so the kernels are
+        built and loaded and the allocators hold every bucket's buffers
+        before the first request.  Request statistics stay untouched.
+        Returns the buckets newly run."""
         entry = self._servables[name]
+        if unknown := set(forms) - set(FORMS):
+            raise ValueError(f"unknown warmup forms: {sorted(unknown)}")
         if buckets is None:
             buckets = [1 << i for i in range(self.max_batch.bit_length())
                        if 1 << i < self.max_batch] + [self.max_batch]
         for b in buckets:
             if not 1 <= b <= self.max_batch:
                 raise ValueError(f"warmup bucket {b} outside [1, max_batch={self.max_batch}]")
-        done = tuple(dict.fromkeys(self.bucket_for(b) for b in buckets))
-        for b in done:
-            zeros = np.zeros((b,) + raw_trailing_shape(entry.ingress), np.uint8)
-            self._submit_bucket(entry, zeros, record_hit=False)
+        warmed = []
+        with self._lock:
+            for b in dict.fromkeys(self.bucket_for(b) for b in buckets):
+                fresh = [f for f in forms if (f, b) not in entry.compiled]
+                for form in fresh:
+                    zeros = (self._zero_raw(entry, b) if form == "raw"
+                             else self._zero_literals(entry, b))
+                    self._submit_bucket(entry, zeros, form=form, record_hit=False)
+                if fresh:
+                    warmed.append(b)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
-        return done
+        return tuple(warmed)
+
+    def _zero_literals(self, entry: _Entry, b: int) -> np.ndarray:
+        spec = entry.servable.config.patch
+        if get_path(entry.path_name).input_form == PACKED:
+            return np.zeros((b, spec.n_patches, spec.n_words), np.uint32)
+        return np.zeros((b, spec.n_patches, spec.n_literals), np.uint8)
+
+    def _zero_raw(self, entry: _Entry, b: int) -> np.ndarray:
+        return np.zeros((b,) + raw_trailing_shape(entry.ingress), np.uint8)
 
     @torch.inference_mode()
     def _submit_bucket(self, entry: _Entry, arr: np.ndarray, record_hit: bool = True,
@@ -294,7 +569,7 @@ class ServingEngine:
         step (raw pixels, or literals in the path's form) without waiting;
         returns ``(host_out, n, bucket)``, where ``host_out`` is int32
         ``[bucket, 1 + m]`` (predictions, class sums) that is complete once
-        the device has caught up."""
+        the device has caught up.  Callers hold the engine lock."""
         if arr.dtype == np.uint32:
             arr = arr.view(np.int32)          # packed words: same bits
         n = arr.shape[0]
@@ -317,9 +592,12 @@ class ServingEngine:
             host_out.copy_(out, non_blocking=True)
         else:
             host_out = out
+        st = entry.stats
         if record_hit:
-            hits = entry.stats.bucket_hits
-            hits[bucket] = hits.get(bucket, 0) + 1
+            st.bucket_hits[bucket] = st.bucket_hits.get(bucket, 0) + 1
+        entry.compiled.add((form, bucket))
+        if bucket not in st.compiled_buckets:
+            st.compiled_buckets = st.compiled_buckets + (bucket,)
         return host_out, n, bucket
 
     def validate_raw(self, name: str, raw_images) -> np.ndarray:
@@ -376,10 +654,14 @@ class ServingEngine:
         """Submit one request batch and return without waiting on the
         device: raw pixels (ingress on the device, or ``ingress='host'``),
         or with ``preprocessed`` literals in the path's input form.
-        Requests over ``max_batch`` go in ``max_batch`` slices."""
+        Requests over ``max_batch`` go in ``max_batch`` slices, all on the
+        one version captured under the engine lock."""
         if ingress not in ("device", "host"):
             raise ValueError(f"ingress must be 'device' or 'host', got {ingress!r}")
         entry = self._servables[name]
+        if self.faults is not None:
+            # Chaos seam: may raise before any host or device work.
+            self.faults.on_engine_dispatch(name)
         t0 = time.perf_counter()
         if preprocessed or ingress == "host":
             arr = self.preprocess(name, images, preprocessed=preprocessed)
@@ -389,15 +671,17 @@ class ServingEngine:
             form = "raw"
         t1 = time.perf_counter()
         n = arr.shape[0]
-        parts: List = [
-            self._submit_bucket(entry, arr[i : i + self.max_batch], form=form)
-            for i in range(0, n, self.max_batch)
-        ]
-        done = None
-        if self.device.type == "cuda":
-            done = torch.cuda.Event()
-            done.record(torch.cuda.current_stream(self.device))
-        return InFlightClassify(entry, parts, n, t0, t1, done)
+        with self._lock:
+            ver, servable = entry.version.version, entry.servable
+            parts: List = [
+                self._submit_bucket(entry, arr[i : i + self.max_batch], form=form)
+                for i in range(0, n, self.max_batch)
+            ]
+            done = None
+            if self.device.type == "cuda":
+                done = torch.cuda.Event()
+                done.record(torch.cuda.current_stream(self.device))
+        return InFlightClassify(entry, parts, n, t0, t1, done, version=ver, servable=servable)
 
     def classify(self, name: str, images, *, preprocessed: bool = False,
                  ingress: str = "device") -> ClassifyResult:

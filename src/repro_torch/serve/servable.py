@@ -113,6 +113,13 @@ class ClauseSparsity(nn.Module):
     def n_active(self) -> int:
         return self.include.shape[0]
 
+    @property
+    def include_density(self) -> float:
+        """Mean include fraction over active clauses (0 when none)."""
+        if self.n_active == 0 or self.include.shape[1] == 0:
+            return 0.0
+        return float(self.include_counts.sum()) / (self.n_active * self.include.shape[1])
+
 
 class ServableModel(nn.Module):
     """Frozen inference image.  Buffers:
@@ -149,6 +156,15 @@ class ServableModel(nn.Module):
     @property
     def n_clauses(self) -> int:
         return self.include.shape[0]
+
+    def replace(self, **changes) -> "ServableModel":
+        """A new image with ``changes`` (``sparsity``, ``version``, ``tuned``)
+        applied, sharing this one's tensors (``dataclasses.replace`` of the
+        reference's frozen dataclass): no copy, no transfer."""
+        kw = {"sparsity": self.sparsity, "version": self.version, "tuned": self.tuned,
+              **changes}
+        return ServableModel(self.include, self.include_packed, self.nonempty, self.weights,
+                             self.config, **kw)
 
     @property
     def n_classes(self) -> int:
@@ -221,6 +237,4 @@ def analyze_sparsity(
         include_counts=include.sum(dim=-1, dtype=torch.int32),
         weights=weights,
     )
-    return ServableModel(servable.include, servable.include_packed, servable.nonempty,
-                         servable.weights, servable.config, sparsity=sparsity,
-                         version=servable.version, tuned=servable.tuned)
+    return servable.replace(sparsity=sparsity)

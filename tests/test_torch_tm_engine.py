@@ -10,6 +10,7 @@ are compared for accuracy on the same glyph split instead.
 """
 
 import gzip
+import json
 import struct
 from pathlib import Path
 
@@ -27,6 +28,7 @@ from repro.data import batches as j_batches
 from repro.data import datasets as j_datasets
 from repro.data import synthetic_glyphs as j_glyphs
 from repro.train.tm_engine import TrainerEngine as JTrainerEngine
+from repro_torch.checkpoint.checkpointer import latest_step
 from repro_torch.convert import draws_from_arrays, model_from_arrays, model_to_arrays
 from repro_torch.core.cotm import CoTMConfig
 from repro_torch.core.patches import PatchSpec
@@ -217,6 +219,29 @@ def test_launcher_trains_checkpoints_and_resumes_on_cpu(tmp_path, capsys):
         run_tm_training("convcotm-mnist", epochs=3, **{**kw, "batch": 40})
     done = run_tm_training("convcotm-mnist", epochs=2, **kw)
     assert done["samples_per_s"] == 0.0 and done["accuracy"] == two["accuracy"]
+
+
+@pytest.mark.parametrize("saved", ["cuda", None], ids=["named_cuda", "unnamed"])
+def test_launcher_refuses_a_resume_on_another_device(tmp_path, saved):
+    """A checkpoint whose draw generator lived on the card (its state is 16
+    bytes, a CPU generator's 5,056) is refused on the CPU before the
+    generator takes its state, whether the checkpoint names the card or
+    names no device."""
+    kw = dict(n_train=100, n_test=50, batch=50, device="cpu", ckpt_dir=str(tmp_path))
+    run_tm_training("convcotm-mnist", epochs=1, **kw)
+    step = latest_step(str(tmp_path))
+    manifest = tmp_path / f"step_{step:08d}" / "manifest.json"
+    meta = json.loads(manifest.read_text())
+    assert meta["extra"]["generator_device"] == "cpu"
+    meta["extra"]["generator"] = list(range(16))
+    if saved is None:
+        del meta["extra"]["generator_device"]
+    else:
+        meta["extra"]["generator_device"] = saved
+    manifest.write_text(json.dumps(meta))
+    with pytest.raises(ValueError, match="resuming on cpu") as e:
+        run_tm_training("convcotm-mnist", epochs=2, **kw)
+    assert saved is None or "cuda" in str(e.value)
 
 
 @pytest.mark.parametrize("cursor", [(0, 0, 0), (1, 2, 7), (2, 4, 3)],
