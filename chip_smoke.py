@@ -20,8 +20,10 @@ this file and builds the CUDA kernels from ``src/repro_torch/csrc``).
      tile); the fused, clause-eval, sparse clause-eval
      and sparse fused kernels over the reference's kernel sweep with
      CSRF on and off, both density extremes, a saturating pool and the
-     envelope corner; the sparse kernels also at C_a of 0, 1 and 37 and
-     on ``analyze_sparsity(pad_to=...)`` images; the class-sum kernel at
+     envelope corner, and at the autotuner's ``block_c`` 32 and 64 (CSRF
+     on and off) on the paper, ragged and Table III shapes and on the
+     few40 and empty pools at B=256; the sparse kernels also at C_a of 0,
+     1 and 37 and on ``analyze_sparsity(pad_to=...)`` images; the class-sum kernel at
      (B, C, M) = (256, 128, 10), (3, 70, 10), (2, 1024, 64), (256, 1000,
      10), (17, 88, 10), (300, 128, 10), (1, 1, 1) and (40, 3004, 20)
      (past the envelope: the kernel refills its stages, with 4-byte
@@ -68,7 +70,17 @@ this file and builds the CUDA kernels from ``src/repro_torch/csrc``).
      and one lifecycle round (train, shadow, promote or reject) on the card.
      The swap storm runs under ``torch.profiler``, which splits the
      service's time per microbatch into device busy and dispatch host
-     time;
+     time.  Then the autotuner (``[autotune]`` lines, a launch window of
+     its own): the few40 pool through ``ServingEngine(autotune=True)`` on
+     ``fused``, whose warmup times every (path, params) candidate at
+     buckets 1 and 256 in both forms (each kernel candidate must launch
+     its tile kernel on every call); the report per (form, bucket); the
+     tuned engine equal to an untuned ``fused`` engine and the CPU; the
+     same plan on re-registration; ``swap(retune=True)``, ``rollback``, a
+     checkpoint round trip and a plan stamped for another card; a
+     lifecycle round with ``autotune_candidate``.  ``[roofline]`` lines
+     hold each winner's measured cls/s against ``tm_path_roofline`` at the
+     card's ceilings (achieved fraction at most 1.05);
   4. times at bucket 256 with CUDA events (median of repeats after
      warm-up; a spin kernel holds the card while the host enqueues each
      window, so the times are the card's): the launch floor (a kernel
@@ -79,7 +91,8 @@ this file and builds the CUDA kernels from ``src/repro_torch/csrc``).
      bits, int8 weights over the full range), each beside its plain
      version, the least time the card could take, the parent commit's
      kernel when ``_parent/`` holds it (timed in turns: parent, this
-     tree, this tree, parent) and, for the class sums, one f32
+     tree, this tree, parent), ``fused_infer`` and ``clause_eval`` also at
+     ``block_c`` 32 and 64, and, for the class sums, one f32
      ``torch.matmul`` and one ``torch._int_mm`` (int8, classes padded to
      16 outside the window; null, with its message, where it refuses the
      shape); classify throughput at bucket 256 and
@@ -120,6 +133,11 @@ MAX_HOLD_CYCLES = 1 << 26
 #: The eval paths of the second drive, and the kernels of the first.
 SLICE2_PATHS = ("kernel", "sparse", "fused_sparse", "matmul_sparse")
 SLICE1_KERNELS = ("ingress_pack", "fused_infer")
+#: Clauses per tile that the autotuner sweeps beside the default 128.
+TUNED_BLOCK_C = (32, 64)
+#: The tile kernel each kernel path launches.
+PATH_KERNEL = {"kernel": "clause_eval", "fused": "fused_infer",
+               "sparse": "clause_eval_sparse", "fused_sparse": "fused_infer_sparse"}
 
 
 class SmokeFailure(RuntimeError):
@@ -904,6 +922,207 @@ def lifecycle_round(cfg, method, trained, registry, card) -> dict:
     return launches
 
 
+def autotune_serving(cfg, method, pools, cpu, registry, card):
+    """[autotune] part 1: ``convcotm-mnist`` on the few40 pool (C_a = 88)
+    through ``ServingEngine(autotune=True)`` on ``fused``: warmup tunes
+    buckets 1 and 256 in both forms, sweeping the kernel paths at every
+    ``block_c``/``csrf`` set.  Each measured kernel candidate must launch
+    its tile kernel on every call of its timing; the tuned engine's results
+    must equal an untuned ``fused`` engine's and the CPU's on 256 images
+    and on one, raw and literals; a second registration must give the same
+    plan.  Returns the tuned engine, its launch counts (the counters set to
+    0 before the warmup, read after the checks) and the per-candidate
+    launches of the sweep."""
+    import numpy as np
+
+    from repro_torch.serve import autotune as at
+    from repro_torch.serve.engine import ServingEngine
+
+    arch = "convcotm-mnist"
+    swept = {}
+    measure = at._measure
+
+    def counted(servable, name, params, form, bucket, ingress, *, repeats):
+        before = registry.launch_counts()
+        sec = measure(servable, name, params, form, bucket, ingress, repeats=repeats)
+        after = registry.launch_counts()
+        swept[name, params, form, bucket] = {k: after[k] - before[k] for k in after}
+        return sec
+
+    at._measure = counted
+    try:
+        at.clear_measure_memo()
+        eng = ServingEngine(max_batch=256, autotune=True)
+        eng.register(arch, pools["few40"], cfg, booleanize_method=method, path="fused")
+        registry.reset_launches()
+        t = time.perf_counter()
+        eng.warmup(arch)
+        warm_s = time.perf_counter() - t
+        report = eng.stats(arch).autotune
+        plan = eng.servable(arch).tuned
+        check({(f, b) for f, b, _, _ in plan.entries}
+              == {("literals", 1), ("literals", 256), ("raw", 1), ("raw", 256)},
+              f"plan cells {plan.entries}")
+        for row in report["rows"]:
+            cands = "; ".join(f"{c['path']}{tuple(map(tuple, c['params'])) or ''} "
+                              f"{c['us_per_call']:.1f}" for c in row["candidates"])
+            print(f"[autotune] {row['form']} bucket {row['bucket']}: winner {row['winner']} "
+                  f"params {row['params']} ({row['us_per_call']:.1f} us/call); candidates "
+                  f"(us/call): {cands}")
+        print(f"[autotune] sweep total_s {report['total_s']:.3f} (warmup {warm_s:.3f} s, "
+              f"{len(swept)} candidates timed, repeats 3) | {card}")
+        # Every kernel candidate launched its tile kernel on each of its
+        # 4 calls (one warm, 3 timed); no plain candidate launched one.
+        for (name, params, form, bucket), moved in swept.items():
+            kernel = PATH_KERNEL.get(name)
+            for k in PATH_KERNEL.values():
+                want = 4 if k == kernel else 0
+                check(moved[k] == want, f"sweep: {name} {params} {form} bucket {bucket} "
+                      f"launched {k} {moved[k]} times, not {want}")
+        for name in PATH_KERNEL:
+            for params in at.sp.get_path(name).tunable:
+                check(any(key[:2] == (name, params) for key in swept),
+                      f"sweep: {name} {params} was not timed")
+
+        ref = ServingEngine(max_batch=256)
+        ref.register(arch, pools["few40"], cfg, booleanize_method=method, path="fused")
+        cpu.register(f"{arch}/autotune", pools["few40"], cfg, booleanize_method=method,
+                     path="fused")
+        rng = np.random.default_rng(SEED + 17)
+        for n in (256, 1):
+            imgs = rng.integers(0, 256, (n, 28, 28), dtype=np.uint8)
+            for ingress in ("device", "host"):
+                got = eng.classify(arch, imgs, ingress=ingress)
+                check(same_result(got, ref.classify(arch, imgs, ingress=ingress))
+                      and same_result(got, cpu.classify(f"{arch}/autotune", imgs,
+                                                        ingress=ingress)),
+                      f"tuned engine ({n} images, ingress {ingress}) differs from the "
+                      f"untuned fused engine or the CPU")
+                check(n == 1 or bool(got.class_sums.any()), "tuned engine: class sums all 0")
+        launches = registry.launch_counts()
+        n_swept = len(swept)
+        again = ServingEngine(max_batch=256, autotune=True)
+        again.register(arch, pools["few40"], cfg, booleanize_method=method, path="fused")
+        again.warmup(arch, buckets=[1, 256])
+        check(again.servable(arch).tuned == plan and len(swept) == n_swept,
+              "a second registration gave another plan")
+    finally:
+        at._measure = measure
+    print(f"[autotune] tuned engine == untuned fused engine == plain (CPU) on 256 images "
+          f"and on one, raw and literals; plan {[list(e) for e in plan.entries]} "
+          f"(digest {plan.digest}); re-registration: the same plan")
+    print(f"[autotune] launches during the tuned drive (sweep and checks): {launches}")
+    return eng, launches
+
+
+def autotune_lifecycle(cfg, method, pools, eng, trained, card) -> None:
+    """[autotune] part 2: the plan through the lifecycle on the card.
+    ``swap(retune=True)`` onto the few pool gives a plan with the new
+    version's digest; ``rollback`` restores the earlier plan; a
+    ``save_servable``/``restore_servable`` round trip keeps it; a plan
+    stamped for another device restores as None and an armed engine
+    re-tunes at warmup; a lifecycle round with ``autotune_candidate``
+    promotes the candidate with its own plan."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.checkpoint.checkpointer import restore_servable, save_servable
+    from repro_torch.data import synthetic_glyphs
+    from repro_torch.launch.lifecycle import LifecycleConfig, LifecycleDriver
+    from repro_torch.serve.autotune import TunedPlan
+    from repro_torch.serve.engine import ServingEngine
+    from repro_torch.train.tm_engine import TrainerEngine
+
+    arch = "convcotm-mnist"
+    plan1 = eng.servable(arch).tuned
+    v2 = eng.swap(arch, pools["few"], cfg, retune=True)
+    plan2 = eng.servable(arch).tuned
+    check(plan2.digest == v2.digest != plan1.digest, f"retune: plan {plan2.digest}, "
+          f"version {v2.digest}, earlier {plan1.digest}")
+    v3 = eng.rollback(arch)
+    check(eng.servable(arch).tuned == plan1 and v3.digest == plan1.digest,
+          "rollback did not restore the earlier plan")
+    with tempfile.TemporaryDirectory() as d:
+        save_servable(eng.servable(arch), d, v3.version)
+        restored, _ = restore_servable(cfg, d)                  # the card
+        check(restored.tuned == plan1, f"checkpoint round trip: {restored.tuned}")
+        manifest = Path(d) / f"step_{v3.version:08d}" / "manifest.json"
+        doc = json.loads(manifest.read_text())
+        stamp = doc["extra"]["tuned_plan_device"]
+        check(stamp == torch.cuda.get_device_name(0), f"plan stamped {stamp!r}")
+        # The same model with an all-dense plan stamped for another card.
+        foreign = TunedPlan(digest=plan1.digest)
+        for f, b, _, _ in plan1.entries:
+            foreign = foreign.with_entry(f, b, "dense", ())
+        doc["extra"].update(tuned_plan=foreign.to_json(), tuned_plan_device="another card")
+        manifest.write_text(json.dumps(doc))
+        check(restore_servable(cfg, d)[0].tuned is None, "a foreign plan was restored")
+        armed = ServingEngine(max_batch=256, autotune=True)
+        armed.load_checkpoint(arch, d, cfg, booleanize_method=method, path="fused")
+    check(armed.servable(arch).tuned is None, "load_checkpoint applied a foreign plan")
+    armed.warmup(arch, buckets=[1, 256])
+    check(armed.servable(arch).tuned == plan1 and bool(armed.stats(arch).autotune),
+          f"the foreign plan was not re-tuned: {armed.servable(arch).tuned}")
+    print(f"[autotune] swap(retune=True) onto the few pool: plan digest {plan2.digest} == "
+          f"v{v2.version}'s; rollback restores plan {plan1.digest}; save/restore_servable on "
+          f"the card keeps it (stamped {stamp!r}); a plan stamped for another card restores "
+          f"as None and is re-tuned at warmup")
+
+    tx, ty, _, _ = synthetic_glyphs(n_train=1000, n_test=0, seed=SEED + 19)
+    trainer = TrainerEngine(cfg, batch_size=100)
+    model = trainer.init_model(torch.Generator().manual_seed(SEED))
+    life = ServingEngine(max_batch=256)
+    life.register("life", trainer.freeze_servable(model), booleanize_method=method,
+                  path="fused")
+    driver = LifecycleDriver(trainer, life, "life", config=LifecycleConfig(
+        min_agreement=0.0, allow_accuracy_drop=1.0, shadow_requests=256,
+        autotune_candidate=True), booleanize_method=method, eval_path="fused")
+    t = time.perf_counter()
+    *_, rep = driver.run_round(trainer.draws_generator(SEED), model,
+                               trainer.prepare(tx, ty), trained["vx"], trained["vy"], epochs=1)
+    dt = time.perf_counter() - t
+    live = life.servable("life").tuned
+    check(rep.promoted and live is not None and live.digest == rep.candidate_digest
+          == life.version("life").digest, f"autotuned round: {rep}, plan {live}")
+    print(f"[autotune] lifecycle round with autotune_candidate ({dt:.3f} s, 1 epoch of "
+          f"1,000 glyphs): promoted v{rep.promoted_version} with the shadow slot's plan "
+          f"{[list(e) for e in live.entries]} (digest {live.digest} == the candidate's) | "
+          f"{card}")
+
+
+def roofline_lines(cfg, eng, imgs256, img1, ops_per_s, card) -> None:
+    """[roofline]: each winner of the tuned engine's plan against its
+    ceiling at the card's rates, with the cls/s of the tuned classify in
+    its form (raw pixels, or preprocessed literals) at its bucket; an
+    achieved fraction above 1.05 means the cost model or the timer is
+    wrong."""
+    from repro_torch.roofline import tm_path_roofline
+
+    arch = "convcotm-mnist"
+    servable = eng.servable(arch)
+    for form, bucket, path, params in servable.tuned.entries:
+        imgs = imgs256 if bucket == 256 else img1
+        x, kw = (eng.preprocess(arch, imgs), {"preprocessed": True}) if form == "literals" \
+            else (imgs, {})
+        eng.classify(arch, x, **kw)
+        n_iter = 50 if bucket == 256 else 200
+        t = time.perf_counter()
+        for _ in range(n_iter):
+            eng.classify(arch, x, **kw)
+        cls_per_s = bucket * n_iter / (time.perf_counter() - t)
+        r = tm_path_roofline(cfg, path, bucket, n_active=servable.sparsity.n_active,
+                             measured_cls_per_s=cls_per_s, ops_per_s=ops_per_s,
+                             bytes_per_s=HBM_BYTES_PER_S)
+        print(f"[roofline] {form} bucket {bucket}: {path} {list(map(list, params))}: ops "
+              f"{r['ops']:.6g}, bytes {r['bytes']:.6g}, bound {r['bound']} "
+              f"({max(r['compute_s'], r['memory_s']) * 1e6:.4f} us), ceiling "
+              f"{r['ceiling_cls_per_s']:.6g} cls/s, measured {cls_per_s:.6g} cls/s, "
+              f"achieved_fraction {r['achieved_fraction']:.6g} | {card}")
+        check(r["achieved_fraction"] <= 1.05,
+              f"{path} at bucket {bucket}: achieved fraction {r['achieved_fraction']}")
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -1036,13 +1255,19 @@ def main() -> int:
         idx = torch.nonzero(ne).flatten()
         return ~inc_packed[idx], w[:, idx]
 
-    def equal_both_csrf(name, fn, args):
+    def equal_both_csrf(name, fn, args, block_cs=(128,)):
         want = fn(*args, backend="plain")
-        for csrf in (True, False):
-            got = fn(*args, csrf=csrf)
-            torch.cuda.synchronize()
-            check(got.dtype == want.dtype and torch.equal(got, want),
-                  f"{fn.__name__} differs from plain: {name} csrf={csrf}")
+        for block_c in block_cs:
+            for csrf in (True, False):
+                got = fn(*args, csrf=csrf, block_c=block_c)
+                torch.cuda.synchronize()
+                check(got.dtype == want.dtype and torch.equal(got, want),
+                      f"{fn.__name__} differs from plain: {name} block_c={block_c} "
+                      f"csrf={csrf}")
+
+    tile_kernels = (ops.fused_infer, ops.clause_eval, ops.clause_eval_sparse,
+                    ops.fused_infer_sparse)
+    tuned_cases = ("4x361x128x272", "3x50x70x100", "2x361x1000x272")
 
     fused_cases = {f"{b}x{p}x{c}x{n}": (b, p, c, n, {}) for b, p, c, n in
                    [(4, 361, 128, 272), (1, 9, 16, 16), (3, 50, 70, 100),
@@ -1054,12 +1279,15 @@ def main() -> int:
     for name, (b, p, c, n, kw) in fused_cases.items():
         lits, incp, ne, w = fused_inputs(b, p, c, n, **kw)
         exc, wa = active(incp, ne, w)
-        equal_both_csrf(name, ops.fused_infer, (lits, incp, ne, w))
-        equal_both_csrf(name, ops.clause_eval, (lits, incp, ne))
-        equal_both_csrf(name, ops.clause_eval_sparse, (lits, exc))
-        equal_both_csrf(name, ops.fused_infer_sparse, (lits, exc, wa))
+        # The test shapes also at the autotuner's block_c (more tiles, whose
+        # partial class sums meet in int32 atomics).
+        block_cs = (128,) + (TUNED_BLOCK_C if name in tuned_cases else ())
+        for fn, args in zip(tile_kernels, ((lits, incp, ne, w), (lits, incp, ne),
+                                           (lits, exc), (lits, exc, wa))):
+            equal_both_csrf(name, fn, args, block_cs)
         print(f"[kernel] fused_infer, clause_eval, clause_eval_sparse, fused_infer_sparse "
-              f"== plain: {name} (C_a={exc.shape[0]}; csrf on, off)")
+              f"== plain: {name} (C_a={exc.shape[0]}; block_c {list(block_cs)}; csrf on, "
+              f"off)")
 
     # The active pool at C_a = 0, 1 and 37 (paper geometry, few includes),
     # and analyze_sparsity images padded with synthetic rows.
@@ -1082,6 +1310,21 @@ def main() -> int:
     print(f"[kernel] clause_eval_sparse, fused_infer_sparse == plain: C_a = 0, 1, 37; "
           f"analyze_sparsity of C_a={n_active['few40']} with pad_to {list(pads)} "
           f"(csrf on, off)")
+    # The few40 and empty pools as the engine holds them, at B=256, at
+    # every block_c the autotuner sweeps (C_a = 88: two tiles of 64, three
+    # of 32).
+    lits256 = ops.ingress_pack(rand_bits((256, 28, 28), 0.3), cfg.patch)
+    for pool in ("few40", "empty"):
+        sv = analyze_sparsity(freeze(pools[pool], cfg)).to(dev)
+        sp = sv.sparsity
+        for fn, args in zip(tile_kernels, (
+                (lits256, sv.include_packed, sv.nonempty, sv.weights),
+                (lits256, sv.include_packed, sv.nonempty),
+                (lits256, sp.exclude_packed), (lits256, sp.exclude_packed, sp.weights))):
+            equal_both_csrf(f"{pool} pool B=256", fn, args, (128,) + TUNED_BLOCK_C)
+        print(f"[kernel] fused_infer, clause_eval, clause_eval_sparse, fused_infer_sparse "
+              f"== plain: {pool} pool B=256 (C_a={sp.n_active}; block_c "
+              f"{[128, *TUNED_BLOCK_C]}; csrf on, off)")
 
     # Random bits, and one-hot fired rows against weights that differ in
     # every (class, clause): each sum is then one weight, so a swapped
@@ -1244,8 +1487,15 @@ def main() -> int:
     launches_chaos = service_chaos(cfg, method, svc_pools, cpu, registry, card)
     launches_round = lifecycle_round(cfg, method, trained, registry, card)
 
-    # --- 4. times at bucket 256 ----------------------------------------------
+    # --- 3e. the autotuner, its plans through the lifecycle, the roofline ---
     phase_s["3d service"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
+    tuned, launches_autotune = autotune_serving(cfg, method, pools, cpu, registry, card)
+    autotune_lifecycle(cfg, method, {"few": few_model}, tuned, trained, card)
+    roofline_lines(cfg, tuned, requests[3], requests[0], ops_per_s, card)
+
+    # --- 4. times at bucket 256 ----------------------------------------------
+    phase_s["3e autotune and roofline"] = time.perf_counter() - t_phase
     t_phase = time.perf_counter()
     b = 256
     spec = cfg.patch
@@ -1267,6 +1517,9 @@ def main() -> int:
               lambda: ops.ingress_pack(bool_imgs, spec, backend="plain"),
               (b * spec.image_y * spec.image_x + lit_bytes, b * p * w))]
     c_as = {}
+    # The dense tile kernels at the autotuner's other block_c, timed in the
+    # same windows beside their default (128).
+    by_block_c = {}
     for pool in ("boundary", "few40"):
         sv = placed[pool, "kernel"]
         sp = placed[pool, "fused_sparse"].sparsity
@@ -1287,6 +1540,7 @@ def main() -> int:
             fn = getattr(ops, name)
             cases.append((name, pool, lambda fn=fn, a=args: fn(*a),
                           lambda fn=fn, a=args: fn(*a, backend="plain"), cost))
+            by_block_c[name, pool] = lambda bc, fn=fn, a=args: fn(*a, block_c=bc)
     # The class sums on two inputs: few40's fired bits (the paper's C=128,
     # M=10) and the envelope (C=1024, M=64: seeded bits at density 0.5,
     # int8 weights over the full range).  Each has two library yardsticks,
@@ -1354,6 +1608,18 @@ def main() -> int:
                 unheld.append("parent_ms" if turn == "parent" else "ms")
         ms = statistics.mean(t_new)
         parent_ms = statistics.mean(t_old) if t_old else None
+        block_c_ms = None
+        if name in ("fused_infer", "clause_eval"):
+            block_c_ms = {"128": ms}
+            for bc in TUNED_BLOCK_C:
+                out = by_block_c[name, pool](bc)
+                torch.cuda.synchronize()
+                check(torch.equal(out, want), f"{name} ({pool}) block_c={bc} differs from "
+                      f"plain at B=256")
+                block_c_ms[str(bc)] = time_ms(lambda bc=bc: by_block_c[name, pool](bc),
+                                              inner=20)[0]
+            print(f"[time] {name} B={b} {pool} pool by block_c: "
+                  f"{', '.join(f'{k} {v:.5f} ms' for k, v in block_c_ms.items())}")
         plain_ms, plain_held = time_ms(plain_fn, inner=3, repeats=5, warmup=1)
         matmul_fn, int_mm_fn = libraries.get((name, pool), (None, None))
         library_ms, lib_held = time_ms(matmul_fn, inner=20) if matmul_fn else (None, True)
@@ -1368,7 +1634,8 @@ def main() -> int:
         # no path calls, from its own window.
         adaptive_trained = launches_adaptive[name] + launches_trained[name]
         service = launches_storm[name] + launches_chaos[name] + launches_round[name]
-        main_path = launches[name] + launches2[name] + adaptive_trained + service
+        main_path = (launches[name] + launches2[name] + adaptive_trained + service
+                     + launches_autotune[name])
         count = launches3[name] if name == "class_sum" else main_path
         k = registry.KERNELS[name]
         rows.append({
@@ -1385,6 +1652,11 @@ def main() -> int:
             # Of those, the launches of the service drives (swap storm,
             # chaos soak, lifecycle round).
             "service_launches": service,
+            # Of those, the launches of the tuned drive (the autotuner's
+            # sweep at every block_c/csrf set, then the tuned classifies).
+            "autotune_launches": launches_autotune[name],
+            # ms at each block_c (fused_infer, clause_eval; else null).
+            "block_c_ms": block_c_ms,
             # torch._int_mm on the same bits (class sums; null where it
             # refuses the shape or for the other kernels).
             "int_mm_ms": int_mm_ms,

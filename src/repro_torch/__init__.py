@@ -12,8 +12,10 @@ fused clause-eval + class sums (dense and active pool), clause eval
 as they are and for models the trainer hands over.  Above the engine sit
 the reference's async service (``serve/service.py``: admission,
 microbatching, deadlines, quarantine, the circuit breaker), its hot swap
-and rollback, and the train -> shadow -> promote lifecycle
-(``launch/lifecycle.py``).
+and rollback, the train -> shadow -> promote lifecycle
+(``launch/lifecycle.py``), the per-bucket autotuner over the eval paths and
+the CUDA kernels' parameters (``serve/autotune.py``), and the ConvCoTM
+roofline model with the H100's ceilings (``roofline/``).
 
 Entry points run on the CUDA card unless the caller passes
 ``device="cpu"`` (see :func:`resolve_device`); with no device given and
@@ -24,7 +26,14 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["resolve_device"]
+__all__ = [
+    "AutotuneReport",
+    "TunedPlan",
+    "autotune_servable",
+    "resolve_device",
+    "tm_path_roofline",
+    "tm_serve_costs",
+]
 
 
 def resolve_device(device=None) -> torch.device:
@@ -42,3 +51,12 @@ def resolve_device(device=None) -> torch.device:
             "PyTorch versions on the CPU"
         )
     return torch.device("cuda", torch.cuda.current_device())
+
+
+# Below resolve_device: the modules these import take it from this package.
+from repro_torch.roofline import tm_path_roofline, tm_serve_costs  # noqa: E402
+from repro_torch.serve.autotune import (  # noqa: E402
+    AutotuneReport,
+    TunedPlan,
+    autotune_servable,
+)

@@ -17,8 +17,15 @@ restore gives tensors on the template's device (or ``device``).
 :func:`save_servable` stores a frozen register image as the reference
 does: ``include`` uint8, ``include_packed`` as uint32 words,
 ``nonempty`` bool and ``weights`` int8, with the version stamp and the
-kernel plan's JSON in ``extra``.  The plan stays an opaque string here
-(the autotuner is not ported): a restore and a re-save carry it unchanged.
+tuned plan's JSON (``TunedPlan.to_json``) in ``extra``.  Beside the plan
+it writes ``extra["tuned_plan_device"]``, the device the plan was measured
+on (``autotune.device_name``: the card's name, or ``"cpu"``); the
+reference reads ``extra`` with ``.get`` and ignores it.  A restore
+applies a plan only when it is this package's, for this device
+(:func:`plan_from_extra`): a plan with no stamp (every plan the JAX
+package writes), a stamp naming another device, or an entry this package
+cannot dispatch is foreign, and restores as None, as a malformed one
+does.
 """
 
 from __future__ import annotations
@@ -38,6 +45,7 @@ from repro_torch import resolve_device
 __all__ = [
     "Checkpointer",
     "latest_step",
+    "plan_from_extra",
     "restore_pytree",
     "restore_servable",
     "save_pytree",
@@ -187,8 +195,29 @@ def save_servable(servable: Any, directory: str, step: int) -> str:
     if servable.version is not None:
         extra["servable_version"] = servable.version.as_dict()
     if servable.tuned is not None:
-        extra["tuned_plan"] = servable.tuned
+        from repro_torch.serve.autotune import device_name
+
+        extra["tuned_plan"] = servable.tuned.to_json()
+        extra["tuned_plan_device"] = device_name(servable.include_packed.device)
     return save_pytree(tree, directory, step, extra)
+
+
+def plan_from_extra(extra: Dict, device) -> Optional[Any]:
+    """The :class:`~repro_torch.serve.autotune.TunedPlan` in a manifest's
+    ``extra``, or None: none is there, it is malformed, or it is foreign
+    (no ``tuned_plan_device`` stamp, a stamp naming another device than
+    ``device``, or an entry :func:`~repro_torch.serve.autotune.plan_applies`
+    refuses)."""
+    from repro_torch.serve.autotune import TunedPlan, device_name, plan_applies
+
+    text = extra.get("tuned_plan")
+    if not text or extra.get("tuned_plan_device") != device_name(torch.device(device)):
+        return None
+    try:
+        plan = TunedPlan.from_json(text)
+    except (ValueError, KeyError, TypeError):
+        return None           # malformed: restore the model anyway
+    return plan if plan_applies(plan) else None
 
 
 def restore_servable(
@@ -198,7 +227,8 @@ def restore_servable(
     package) as a :class:`~repro_torch.serve.servable.ServableModel` on
     ``device`` (the card unless ``"cpu"`` is named, see
     :func:`repro_torch.resolve_device`), with its version stamp (v0 when
-    the manifest has none) and its kernel plan string.  Returns
+    the manifest has none) and its tuned plan when it was measured on that
+    device (:func:`plan_from_extra`; else None).  Returns
     ``(servable, step)``."""
     from repro_torch.serve.servable import ServableModel, ServableVersion
 
@@ -209,10 +239,9 @@ def restore_servable(
         "nonempty": torch.zeros((c,), dtype=torch.bool),
         "weights": torch.zeros((m, c), dtype=torch.int8),
     }
-    tree, step, extra = restore_pytree(template, directory, step,
-                                       device=resolve_device(device))
+    device = resolve_device(device)
+    tree, step, extra = restore_pytree(template, directory, step, device=device)
     extra = extra or {}
-    tuned = extra.get("tuned_plan")
     servable = ServableModel(
         include=tree["include"],
         include_packed=tree["include_packed"],
@@ -220,7 +249,7 @@ def restore_servable(
         weights=tree["weights"],
         config=config,
         version=ServableVersion.from_dict(extra.get("servable_version")),
-        tuned=tuned if isinstance(tuned, str) and tuned else None,
+        tuned=plan_from_extra(extra, device),
     )
     return servable, step
 

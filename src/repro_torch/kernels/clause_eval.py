@@ -17,7 +17,14 @@ import torch
 
 from repro_torch.core import clauses as cl
 from repro_torch.kernels import _build
-from repro_torch.kernels.shapes import as_uint8, check_cuda, check_words, clamp_block
+from repro_torch.kernels.shapes import (
+    BLOCK_C,
+    as_uint8,
+    check_block_c,
+    check_cuda,
+    check_words,
+    clamp_block,
+)
 
 __all__ = [
     "clause_eval_cuda",
@@ -25,9 +32,6 @@ __all__ = [
     "clause_eval_sparse_cuda",
     "clause_eval_sparse_plain",
 ]
-
-#: Clauses per CUDA block (one tile of the sequential-OR register).
-BLOCK_C = 128
 
 
 def clause_eval_plain(
@@ -51,16 +55,17 @@ def _entry(name: str):
                         [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 6 + [ctypes.c_void_p])
 
 
-def _launch(wrapper, name: str, ptrs, lit: torch.Tensor, c: int, csrf: bool) -> torch.Tensor:
-    """Run entry point ``name`` over ``lit`` and model pointers ``ptrs``,
-    counting the launch on ``wrapper``; returns the uint8 ``[B, C]``
-    output it fills."""
+def _launch(wrapper, name: str, ptrs, lit: torch.Tensor, c: int, csrf: bool,
+            block_c: int) -> torch.Tensor:
+    """Run entry point ``name`` over ``lit`` and model pointers ``ptrs``
+    in tiles of ``block_c`` clauses, counting the launch on ``wrapper``;
+    returns the uint8 ``[B, C]`` output it fills."""
     b, p, w = lit.shape
     out = torch.empty((b, c), dtype=torch.uint8, device=lit.device)
     if b == 0 or c == 0:
         return out
     fn = _entry(name)
-    block_c = clamp_block(BLOCK_C, c, 32)
+    block_c = clamp_block(block_c, c, 32)
     with torch.cuda.device(lit.device):
         stream = torch.cuda.current_stream(lit.device).cuda_stream
         code = fn(lit.data_ptr(), *ptrs, out.data_ptr(), b, p, c, w, block_c,
@@ -76,9 +81,12 @@ def clause_eval_cuda(
     nonempty: torch.Tensor,
     *,
     csrf: bool = True,
+    block_c: int = BLOCK_C,
 ) -> torch.Tensor:
     """Launch the CUDA clause-eval kernel; every operand on one CUDA card,
-    ``nonempty`` taken as 0/1.  Returns uint8 0/1 ``[B, C]``."""
+    ``nonempty`` taken as 0/1; ``block_c`` clauses per tile (shrunk to C
+    rounded up to 32).  Returns uint8 0/1 ``[B, C]``."""
+    check_block_c(block_c)
     check_words(lit_packed, include_packed)
     c = include_packed.shape[0]
     if tuple(nonempty.shape) != (c,):
@@ -87,21 +95,26 @@ def clause_eval_cuda(
     inc = include_packed.contiguous()
     ne = as_uint8(nonempty)
     return _launch(clause_eval_cuda, "clause_eval", (inc.data_ptr(), ne.data_ptr()),
-                   lit_packed.contiguous(), c, csrf)
+                   lit_packed.contiguous(), c, csrf, block_c)
 
 
 def clause_eval_sparse_cuda(
-    lit_packed: torch.Tensor, exclude_packed: torch.Tensor, *, csrf: bool = True
+    lit_packed: torch.Tensor,
+    exclude_packed: torch.Tensor,
+    *,
+    csrf: bool = True,
+    block_c: int = BLOCK_C,
 ) -> torch.Tensor:
     """Launch the CUDA clause-eval kernel over the active clauses (exclude
     words int32 ``[C_a, W]``); every operand on one CUDA card.  Returns
     uint8 0/1 ``[B, C_a]``; with ``C_a == 0`` an empty tensor, without a
     launch."""
+    check_block_c(block_c)
     check_words(lit_packed, exclude_packed)
     check_cuda("clause_eval_sparse_cuda", lit_packed, exclude_packed)
     exc = exclude_packed.contiguous()
     return _launch(clause_eval_sparse_cuda, "clause_eval_sparse", (exc.data_ptr(),),
-                   lit_packed.contiguous(), exc.shape[0], csrf)
+                   lit_packed.contiguous(), exc.shape[0], csrf, block_c)
 
 
 #: Launches of the CUDA kernels (plain counts; reset by callers).

@@ -17,7 +17,14 @@ import torch
 
 from repro_torch.core import clauses as cl
 from repro_torch.kernels import _build
-from repro_torch.kernels.shapes import as_uint8, check_cuda, check_words, clamp_block
+from repro_torch.kernels.shapes import (
+    BLOCK_C,
+    as_uint8,
+    check_block_c,
+    check_cuda,
+    check_words,
+    clamp_block,
+)
 
 __all__ = [
     "fused_infer_cuda",
@@ -25,9 +32,6 @@ __all__ = [
     "fused_infer_sparse_cuda",
     "fused_infer_sparse_plain",
 ]
-
-#: Clauses per CUDA block (one tile of the sequential-OR register).
-BLOCK_C = 128
 
 
 def fused_infer_plain(
@@ -67,10 +71,13 @@ def fused_infer_cuda(
     weights: torch.Tensor,
     *,
     csrf: bool = True,
+    block_c: int = BLOCK_C,
 ) -> torch.Tensor:
     """Launch the CUDA fused kernel; every operand on one CUDA card.
     Weights are taken as int8 (the servable's clamp), ``nonempty`` as
-    0/1.  Returns int32 ``[B, M]``."""
+    0/1.  ``block_c`` clauses per tile (shrunk to C rounded up to 32).
+    Returns int32 ``[B, M]``."""
+    check_block_c(block_c)
     check_words(lit_packed, include_packed)
     b, p, w = lit_packed.shape
     c = include_packed.shape[0]
@@ -87,7 +94,7 @@ def fused_infer_cuda(
     if b == 0 or c == 0 or m == 0:
         return out
     fn = _entry("fused_infer")
-    block_c = clamp_block(BLOCK_C, c, 32)
+    block_c = clamp_block(block_c, c, 32)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = fn(
@@ -105,11 +112,13 @@ def fused_infer_sparse_cuda(
     weights_active: torch.Tensor,
     *,
     csrf: bool = True,
+    block_c: int = BLOCK_C,
 ) -> torch.Tensor:
     """Launch the CUDA fused kernel over the active clauses (exclude words
     int32 ``[C_a, W]``, weights int8-range ``[M, C_a]``); every operand on
     one CUDA card.  Returns int32 ``[B, M]``; with ``C_a == 0`` zeros,
     without a launch."""
+    check_block_c(block_c)
     check_words(lit_packed, exclude_packed)
     b, p, w = lit_packed.shape
     c = exclude_packed.shape[0]
@@ -123,7 +132,7 @@ def fused_infer_sparse_cuda(
     if b == 0 or c == 0 or m == 0:
         return out
     fn = _entry("fused_infer_sparse")
-    block_c = clamp_block(BLOCK_C, c, 32)
+    block_c = clamp_block(block_c, c, 32)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = fn(

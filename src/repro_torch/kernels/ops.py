@@ -6,6 +6,11 @@
   * ``backend="plain"`` runs the plain version on any device (the card's
     yardstick in ``chip_smoke.py``).
 
+The four clause-tile entry points take the kernels' own parameters:
+``csrf`` (the early exit) and ``block_c`` (clauses per CUDA block, a
+multiple of 32 from 32 to 256, checked on every device).  Neither changes
+a result; the plain versions ignore both.
+
 The active-pool entry points (``clause_eval_sparse``, ``fused_infer_sparse``,
 ``matmul_sparse_infer``) take the image of ``serve.servable.analyze_sparsity``;
 an empty active pool (``C_a == 0``) returns before any launch, since a grid
@@ -33,6 +38,7 @@ from repro_torch.kernels.fused_infer import (
     fused_infer_sparse_plain,
 )
 from repro_torch.kernels.ingress import ingress_pack_cuda, ingress_pack_plain
+from repro_torch.kernels.shapes import BLOCK_C, check_block_c
 
 __all__ = [
     "class_sum",
@@ -73,11 +79,14 @@ def fused_infer(
     *,
     backend: Optional[str] = None,
     csrf: bool = True,
+    block_c: int = BLOCK_C,
 ) -> torch.Tensor:
     """Clause evaluation + class sums in one kernel; int32 ``[B, M]``.
     ``csrf`` toggles the kernel's early exit and never changes the result."""
+    check_block_c(block_c)
     if _use_kernel(lit_packed, backend):
-        return fused_infer_cuda(lit_packed, include_packed, nonempty, weights, csrf=csrf)
+        return fused_infer_cuda(lit_packed, include_packed, nonempty, weights, csrf=csrf,
+                                block_c=block_c)
     return fused_infer_plain(lit_packed, include_packed, nonempty, weights)
 
 
@@ -90,13 +99,13 @@ def fused_infer_from_images(
     *,
     backend: Optional[str] = None,
     csrf: bool = True,
+    block_c: int = BLOCK_C,
 ) -> torch.Tensor:
     """Booleanized images -> class sums: the ingress kernel chained into the
     fused kernel; only the packed words pass through device memory."""
     lit_packed = ingress_pack(bool_images, spec, backend=backend)
-    return fused_infer(
-        lit_packed, include_packed, nonempty, weights, backend=backend, csrf=csrf
-    )
+    return fused_infer(lit_packed, include_packed, nonempty, weights, backend=backend,
+                       csrf=csrf, block_c=block_c)
 
 
 def clause_eval(
@@ -106,11 +115,14 @@ def clause_eval(
     *,
     backend: Optional[str] = None,
     csrf: bool = True,
+    block_c: int = BLOCK_C,
 ) -> torch.Tensor:
     """Sequential-OR clause outputs uint8 0/1 ``[B, C]`` from packed words.
     ``csrf`` toggles the kernel's early exit and never changes the result."""
+    check_block_c(block_c)
     if _use_kernel(lit_packed, backend):
-        return clause_eval_cuda(lit_packed, include_packed, nonempty, csrf=csrf)
+        return clause_eval_cuda(lit_packed, include_packed, nonempty, csrf=csrf,
+                                block_c=block_c)
     return clause_eval_plain(lit_packed, include_packed, nonempty)
 
 
@@ -129,14 +141,17 @@ def clause_eval_sparse(
     *,
     backend: Optional[str] = None,
     csrf: bool = True,
+    block_c: int = BLOCK_C,
 ) -> torch.Tensor:
     """Active-clause outputs uint8 0/1 ``[B, C_a]`` from packed literals and
     the active pool's exclude words."""
+    check_block_c(block_c)
     if exclude_packed.shape[0] == 0:       # empty pool: nothing can fire
         return torch.zeros((lit_packed.shape[0], 0), dtype=torch.uint8,
                            device=lit_packed.device)
     if _use_kernel(lit_packed, backend):
-        return clause_eval_sparse_cuda(lit_packed, exclude_packed, csrf=csrf)
+        return clause_eval_sparse_cuda(lit_packed, exclude_packed, csrf=csrf,
+                                       block_c=block_c)
     return clause_eval_sparse_plain(lit_packed, exclude_packed)
 
 
@@ -147,14 +162,17 @@ def fused_infer_sparse(
     *,
     backend: Optional[str] = None,
     csrf: bool = True,
+    block_c: int = BLOCK_C,
 ) -> torch.Tensor:
     """Clause evaluation + class sums over the active pool in one kernel;
     int32 ``[B, M]``."""
+    check_block_c(block_c)
     if exclude_packed.shape[0] == 0:
         return torch.zeros((lit_packed.shape[0], weights_active.shape[0]),
                            dtype=torch.int32, device=lit_packed.device)
     if _use_kernel(lit_packed, backend):
-        return fused_infer_sparse_cuda(lit_packed, exclude_packed, weights_active, csrf=csrf)
+        return fused_infer_sparse_cuda(lit_packed, exclude_packed, weights_active,
+                                       csrf=csrf, block_c=block_c)
     return fused_infer_sparse_plain(lit_packed, exclude_packed, weights_active)
 
 

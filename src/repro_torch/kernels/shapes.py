@@ -8,7 +8,12 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["as_uint8", "check_cuda", "check_words", "clamp_block", "round_up"]
+__all__ = ["BLOCK_C", "as_uint8", "check_block_c", "check_cuda", "check_words",
+           "clamp_block", "round_up"]
+
+#: Clauses per CUDA block of the tile kernels (one tile of the
+#: sequential-OR register), unless the caller names another ``block_c``.
+BLOCK_C = 128
 
 
 def round_up(x: int, multiple: int) -> int:
@@ -20,6 +25,16 @@ def clamp_block(block: int, extent: int, multiple: int) -> int:
     """The requested ``block``, shrunk to ``extent`` rounded up to
     ``multiple`` when the axis is smaller than one block."""
     return min(block, round_up(extent, multiple))
+
+
+def check_block_c(block_c: int) -> int:
+    """``block_c`` as the tile kernels take it (``csrc/fused_infer.cu`` and
+    ``csrc/clause_eval.cu``): a multiple of 32 from 32 to 256."""
+    if isinstance(block_c, bool) or not isinstance(block_c, int) or not (
+        32 <= block_c <= 256 and block_c % 32 == 0
+    ):
+        raise ValueError(f"block_c must be a multiple of 32 in [32, 256]; got {block_c!r}")
+    return block_c
 
 
 def check_words(lit_packed: torch.Tensor, model_packed: torch.Tensor) -> None:

@@ -12,21 +12,21 @@ swap lifecycle:
      image with a :class:`~repro_torch.serve.servable.ServableVersion`
      (epoch/step from the cursor, content digest);
   3. **shadow**   — the candidate registers under ``<name>@shadow`` on
-     the live engine (its own sparsity analysis) and is scored against
-     the live version **on the same mirrored requests**;
+     the live engine (its own sparsity analysis, and its own autotune pass
+     with ``autotune_candidate``) and is scored against the live version
+     **on the same mirrored requests**;
   4. **promote or reject** — promotion requires prediction agreement >=
      ``min_agreement`` and, when labels ride along, candidate accuracy
      no worse than live minus ``allow_accuracy_drop``; a promoted
      candidate installs via ``ServingEngine.swap`` (in-flight work
      completes on the old version; ``rollback()`` undoes it instantly),
-     a rejected one leaves the live version untouched.
-
-The autotuner is not ported yet, so ``autotune_candidate`` is refused.
+     a rejected one leaves the live version untouched; a candidate tuned
+     while shadowing carries its plan onto the live slot.
 
 One-shot CLI round trip on the card (``--device cpu`` for the CPU)::
 
     PYTHONPATH=src python -m repro_torch.launch.lifecycle \
-        --arch convcotm-mnist --rounds 2 --epochs 1 --shadow-requests 128
+        --arch convcotm-mnist --rounds 2 --epochs 1 --shadow-requests 128 [--autotune]
 """
 
 from __future__ import annotations
@@ -63,7 +63,9 @@ class LifecycleConfig:
                              this much less accurate than live (0.0 =
                              never promote a regression).
     ``shadow_requests``    — mirrored requests per shadow evaluation.
-    ``autotune_candidate`` — refused: the autotuner is not ported yet.
+    ``autotune_candidate`` — run the per-bucket autotuner on the shadow
+                             slot, and promote the candidate with the
+                             plan measured there.
     ``checkpoint_promoted``— save every promoted servable (stamp and
                              plan) via ``checkpoint.save_servable`` when a
                              ``ckpt_dir`` is configured.
@@ -82,8 +84,6 @@ class LifecycleConfig:
             raise ValueError("allow_accuracy_drop must be >= 0")
         if self.shadow_requests < 1:
             raise ValueError("shadow_requests must be >= 1")
-        if self.autotune_candidate:
-            raise ValueError("autotune_candidate: the autotuner is not ported yet")
 
 
 @dataclasses.dataclass
@@ -165,15 +165,18 @@ class LifecycleDriver:
 
         The candidate registers under :func:`shadow_slot` — a real
         registration on the live engine, so it gets its own sparsity
-        analysis exactly as promotion would install it.  Each mirrored
-        batch classifies on both slots; agreement is the fraction of
-        identical predicted classes, and accuracies are computed when
-        ``labels`` ride along.
+        analysis (and autotune pass, when configured) exactly as promotion
+        would install it.  Each mirrored batch classifies on both slots;
+        agreement is the fraction of identical predicted classes, and
+        accuracies are computed when ``labels`` ride along.
         """
+        cfg = self.config
         slot = shadow_slot(self.name)
         self.engine.register(slot, candidate, booleanize_method=self.booleanize_method,
-                             path=self.eval_path)
-        n = min(len(requests), self.config.shadow_requests)
+                             path=self.eval_path, autotune=cfg.autotune_candidate)
+        if cfg.autotune_candidate:
+            self.engine.autotune(slot)
+        n = min(len(requests), cfg.shadow_requests)
         live = self.engine.classify(self.name, requests[:n])
         shadow = self.engine.classify(slot, requests[:n])
         report = ShadowReport(
@@ -207,9 +210,14 @@ class LifecycleDriver:
         return True, "gates passed"
 
     def promote(self, candidate: ServableModel) -> ServableVersion:
-        """Install the candidate on the live slot via an atomic swap, and
-        checkpoint the promoted servable when configured."""
-        stamp = self.engine.swap(self.name, candidate)
+        """Install the candidate on the live slot via an atomic swap, with
+        the plan the shadow slot measured when the candidate was autotuned,
+        and checkpoint the promoted servable when configured."""
+        tuned = None
+        slot = shadow_slot(self.name)
+        if self.config.autotune_candidate and slot in self.engine.models():
+            tuned = self.engine.servable(slot).tuned
+        stamp = self.engine.swap(self.name, candidate, tuned=tuned)
         if self.ckpt_dir and self.config.checkpoint_promoted:
             from repro_torch.checkpoint.checkpointer import save_servable
 
@@ -261,6 +269,8 @@ def main(argv=None) -> None:
                          "training rounds move predictions a lot)")
     ap.add_argument("--accuracy-drop", type=float, default=0.0,
                     help="max accuracy regression tolerated at promotion")
+    ap.add_argument("--autotune", action="store_true",
+                    help="autotune each candidate while it shadows")
     ap.add_argument("--ckpt-dir", default=None,
                     help="save every promoted servable (stamp + plan) here")
     ap.add_argument("--max-batch", type=int, default=256)
@@ -301,6 +311,7 @@ def main(argv=None) -> None:
             min_agreement=args.agreement,
             allow_accuracy_drop=args.accuracy_drop,
             shadow_requests=args.shadow_requests,
+            autotune_candidate=args.autotune,
         ),
         ckpt_dir=args.ckpt_dir,
         booleanize_method=method,
@@ -318,6 +329,10 @@ def main(argv=None) -> None:
                    else f"rejected ({rep.reason})")
         print(f"round {r}: agreement {rep.agreement:.4f} over {rep.n} mirrored requests "
               f"vs live v{rep.live_version}{acc} | {verdict}")
+        if args.autotune:
+            at = engine.stats(shadow_slot(args.arch)).autotune
+            print(f"round {r}: candidate autotuned in {at.get('total_s', 0.0):.1f}s -> "
+                  f"plan {at.get('plan')}")
     print(f"{args.arch}: serving {engine.version(args.arch)}")
 
 

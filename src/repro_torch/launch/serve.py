@@ -3,7 +3,7 @@
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch convcotm-mnist \
         --requests 32 --max-batch 256 [--eval-path fused_sparse] \
-        [--ingress host] [--ckpt-dir DIR] [--device cpu]
+        [--ingress host] [--ckpt-dir DIR] [--autotune] [--device cpu]
 
 ``--service`` runs the same model behind the asyncio ``ServingService``
 (bounded queue, latency-aware microbatching, graceful drain) under an
@@ -18,7 +18,9 @@ The model comes from ``--ckpt-dir`` (either checkpoint flavour, through
 ``ServingEngine.load_checkpoint``) or is a boundary-initialised ConvCoTM
 made from ``--seed``.  Requests are drawn from the arch's test split
 (1,024 images; the synthetic glyphs stand in when the IDX files are
-absent); accuracy is printed for a restored model.
+absent); accuracy is printed for a restored model.  ``--autotune`` (both
+modes) measures the eval-path candidates per request form and bucket at
+warmup and serves each bucket from its winner; the plan is printed.
 """
 
 from __future__ import annotations
@@ -40,15 +42,16 @@ __all__ = ["serve_tm", "serve_tm_service"]
 
 
 def _tm_engine(arch: str, *, max_batch: int, eval_path: str | None, ckpt_dir: str | None,
-               seed: int, device):
+               seed: int, device, autotune: bool = False):
     """The engine with ``arch`` registered (restored from ``ckpt_dir``, or a
-    seeded boundary model) and the test split requests are drawn from;
-    returns ``(engine, vx, vy, source)``."""
+    seeded boundary model; armed for the autotuner with ``autotune``) and
+    the test split requests are drawn from; returns
+    ``(engine, vx, vy, source)``."""
     cfg = COTM_CONFIGS[arch]
     method = BOOLEANIZE_METHOD[arch]
     dataset = arch.split("-", 1)[1]               # convcotm-mnist -> mnist
     _, _, vx, vy, source = get_dataset(dataset, n_test=1024)
-    engine = ServingEngine(max_batch=max_batch, device=device)
+    engine = ServingEngine(max_batch=max_batch, device=device, autotune=autotune)
     if ckpt_dir is not None:
         engine.load_checkpoint(arch, ckpt_dir, cfg, booleanize_method=method, path=eval_path)
         print(f"{arch}: restored model from {ckpt_dir}")
@@ -57,6 +60,11 @@ def _tm_engine(arch: str, *, max_batch: int, eval_path: str | None, ckpt_dir: st
         engine.register(arch, model, cfg, booleanize_method=method, path=eval_path)
         print(f"{arch}: serving a boundary-initialised model ({source} data)")
     return engine, vx, vy, source
+
+
+def _print_autotune(engine, arch: str) -> None:
+    at = engine.stats(arch).autotune
+    print(f"{arch}: autotuned in {at.get('total_s', 0.0):.1f}s -> plan {at.get('plan')}")
 
 
 def serve_tm(
@@ -69,15 +77,20 @@ def serve_tm(
     seed: int = 0,
     ingress: str = "device",
     device=None,
+    autotune: bool = False,
 ) -> dict:
-    """Warm every bucket, then serve ``n_requests`` requests of
-    1..max_batch test images through ``classify`` (``ingress='host'``
-    replays the host pipeline); returns the engine's statistics."""
+    """Warm every bucket (tuning first with ``autotune``), then serve
+    ``n_requests`` requests of 1..max_batch test images through
+    ``classify`` (``ingress='host'`` replays the host pipeline); returns
+    the engine's statistics."""
     engine, vx, vy, source = _tm_engine(arch, max_batch=max_batch, eval_path=eval_path,
-                                        ckpt_dir=ckpt_dir, seed=seed, device=device)
+                                        ckpt_dir=ckpt_dir, seed=seed, device=device,
+                                        autotune=autotune)
     warmed = engine.warmup(arch)
     print(f"{arch}: on {engine.device} ({engine.resolved_path(arch)} path); warmed "
           f"buckets {list(warmed)}")
+    if autotune:
+        _print_autotune(engine, arch)
     rng = np.random.default_rng(seed)
     correct = total = 0
     for _ in range(n_requests):
@@ -115,6 +128,7 @@ async def serve_tm_service(
     malformed_frac: float = 0.0,
     abandon_frac: float = 0.0,
     device=None,
+    autotune: bool = False,
 ) -> dict:
     """Drive the async ``ServingService`` with open-loop Poisson arrivals
     of single-image requests at ``rate`` req/s, then drain gracefully;
@@ -126,7 +140,7 @@ async def serve_tm_service(
     per-request host ingress).  ``deadline_s`` stamps every request,
     ``malformed_frac`` corrupts that fraction of submissions (refused at
     validation) and ``abandon_frac`` models clients that stop waiting;
-    every admitted future still resolves.
+    every admitted future still resolves.  ``autotune`` tunes at warmup.
     """
     from repro_torch.serve.loadgen import poisson_open_loop
     from repro_torch.serve.service import ServiceConfig, ServingService
@@ -134,8 +148,11 @@ async def serve_tm_service(
     if submit_form not in ("raw", "preprocessed", "host"):
         raise ValueError(f"unknown submit_form {submit_form!r}")
     engine, vx, vy, source = _tm_engine(arch, max_batch=max_batch, eval_path=eval_path,
-                                        ckpt_dir=ckpt_dir, seed=seed, device=device)
+                                        ckpt_dir=ckpt_dir, seed=seed, device=device,
+                                        autotune=autotune)
     engine.warmup(arch)
+    if autotune:
+        _print_autotune(engine, arch)
     pool = engine.preprocess(arch, vx) if submit_form == "preprocessed" else np.asarray(vx)
 
     service = ServingService(engine, ServiceConfig(max_delay_us=max_delay_us,
@@ -197,6 +214,9 @@ def main(argv=None) -> None:
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card; 'cpu' runs the "
                          "plain versions)")
+    ap.add_argument("--autotune", action="store_true",
+                    help="measure the eval-path candidates per form and bucket at "
+                         "warmup and serve each bucket from its winner")
     ap.add_argument("--service", action="store_true",
                     help="serve through the asyncio ServingService")
     ap.add_argument("--rate", type=float, default=2000.0,
@@ -218,7 +238,8 @@ def main(argv=None) -> None:
                          "their futures still resolve (--service)")
     args = ap.parse_args(argv)
     common = dict(max_batch=args.max_batch, eval_path=args.eval_path,
-                  ckpt_dir=args.ckpt_dir, seed=args.seed, device=args.device)
+                  ckpt_dir=args.ckpt_dir, seed=args.seed, device=args.device,
+                  autotune=args.autotune)
     if args.service:
         stats = asyncio.run(serve_tm_service(
             args.arch, n_requests=args.requests, rate=args.rate,

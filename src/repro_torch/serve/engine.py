@@ -40,8 +40,17 @@ every slice of a dispatch, and each :class:`InFlightClassify` holds the
 image it was dispatched on until its result is read.
 :meth:`ServingEngine.degrade_path` steps a model down the degradation
 chain, and a ``faults`` plan (``serve/faults.py``) may fail a dispatch
-before any work.  Autotuning and meshes are not ported yet: a tuned plan
-rides on a servable as an opaque string, and the engine serves one card.
+before any work.
+
+Autotuning, as in the reference (``serve/autotune.py``): an engine or a
+registration armed with ``autotune`` measures every admissible (path,
+params) candidate per (request form, bucket) at :meth:`ServingEngine.warmup`,
+or when :meth:`ServingEngine.autotune` is called, and each dispatch then
+runs its bucket's winner (:meth:`_Entry.resolve`).  The sweep runs
+outside the engine lock, so a running service is not stalled for its
+length; the plan is installed under the lock.  The plan rides on the
+register image (``servable(name).tuned``), through swaps, rollbacks and
+checkpoints.  There is no mesh: the engine serves one card.
 """
 
 from __future__ import annotations
@@ -62,8 +71,10 @@ from repro_torch.core import clauses as cl
 from repro_torch.core.cotm import CoTMConfig, CoTMModel
 from repro_torch.core.ingress import IngressSpec, raw_trailing_shape
 from repro_torch.data.pipeline import preprocess_for_serving
+from repro_torch.serve.autotune import TunedPlan, autotune_servable
 from repro_torch.serve.paths import (
     PACKED,
+    Params,
     degraded_fallback,
     get_path,
     resolve_path,
@@ -78,7 +89,14 @@ from repro_torch.serve.servable import (
     servable_digest,
 )
 
-__all__ = ["ClassifyResult", "InFlightClassify", "ServeStats", "ServingEngine"]
+__all__ = [
+    "ClassifyResult",
+    "InFlightClassify",
+    "ServeStats",
+    "ServingEngine",
+    "classify_raw_step",
+    "classify_step",
+]
 
 #: The request forms a bucket is run in.
 FORMS = ("literals", "raw")
@@ -104,7 +122,8 @@ class ClassifyResult:
 @dataclasses.dataclass
 class ServeStats:
     """Running per-model accounting.  ``devices`` and ``data_shards`` are 1
-    (one card); ``autotune`` stays empty until the autotuner is ported;
+    (one card); ``autotune`` holds the last tuning pass (``rows``,
+    ``total_s``, ``plan``; empty when the model was not tuned here);
     ``fallback_path`` and ``degrade_steps`` record the degradation chain."""
 
     requests: int = 0
@@ -175,6 +194,40 @@ class _Entry:
     previous: Optional[Tuple[ServableModel, ServableVersion]] = None
     # The stamped image servable() hands out, until the entry changes.
     stamped: Optional[ServableModel] = None
+    # Armed for the autotuner: warmup tunes the image once.
+    autotune: bool = False
+
+    def resolve(self, form: str, bucket: int) -> Tuple[str, Params]:
+        """The (path, params) this entry dispatches for a (form, bucket):
+        the tuned winner when the image's plan covers it, else the
+        registered path at its defaults."""
+        plan = self.servable.tuned
+        if plan is not None:
+            hit = plan.lookup(form, bucket)
+            if hit is not None:
+                return hit
+        return self.path_name, ()
+
+
+def _packed_result(v: torch.Tensor) -> torch.Tensor:
+    return torch.cat([cl.argmax_predict(v)[:, None], v], dim=1)
+
+
+@torch.inference_mode()
+def classify_step(servable: ServableModel, x: torch.Tensor, path_name: str,
+                  params: Params = ()) -> torch.Tensor:
+    """The literal-form classify step: ``path_name`` at ``params`` on
+    literals ``x`` in its input form, then the argmax; int32 ``[B, 1 + m]``
+    (predictions, class sums), on ``x``'s device, without waiting."""
+    return _packed_result(run_path(get_path(path_name), servable, x, params))
+
+
+@torch.inference_mode()
+def classify_raw_step(servable: ServableModel, raw: torch.Tensor, path_name: str,
+                      ingress: IngressSpec, params: Params = ()) -> torch.Tensor:
+    """The raw-form classify step: the path's ingress, ``path_name`` at
+    ``params`` and the argmax; int32 ``[B, 1 + m]``, without waiting."""
+    return _packed_result(run_path_raw(get_path(path_name), servable, raw, ingress, params))
 
 
 class InFlightClassify:
@@ -236,15 +289,23 @@ class ServingEngine:
     (pass ``device="cpu"`` to run the plain versions on the CPU).
     ``faults``: an optional :class:`~repro_torch.serve.faults.FaultPlan`
     whose ``on_engine_dispatch`` runs at the top of every dispatch (chaos
-    tests).  There is no ``mesh``: the engine serves on one device.
+    tests).  ``autotune`` arms every registration for the autotuner by
+    default; ``autotune_repeats`` and ``autotune_max_seconds`` are its
+    timing repeats and wall-clock budget.  There is no ``mesh``: the engine
+    serves on one device.
     """
 
-    def __init__(self, max_batch: int = 256, *, device=None, faults=None):
+    def __init__(self, max_batch: int = 256, *, device=None, faults=None,
+                 autotune: bool = False, autotune_repeats: int = 3,
+                 autotune_max_seconds: Optional[float] = None):
         if max_batch < 1:
             raise ValueError("max_batch must be >= 1")
         self.max_batch = max_batch
         self.device = resolve_device(device)
         self.faults = faults
+        self.autotune_default = autotune
+        self.autotune_repeats = autotune_repeats
+        self.autotune_max_seconds = autotune_max_seconds
         self._servables: Dict[str, _Entry] = {}
         # Serialises entry changes (swap, rollback, degrade) against
         # dispatch, which captures (image, version) under it.  Re-entrant,
@@ -289,7 +350,8 @@ class ServingEngine:
         path: Optional[str] = None,
         booleanize_kw: Optional[Dict] = None,
         version: Optional[ServableVersion] = None,
-        tuned: Optional[str] = None,
+        autotune: Optional[bool] = None,
+        tuned: Optional[TunedPlan] = None,
     ) -> ServableModel:
         """Freeze (if needed), attach the sparsity image
         (:func:`analyze_sparsity`), move to the engine's device once, and
@@ -297,11 +359,14 @@ class ServingEngine:
         config's ``eval_path``; ``booleanize_kw`` (``threshold``,
         ``block_size``, ``c``, ``levels``) sets the ingress knobs of both
         request routes.  ``version`` (or the servable's own stamp) gives
-        epoch, step and digest; the id is the slot's next.  ``tuned`` (a
-        kernel plan's JSON) rides on the image unapplied.  A
-        ``ServableModel`` given here is copied, not moved: ``nn.Module.to``
-        works in place, and the caller's image stays where it was.  The
-        dispatched image carries no stamp; :meth:`servable` adds it."""
+        epoch, step and digest; the id is the slot's next.  ``autotune``
+        (default: the engine's flag) arms the autotuner, which runs at
+        :meth:`warmup` or :meth:`autotune`, never per request; ``tuned``
+        attaches a measured plan (from a checkpoint, say) without
+        re-measuring.  A ``ServableModel`` given here is copied, not moved:
+        ``nn.Module.to`` works in place, and the caller's image stays where
+        it was.  The dispatched image carries no stamp; :meth:`servable`
+        adds it."""
         if isinstance(model, ServableModel):
             servable = copy.deepcopy(model)
         else:
@@ -328,6 +393,7 @@ class ServingEngine:
                 ingress=ingress,
                 stats=ServeStats(devices=self.devices, data_shards=self.data_shards),
                 version=dataclasses.replace(stamp, version=self._next_version_id(name)),
+                autotune=self.autotune_default if autotune is None else autotune,
             )
         return servable
 
@@ -344,9 +410,13 @@ class ServingEngine:
         """Restore a model from a checkpoint directory (written by either
         package) and register it.  Both flavours: a ``CoTMModel`` tree from
         the trainer, or a register image from ``save_servable`` (the
-        lifecycle's promote); the manifest's leaf names tell them apart."""
+        lifecycle's promote); the manifest's leaf names tell them apart.
+        A tuned plan in the manifest is applied only when it was measured
+        on this engine's device (``checkpointer.plan_from_extra``); a
+        foreign one is dropped, and an armed engine re-tunes at warmup."""
         from repro_torch.checkpoint.checkpointer import (
             latest_step,
+            plan_from_extra,
             restore_pytree,
             restore_servable,
         )
@@ -359,7 +429,7 @@ class ServingEngine:
             leaves = json.load(f).get("leaves", {})
         if "include" in leaves and ".ta_state" not in leaves:
             # The stamp and the plan ride on the image itself.
-            servable, _ = restore_servable(config, directory, resolved, device="cpu")
+            servable, _ = restore_servable(config, directory, resolved, device=self.device)
             return self.register(name, servable, booleanize_method=booleanize_method,
                                  path=path)
         template = CoTMModel(
@@ -369,10 +439,9 @@ class ServingEngine:
         model, _, extra = restore_pytree(template, directory, resolved, device="cpu")
         extra = extra or {}
         stamp = ServableVersion.from_dict(extra.get("servable_version"))
-        tuned = extra.get("tuned_plan")
         return self.register(
             name, model, config, booleanize_method=booleanize_method, path=path,
-            tuned=tuned if isinstance(tuned, str) and tuned else None,
+            tuned=plan_from_extra(extra, self.device),
             version=stamp if stamp != ServableVersion() else None,
         )
 
@@ -404,9 +473,10 @@ class ServingEngine:
         return self._servables[name].stats
 
     def resolved_path(self, name: str) -> str:
-        """The path a dispatch of ``name`` really evaluates: the registered
-        path, or its dense fallback when the servable carries no sparsity
-        image."""
+        """The path a dispatch of ``name`` really evaluates when no tuned
+        plan covers its bucket: the registered path, or its dense fallback
+        when the servable carries no sparsity image (a tuned bucket runs
+        its winner: ``servable(name).tuned``)."""
         entry = self._servables[name]
         return resolve_path(get_path(entry.path_name), entry.servable).name
 
@@ -424,7 +494,7 @@ class ServingEngine:
         config: Optional[CoTMConfig] = None,
         *,
         version: Optional[ServableVersion] = None,
-        tuned: Optional[str] = None,
+        tuned: Optional[TunedPlan] = None,
         retune: bool = False,
     ) -> ServableVersion:
         """Replace ``name``'s weights under live load; returns the new stamp.
@@ -435,13 +505,11 @@ class ServingEngine:
         moved to the device before the lock is taken; the install itself
         is a pointer swap.  Dispatches already made complete on the old
         image, which their handles hold; the displaced image is kept
-        whole for :meth:`rollback`.  ``tuned`` pins a plan; by default
-        the live one is carried over.  ``retune`` needs the autotuner,
-        which is not ported yet.
+        whole for :meth:`rollback`.  ``tuned`` pins a plan measured for the
+        candidate; by default the live one is carried over (its digest
+        marks it as tuned for a prior version); ``retune`` re-measures on
+        the candidate after the install.
         """
-        if retune:
-            raise NotImplementedError("swap(retune=True) needs the autotuner, which is not "
-                                      "ported yet")
         entry = self._servables[name]
         if isinstance(model, ServableModel):
             candidate = copy.deepcopy(model)
@@ -459,7 +527,7 @@ class ServingEngine:
         source = version if version is not None else candidate.version
         candidate = analyze_sparsity(candidate.replace(sparsity=None), pad_to="pow2")
         stamp = self._stamp(candidate, source)
-        carried = entry.servable.tuned if tuned is None else tuned
+        carried = entry.servable.tuned if tuned is None and not retune else tuned
         candidate = candidate.replace(tuned=carried, version=None).to(self.device)
         with self._lock:
             stamp = dataclasses.replace(stamp, version=entry.version.version + 1)
@@ -468,13 +536,15 @@ class ServingEngine:
             entry.version = stamp
             entry.compiled = set()
             entry.stamped = None
+        if retune:
+            self.autotune(name)
         return stamp
 
     def rollback(self, name: str) -> ServableVersion:
         """Restore the image the last swap displaced, in O(1): no freeze,
-        no analysis, no transfer.  The restored weights get a fresh id with
-        the prior stamp's epoch, step and digest; a second rollback flips
-        back."""
+        no analysis, no transfer; its tuned plan rides on it.  The restored
+        weights get a fresh id with the prior stamp's epoch, step and
+        digest; a second rollback flips back."""
         entry = self._servables[name]
         with self._lock:
             if entry.previous is None:
@@ -524,15 +594,52 @@ class ServingEngine:
             raise ValueError("empty request")
         return min(1 << (n - 1).bit_length(), self.max_batch)
 
+    def autotune(self, name: str, buckets=None, *, forms=FORMS,
+                 repeats: Optional[int] = None,
+                 max_seconds: Optional[float] = None) -> TunedPlan:
+        """Measure the eval-path candidates per (form, bucket) and pin the
+        winners on ``name``'s image (see ``serve/autotune.py``).
+
+        Default buckets: ``bucket_for(1)`` and ``max_batch``; a bucket in
+        between takes its nearest tuned neighbour's winner.  The sweep runs
+        outside the engine lock, on the image live when it starts; the plan
+        is installed under the lock, on that image only (a swap meanwhile
+        keeps its own plan).  The report and the plan land in
+        ``stats(name).autotune``; the plan also rides on
+        ``servable(name).tuned``.
+        """
+        entry = self._servables[name]
+        if buckets is None:
+            buckets = dict.fromkeys((self.bucket_for(1), self.max_batch))
+        buckets = [self.bucket_for(int(b)) for b in buckets]
+        with self._lock:
+            measured, path_name, ingress = entry.servable, entry.path_name, entry.ingress
+        plan, report = autotune_servable(
+            measured, path_name, ingress, buckets, forms,
+            repeats=self.autotune_repeats if repeats is None else repeats,
+            max_seconds=self.autotune_max_seconds if max_seconds is None else max_seconds,
+        )
+        with self._lock:
+            if entry.servable is measured:
+                entry.servable = measured.replace(tuned=plan)
+                entry.compiled = set()       # warmup runs the tuned paths
+                entry.stamped = None
+        entry.stats.autotune = {**report.as_dict(), "plan": [list(e) for e in plan.entries]}
+        return plan
+
     def warmup(self, name: str, buckets=None, *, forms=FORMS) -> Tuple[int, ...]:
         """Run one zero batch per bucket and form (default: every power of
         two up to ``max_batch``, raw and literals), so the kernels are
         built and loaded and the allocators hold every bucket's buffers
         before the first request.  Request statistics stay untouched.
+        A model armed with ``autotune`` and not yet tuned is tuned first,
+        once, outside the lock, so each bucket warms its tuned path.
         Returns the buckets newly run."""
         entry = self._servables[name]
         if unknown := set(forms) - set(FORMS):
             raise ValueError(f"unknown warmup forms: {sorted(unknown)}")
+        if entry.autotune and entry.servable.tuned is None:
+            self.autotune(name, forms=forms)
         if buckets is None:
             buckets = [1 << i for i in range(self.max_batch.bit_length())
                        if 1 << i < self.max_batch] + [self.max_batch]
@@ -566,8 +673,10 @@ class ServingEngine:
     def _submit_bucket(self, entry: _Entry, arr: np.ndarray, record_hit: bool = True,
                        form: str = "raw"):
         """Pad one <= max_batch slice to its bucket and run the classify
-        step (raw pixels, or literals in the path's form) without waiting;
-        returns ``(host_out, n, bucket)``, where ``host_out`` is int32
+        step of the bucket's tuned path, or of the registered path (raw
+        pixels, or literals in the registered path's form, which a tuned
+        literal-form winner shares), without waiting; returns
+        ``(host_out, n, bucket)``, where ``host_out`` is int32
         ``[bucket, 1 + m]`` (predictions, class sums) that is complete once
         the device has caught up.  Callers hold the engine lock."""
         if arr.dtype == np.uint32:
@@ -581,12 +690,11 @@ class ServingEngine:
         buf[:n] = arr
         buf[n:] = 0
         x = host.to(self.device, non_blocking=True)
-        path = get_path(entry.path_name)
+        path_name, params = entry.resolve(form, bucket)
         if form == "raw":
-            v = run_path_raw(path, entry.servable, x, entry.ingress)
+            out = classify_raw_step(entry.servable, x, path_name, entry.ingress, params)
         else:
-            v = run_path(path, entry.servable, x)
-        out = torch.cat([cl.argmax_predict(v)[:, None], v], dim=1)
+            out = classify_step(entry.servable, x, path_name, params)
         if on_card:
             host_out = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
             host_out.copy_(out, non_blocking=True)

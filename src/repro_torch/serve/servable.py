@@ -11,15 +11,16 @@ moves it to the card once and every batch after touches literals only.
 the sparse eval paths read.  A servable carries an optional lifecycle
 stamp (:class:`ServableVersion`, the ``version`` attribute), whose
 :func:`servable_digest` is the same string in both packages for the same
-model, and an optional ``tuned`` kernel plan, kept as the reference's
-plan JSON (an opaque string) until the autotuner is ported.
+model, and an optional ``tuned`` plan
+(:class:`~repro_torch.serve.autotune.TunedPlan`, the autotuner's winners
+per request form and bucket).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import hashlib
-from typing import Dict, Optional
+from typing import TYPE_CHECKING, Dict, Optional
 
 import torch
 from torch import nn
@@ -27,6 +28,9 @@ from torch import nn
 from repro_torch.core import clauses as cl
 from repro_torch.core.cotm import WEIGHT_MAX, WEIGHT_MIN, CoTMConfig, CoTMModel
 from repro_torch.core.patches import pack_bits
+
+if TYPE_CHECKING:   # serve/autotune.py imports this module
+    from repro_torch.serve.autotune import TunedPlan
 
 __all__ = [
     "ClauseSparsity",
@@ -131,7 +135,8 @@ class ServableModel(nn.Module):
 
     and the optional submodule ``sparsity`` (:func:`analyze_sparsity`);
     plain attributes ``config``, ``version`` (a :class:`ServableVersion`
-    or None) and ``tuned`` (a kernel plan's JSON string or None).
+    or None) and ``tuned`` (a :class:`~repro_torch.serve.autotune.TunedPlan`
+    or None).
     """
 
     include: torch.Tensor
@@ -142,7 +147,8 @@ class ServableModel(nn.Module):
 
     def __init__(self, include, include_packed, nonempty, weights, config: CoTMConfig,
                  sparsity: Optional[ClauseSparsity] = None, *,
-                 version: Optional[ServableVersion] = None, tuned: Optional[str] = None):
+                 version: Optional[ServableVersion] = None,
+                 tuned: Optional["TunedPlan"] = None):
         super().__init__()
         self.register_buffer("include", include)
         self.register_buffer("include_packed", include_packed)

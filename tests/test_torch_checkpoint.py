@@ -3,8 +3,10 @@
 Both packages write the same layout (npy leaves, a JSON manifest, an
 atomic ``COMMITTED`` sentinel) with the same leaf names, so a servable
 checkpoint written by either restores in the other and classifies the
-same; a kernel plan (``tuned_plan``) rides through a restore and a re-save
-unchanged.  Trainer checkpoints (``CoTMModel`` trees) cross too.
+same.  A tuned plan the reference writes names no device, so the port
+restores it as foreign (None); the port's own plan, stamped with the
+device it was measured on, rides through a restore and a re-save in both
+packages.  Trainer checkpoints (``CoTMModel`` trees) cross too.
 """
 
 import dataclasses
@@ -29,12 +31,17 @@ from repro_torch.convert import model_from_arrays, model_to_arrays
 from repro_torch.core import model_io as tio
 from repro_torch.core.cotm import CoTMConfig, CoTMModel
 from repro_torch.data import DoubleBufferedLoader
+from repro_torch.serve.autotune import TunedPlan as TTunedPlan
 from repro_torch.serve.engine import ServingEngine
 from repro_torch.serve.servable import ServableVersion, freeze, servable_digest
 
-#: A kernel plan of the reference's autotuner (the port keeps its JSON).
+#: A kernel plan of the reference's autotuner (foreign to the port).
 PLAN = TunedPlan(entries=(("raw", 8, "fused", ()), ("literals", 16, "matmul", ())),
                  digest="plan-digest")
+#: A plan of the port's autotuner, with the CUDA kernels' parameters.
+TPLAN = TTunedPlan(entries=(("literals", 16, "kernel", (("block_c", 32),)),
+                            ("raw", 8, "fused", (("block_c", 64), ("csrf", False)))),
+                   digest="plan-digest")
 
 
 @pytest.fixture(scope="module")
@@ -60,9 +67,9 @@ def test_servable_written_by_the_reference_restores_in_the_port(tmp_path, models
     stamp = JServableVersion(version=4, epoch=2, step=7, digest=j_digest(js))
     js = dataclasses.replace(js, version=stamp, tuned=PLAN)
     jck.save_servable(js, str(tmp_path), 3)
-    # The port cannot parse a plan yet: it rides as an opaque string.
+    # The reference's plan names no device: foreign to the port.
     ts, step = tck.restore_servable(tcfg, str(tmp_path), device="cpu")
-    assert step == 3 and ts.tuned == PLAN.to_json()
+    assert step == 3 and ts.tuned is None
     assert ts.version.as_dict() == stamp.as_dict()
     assert servable_digest(ts) == stamp.digest
     assert ts.include_packed.dtype == torch.int32
@@ -74,13 +81,14 @@ def test_servable_written_by_the_reference_restores_in_the_port(tmp_path, models
     np.testing.assert_array_equal(got.class_sums, want.class_sums)
     np.testing.assert_array_equal(got.predictions, want.predictions)
     assert want.class_sums.any()
-    # Re-saved by the port: the plan and the stamp come back unchanged, in
-    # both packages.
-    tck.save_servable(ts, str(tmp_path / "again"), 5)
+    # Re-saved by the port with its own plan: the plan, stamped for the CPU,
+    # and the version stamp come back unchanged, in both packages.
+    tck.save_servable(ts.replace(tuned=TPLAN), str(tmp_path / "again"), 5)
     ts2, _ = tck.restore_servable(tcfg, str(tmp_path / "again"), device="cpu")
-    assert ts2.tuned == PLAN.to_json() and ts2.version == ts.version
+    assert ts2.tuned == TPLAN and ts2.version == ts.version
     js2, _ = jck.restore_servable(jcfg, str(tmp_path / "again"))
-    assert js2.tuned == TunedPlan.from_json(PLAN.to_json()) and js2.version == stamp
+    assert js2.tuned == TunedPlan.from_json(TPLAN.to_json()) and js2.version == stamp
+    assert (js2.tuned.entries, js2.tuned.digest) == (TPLAN.entries, TPLAN.digest)
 
 
 def test_servable_written_by_the_port_restores_in_the_reference(tmp_path, models):

@@ -28,6 +28,7 @@ from repro.serve import analyze_sparsity as j_analyze
 from repro.serve import freeze as jfreeze
 from repro.serve.engine import ServeStats as JServeStats
 from repro.serve.servable import ServableVersion as JServableVersion
+from repro.serve.servable import servable_digest as j_digest
 from repro_torch.checkpoint import checkpointer as tck
 from repro_torch.convert import model_from_arrays
 from repro_torch.core.cotm import CoTMConfig
@@ -139,8 +140,9 @@ def test_swap_pads_the_active_pool_and_refuses_what_the_reference_refuses():
         te.swap("m", tm2)
     with pytest.raises(KeyError):
         te.swap("nope", tm2, TCFG)
-    with pytest.raises(NotImplementedError, match="autotuner"):
-        te.swap("m", tm2, TCFG, retune=True)
+    # retune re-measures on the candidate: the plan carries its digest.
+    stamp = te.swap("m", tm2, TCFG, retune=True)
+    assert te.servable("m").tuned.digest == stamp.digest == j_digest(jfreeze(jm2, JCFG))
     fresh_j, fresh_t = _engines()
     fresh_j.register("m", jm, JCFG)
     fresh_t.register("m", tm, TCFG)
