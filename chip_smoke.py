@@ -80,7 +80,19 @@ this file and builds the CUDA kernels from ``src/repro_torch/csrc``).
      checkpoint round trip and a plan stamped for another card; a
      lifecycle round with ``autotune_candidate``.  ``[roofline]`` lines
      hold each winner's measured cls/s against ``tm_path_roofline`` at the
-     card's ceilings (achieved fraction at most 1.05);
+     card's ceilings (achieved fraction at most 1.05).  Then the device
+     mesh (``[mesh]`` lines), on meshes of cuda:0 repeated (every meshed
+     code path on one card; not scaling across cards): replicated data 1,
+     2 and 4, clause-sharded model 2 and 4 and 2x2, each mesh's drive a
+     launch window of its own, on ``fused`` and ``kernel``, boundary and
+     few40 pools, requests of 1, 13 and 256 images raw, through the host
+     ingress and preprocessed, every result equal to the unmeshed engine
+     on the card and to the CPU; C=1000 clause-sharded over 4 (shards of
+     250); the tile kernels' clause widths (32, 64, 250 among them); a
+     service over a data-4 mesh that loses two devices (4 -> 2 -> 1, hung
+     0); a tuned data-2 registration; the trainer on data 2 and 4 equal to
+     the unmeshed trainer; classify times per mesh ("shards on one
+     card");
   4. times at bucket 256 with CUDA events (median of repeats after
      warm-up; a spin kernel holds the card while the host enqueues each
      window, so the times are the card's): the launch floor (a kernel
@@ -323,9 +335,9 @@ def profile_classify(engine, arch: str, imgs, reps: int, label: str) -> None:
               f"x{e.count // reps:<3d} {e.key[:80]}")
 
 
-def classify_times(engine, name: str, imgs256, img1) -> str:
-    """Throughput of 50 bucket-256 requests and latency of 200 bucket-1
-    requests on the host clock, as one printable summary."""
+def classify_stats(engine, name: str, imgs256, img1) -> tuple[float, float, float]:
+    """On the host clock: ms per request over 50 bucket-256 requests, and
+    the median and p90 µs of 200 bucket-1 requests."""
     engine.classify(name, imgs256)
     n_iter = 50
     t = time.perf_counter()
@@ -338,10 +350,14 @@ def classify_times(engine, name: str, imgs256, img1) -> str:
         engine.classify(name, img1)
         lat.append(time.perf_counter() - t)
     lat.sort()
-    return (f"bucket 256: {256 * n_iter / dt:.1f} cls/s ({dt / n_iter * 1e3:.4f} ms per "
-            f"request, {n_iter} requests); bucket 1: median "
-            f"{statistics.median(lat) * 1e6:.1f} us, p90 {lat[int(0.9 * len(lat))] * 1e6:.1f} "
-            f"us over {len(lat)} requests")
+    return dt / n_iter * 1e3, statistics.median(lat) * 1e6, lat[int(0.9 * len(lat))] * 1e6
+
+
+def classify_times(engine, name: str, imgs256, img1) -> str:
+    """:func:`classify_stats` as one printable summary."""
+    ms, med, p90 = classify_stats(engine, name, imgs256, img1)
+    return (f"bucket 256: {256 / ms * 1e3:.1f} cls/s ({ms:.4f} ms per request, 50 "
+            f"requests); bucket 1: median {med:.1f} us, p90 {p90:.1f} us over 200 requests")
 
 
 def same_result(a, b) -> bool:
@@ -942,9 +958,9 @@ def autotune_serving(cfg, method, pools, cpu, registry, card):
     swept = {}
     measure = at._measure
 
-    def counted(servable, name, params, form, bucket, ingress, *, repeats):
+    def counted(servable, name, params, form, bucket, ingress, *, repeats, **kw):
         before = registry.launch_counts()
-        sec = measure(servable, name, params, form, bucket, ingress, repeats=repeats)
+        sec = measure(servable, name, params, form, bucket, ingress, repeats=repeats, **kw)
         after = registry.launch_counts()
         swept[name, params, form, bucket] = {k: after[k] - before[k] for k in after}
         return sec
@@ -1121,6 +1137,314 @@ def roofline_lines(cfg, eng, imgs256, img1, ops_per_s, card) -> None:
               f"achieved_fraction {r['achieved_fraction']:.6g} | {card}")
         check(r["achieved_fraction"] <= 1.05,
               f"{path} at bucket {bucket}: achieved fraction {r['achieved_fraction']}")
+
+
+#: The meshes of the [mesh] phase, all on cuda:0 repeated: (label, data,
+#: model, clause-sharded).
+MESHES = (("data 1", 1, 1, False), ("data 2", 2, 1, False), ("data 4", 4, 1, False),
+          ("model 2", 1, 2, True), ("model 4", 1, 4, True), ("2x2", 2, 2, True))
+MESH_PATHS = ("fused", "kernel")
+#: Request forms: raw pixels, the host ingress, preprocessed literals.
+MESH_FORMS = ("raw", "host", "preprocessed")
+
+
+def _classify_form(eng, name, imgs, form):
+    if form == "raw":
+        return eng.classify(name, imgs)
+    if form == "host":
+        return eng.classify(name, imgs, ingress="host")
+    return eng.classify(name, eng.preprocess(name, imgs), preprocessed=True)
+
+
+@contextlib.contextmanager
+def _clause_widths(ops, seen: set):
+    """Record (kernel, clauses) of every fused_infer and clause_eval launch
+    in the window (the wrappers still count their launches)."""
+    saved = ops.fused_infer_cuda, ops.clause_eval_cuda
+
+    def rec(kernel, fn):
+        def wrapped(lit, inc, *a, **kw):
+            seen.add((kernel, inc.shape[0]))
+            return fn(lit, inc, *a, **kw)
+        return wrapped
+
+    ops.fused_infer_cuda = rec("fused_infer", saved[0])
+    ops.clause_eval_cuda = rec("clause_eval", saved[1])
+    try:
+        yield seen
+    finally:
+        ops.fused_infer_cuda, ops.clause_eval_cuda = saved
+
+
+def _mesh_engine(dev, d, m, sc, **kw):
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.serve.engine import ServingEngine
+    from repro_torch.serve.mesh import ServeMesh
+
+    return ServingEngine(max_batch=256, mesh=ServeMesh(make_test_mesh(d, m, device=dev), sc),
+                         **kw)
+
+
+def mesh_serving(cfg, method, pools, cpu, registry, dev, card) -> dict:
+    """[mesh] part 1: ``convcotm-mnist`` at full width on meshes of cuda:0
+    repeated (replicated data 1, 2, 4; clause-sharded model 2, 4 and 2x2)
+    on ``fused`` and ``kernel``, boundary and few40 pools, requests of 1,
+    13 and 256 raw images in the three forms.  Every result equals the
+    unmeshed engine's on the card, which equals the plain composition on
+    the CPU; each mesh's drive is a launch window of its own, whose
+    ingress_pack launches are one per data shard and raw request and
+    whose tile-kernel launches one per (data, model) shard and request.
+    Then C=1000 (Table III's clause count) at the paper's patch geometry,
+    clause-sharded over 4 (shards of 250).  Times classify at bucket 256
+    and 1 for data 1, 2, 4 and model 2 ("shards on one card"), in turns
+    with the unmeshed engine.  Returns the launch counts of the meshed
+    drives."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.serve.engine import ServingEngine
+
+    rng = np.random.default_rng(SEED + 18)
+    requests = [rng.integers(0, 256, (n, 28, 28), dtype=np.uint8) for n in (1, 13, 256)]
+    one = ServingEngine(max_batch=256)
+    names = [(pool, path) for pool in ("boundary", "few40") for path in MESH_PATHS]
+    want = {}
+    for pool, path in names:
+        name = f"{pool}/{path}"
+        one.register(name, pools[pool], cfg, booleanize_method=method, path=path)
+        cpu.register(f"mesh/{name}", pools[pool], cfg, booleanize_method=method, path=path)
+        for i, r in enumerate(requests):
+            for form in MESH_FORMS:
+                res = want[name, i, form] = _classify_form(one, name, r, form)
+                check(same_result(res, _classify_form(cpu, f"mesh/{name}", r, form)),
+                      f"[mesh] unmeshed {name} ({len(r)} images, {form}) differs from the CPU")
+    check(bool(want["few40/fused", 2, "raw"].class_sums.any()), "few40: all class sums 0")
+    print(f"[mesh] unmeshed engine on the card == plain (CPU): {len(names)} registrations "
+          f"(boundary/few40 x fused/kernel), requests of 1, 13, 256 images, forms "
+          f"{list(MESH_FORMS)}")
+
+    totals = dict.fromkeys(registry.KERNELS, 0)
+    widths: set = set()
+    imgs256, img1 = requests[2], requests[0]
+    timed = {}
+    for label, d, m, sc in MESHES:
+        eng = _mesh_engine(dev, d, m, sc)
+        for pool, path in names:
+            eng.register(f"{pool}/{path}", pools[pool], cfg, booleanize_method=method,
+                         path=path)
+        shards = eng.servable("boundary/fused").placement.shards
+        registry.reset_launches()
+        with _clause_widths(ops, widths):
+            got = {(f"{p}/{q}", i, form): _classify_form(eng, f"{p}/{q}", r, form)
+                   for p, q in names for i, r in enumerate(requests) for form in MESH_FORMS}
+        launches = registry.launch_counts()
+        for key, res in got.items():
+            check(same_result(res, want[key]), f"[mesh] {label}: {key} differs from the "
+                  f"unmeshed engine")
+        per = d * (m if sc else 1)            # tile launches a classify
+        n_req = len(requests) * len(MESH_FORMS) * 2                  # x 2 pools
+        expect = {"ingress_pack": d * len(requests) * 2 * len(MESH_PATHS),
+                  "fused_infer": per * n_req, "clause_eval": per * n_req}
+        for k, v in launches.items():
+            check(v == expect.get(k, 0), f"[mesh] {label}: {k} launched {v} times, not "
+                  f"{expect.get(k, 0)}")
+            totals[k] += v
+        print(f"[engine] launches during the {label} mesh drive "
+              f"({'clause-sharded' if sc else 'replicated'}, {d}x{m} of cuda:0; shard "
+              f"widths {sorted({s.n_clauses for row in shards for s in row})} clauses): "
+              f"{launches}")
+        if label in ("data 1", "data 2", "data 4", "model 2"):
+            timed[label] = eng
+    print(f"[mesh] {len(MESHES)} meshes ({', '.join(x[0] for x in MESHES)}) x "
+          f"{list(MESH_PATHS)} x 2 pools x requests of 1, 13, 256 x {list(MESH_FORMS)}: "
+          f"every result == the unmeshed engine (card) == plain (CPU)")
+
+    # Table III's clause count: shards of 250, not a multiple of a tile.
+    cfg3 = dataclasses.replace(cfg, n_clauses=1000)
+    g = torch.Generator().manual_seed(SEED + 19)
+    ta = torch.where(torch.rand((1000, cfg.n_literals), generator=g) < 3.0 / cfg.n_literals,
+                     133, 123).to(torch.uint8)
+    w = torch.randint(-127, 128, (cfg.n_classes, 1000), generator=g, dtype=torch.int32)
+    m3 = type(pools["few40"])(ta_state=ta, weights=w)
+    eng = _mesh_engine(dev, 1, 4, True)
+    for path in MESH_PATHS:
+        one.register(f"t3/{path}", m3, cfg3, booleanize_method=method, path=path)
+        eng.register(f"t3/{path}", m3, cfg3, booleanize_method=method, path=path)
+        cpu.register(f"mesh/t3/{path}", m3, cfg3, booleanize_method=method, path=path)
+    registry.reset_launches()
+    with _clause_widths(ops, widths):
+        got = {(path, i, form): _classify_form(eng, f"t3/{path}", r, form)
+               for path in MESH_PATHS for i, r in enumerate(requests[1:])
+               for form in MESH_FORMS}
+    launches = registry.launch_counts()
+    for (path, i, form), res in got.items():
+        r = requests[1 + i]
+        ref = _classify_form(one, f"t3/{path}", r, form)
+        check(same_result(res, ref), f"[mesh] Table III {path} ({len(r)} images, {form}): "
+              f"model 4 differs from the unmeshed engine")
+        if form == "raw":
+            check(same_result(res, cpu.classify(f"mesh/t3/{path}", r)),
+                  f"[mesh] Table III {path} ({len(r)} images): differs from the CPU")
+    check(bool(got["fused", 1, "raw"].class_sums.any()), "Table III: all class sums 0")
+    check(launches["fused_infer"] == launches["clause_eval"] == 4 * 2 * len(MESH_FORMS),
+          f"[mesh] Table III launches {launches}")
+    for k, v in launches.items():
+        totals[k] += v
+    print(f"[engine] launches during the Table III (C=1000) model-4 drive: {launches}")
+    seen = {k: sorted(c for kk, c in widths if kk == k) for k in ("fused_infer", "clause_eval")}
+    for kernel, cs in seen.items():
+        check({32, 64, 250} <= set(cs), f"[mesh] {kernel} ran on clause widths {cs}")
+    print(f"[mesh] clause widths the tile kernels ran on: {seen}; Table III (C=1000) model 4 "
+          f"== unmeshed (card) == plain (CPU, raw) on 13 and 256 images")
+    # In turns with the unmeshed engine (unmeshed, mesh, mesh, unmeshed):
+    # host-clock readings drift within a call.
+    for label, eng in timed.items():
+        turns = {"mesh": [], "none": []}
+        for who in ("none", "mesh", "mesh", "none"):
+            turns[who].append(classify_stats(eng if who == "mesh" else one,
+                                             "boundary/fused", imgs256, img1))
+        (ms, med, _), (ms0, med0, _) = (
+            [statistics.mean(x[i] for x in turns[w]) for i in range(3)] for w in ("mesh", "none"))
+        print(f"[time] classify fused (boundary pool), {label}, shards on one card: bucket 256 "
+              f"{ms:.4f} ms per request (no mesh {ms0:.4f} ms in turns, x{ms / ms0:.2f}); "
+              f"bucket 1 median {med:.1f} us (no mesh {med0:.1f} us, x{med / med0:.2f}); turns "
+              f"{[f'{x[0]:.4f} ms {x[1]:.1f} us' for x in turns['mesh']]} and "
+              f"{[f'{x[0]:.4f} ms {x[1]:.1f} us' for x in turns['none']]} | {card}")
+    return totals
+
+
+async def _mesh_service_load(service, requests, burst):
+    """Sequential requests (each a microbatch of its own), then a burst of
+    single images; returns (shards after each sequential request, results,
+    burst results, hung)."""
+    import asyncio
+
+    await service.start()
+    shards, results = [], []
+    for r in requests:
+        results.append(await asyncio.wait_for(service.submit("svc", r), 60))
+        shards.append(service.engine.data_shards)
+    futs = [asyncio.ensure_future(service.submit("svc", b)) for b in burst]
+    done, pending = await asyncio.wait(futs, timeout=60)
+    await service.stop(drain=True)
+    return shards, results, [f.result() for f in futs if f in done], len(pending)
+
+
+def mesh_service_and_tuning(cfg, method, pools, registry, dev, card) -> dict:
+    """[mesh] part 2: ``ServingService`` over a data-4 engine on cuda:0
+    repeated whose FaultPlan loses a device at the first two microbatches:
+    the mesh shrinks 4 -> 2 -> 1, every result equals the unmeshed
+    engine's classify of the same version, nothing hangs.  ``--mesh 2``
+    is refused on a one-card machine.  Then one tuned registration on a
+    data-2 mesh (``autotune=True``): its plan holds default parameters
+    only, and it equals the unmeshed engine.  Returns the launch counts."""
+    import asyncio
+
+    import numpy as np
+
+    import torch
+
+    from repro_torch.launch.serve import parse_serve_mesh
+    from repro_torch.serve.engine import ServingEngine
+    from repro_torch.serve.faults import FaultPlan
+    from repro_torch.serve.service import ServiceConfig, ServingService
+
+    one = ServingEngine(max_batch=256)
+    one.register("svc", pools["few40"], cfg, booleanize_method=method, path="fused")
+    plan = FaultPlan(device_loss_at=(1, 2))
+    eng = _mesh_engine(dev, 4, 1, False)
+    eng.register("svc", pools["few40"], cfg, booleanize_method=method, path="fused")
+    rng = np.random.default_rng(SEED + 20)
+    seq = [rng.integers(0, 256, (n, 28, 28), dtype=np.uint8) for n in (13, 7, 256)]
+    burst = list(rng.integers(0, 256, (64, 1, 28, 28), dtype=np.uint8))
+    service = ServingService(eng, ServiceConfig(max_delay_us=200.0), faults=plan)
+    registry.reset_launches()
+    shards, results, burst_res, hung = asyncio.run(_mesh_service_load(service, seq, burst))
+    launches = registry.launch_counts()
+    check(hung == 0 and len(burst_res) == len(burst), f"[mesh] service: {hung} hung")
+    check(shards == [2, 1, 1] and eng.stats("svc").data_shards == 1
+          and service.health().device_losses == 2,
+          f"[mesh] service: data shards {shards}, losses {service.health().device_losses}")
+    for r, res in zip(seq + burst, results + burst_res):
+        check(same_result(res, one.classify("svc", r)) and res.version == 1,
+              "[mesh] service result differs from the unmeshed classify of its version")
+    print(f"[mesh] service over a data-4 mesh of cuda:0 with two injected device losses: "
+          f"data shards after each request {shards} (4 -> 2 -> 1), {len(seq)} requests and "
+          f"a burst of {len(burst)} single images == the unmeshed classify, hung {hung}, "
+          f"device losses {service.health().device_losses} | {card}")
+
+    # --mesh 2 takes two distinct cards: on a one-card machine the
+    # launcher refuses with the explicit-mesh hint, as the reference does.
+    if dev.type == "cuda" and torch.cuda.device_count() == 1:
+        try:
+            parse_serve_mesh("2")
+            refused = None
+        except ValueError as e:
+            refused = str(e)
+        check(refused is not None and "DeviceMesh" in refused,
+              "--mesh 2 on a one-card machine was not refused with the hint")
+        print(f"[mesh] --mesh 2 on this one-card machine: refused ({refused})")
+
+    tuned = _mesh_engine(dev, 2, 1, False, autotune=True)
+    tuned.register("svc", pools["few40"], cfg, booleanize_method=method, path="fused")
+    t = time.perf_counter()
+    tuned.warmup("svc", buckets=[2, 256])
+    warm_s = time.perf_counter() - t
+    entries = tuned.servable("svc").tuned.entries
+    check(len(entries) == 4 and all(p == () for _, _, _, p in entries),
+          f"[mesh] tuned meshed plan {entries}")
+    for r in seq:
+        for ingress in ("device", "host"):
+            check(same_result(tuned.classify("svc", r, ingress=ingress),
+                              one.classify("svc", r, ingress=ingress)),
+                  "[mesh] tuned data-2 engine differs from the unmeshed engine")
+    after = registry.launch_counts()
+    print(f"[mesh] tuned data-2 registration (autotune=True, warmup {warm_s:.3f} s): plan "
+          f"{[list(e) for e in entries]}; == unmeshed on {[len(r) for r in seq]} images, "
+          f"raw and host")
+    print(f"[engine] launches during the meshed service and tuned drives: {after}")
+    return after
+
+
+def mesh_training(dev, card) -> None:
+    """[mesh] part 3: TrainerEngine data-parallel on data 2 and data 4
+    (cuda:0 repeated), batch 100, one epoch of 4,000 glyphs from the same
+    draws (the card's generator, same seed) and the same initial model:
+    TA state and weights equal the unmeshed card run's."""
+    import torch
+
+    from repro_torch.configs.convcotm import COTM_CONFIGS
+    from repro_torch.data import PipelineState, synthetic_glyphs
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.train.tm_engine import TrainerEngine
+
+    cfg = COTM_CONFIGS["convcotm-mnist"]
+    tx, ty, _, _ = synthetic_glyphs(n_train=4000, n_test=0, seed=SEED + 21)
+    out = {}
+    for data in (1, 2, 4):
+        mesh = None if data == 1 else make_test_mesh(data, 1, device=dev)
+        trainer = TrainerEngine(cfg, batch_size=100, mesh=mesh, device=dev)
+        ds = trainer.prepare(tx, ty)
+        model = trainer.init_model(torch.Generator().manual_seed(SEED))
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        _, model, _, n = trainer.run_epoch(trainer.draws_generator(SEED + 22), model, ds,
+                                           PipelineState(seed=SEED))
+        torch.cuda.synchronize()
+        out[data] = (model, n, time.perf_counter() - t)
+    base = out[1][0]
+    check(bool((base.ta_state != 127).any()), "[mesh] training moved no TA state")
+    for data in (2, 4):
+        m = out[data][0]
+        check(torch.equal(m.ta_state, base.ta_state) and torch.equal(m.weights, base.weights),
+              f"[mesh] data-{data} trainer differs from the unmeshed one")
+    print(f"[mesh] trainer data 2 and data 4 (cuda:0 repeated), 1 epoch of 4,000 glyphs at "
+          f"batch 100 from the same draws: ta_state and weights == unmeshed; epoch seconds "
+          f"{ {k: round(v[2], 4) for k, v in out.items()} } ({out[1][1]} samples each) | "
+          f"{card}")
 
 
 def main() -> int:
@@ -1494,8 +1818,29 @@ def main() -> int:
     autotune_lifecycle(cfg, method, {"few": few_model}, tuned, trained, card)
     roofline_lines(cfg, tuned, requests[3], requests[0], ops_per_s, card)
 
-    # --- 4. times at bucket 256 ----------------------------------------------
+    # --- 3f. the device mesh: cuda:0 repeated -----------------------------
     phase_s["3e autotune and roofline"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
+    # The unmeshed fused kernel (B=256, boundary pool) on the same inputs
+    # just before and just after the mesh phase: whether the phase moves
+    # phase 4's kernel times.
+    g_probe = torch.Generator(device=dev).manual_seed(SEED + 23)
+    probe_lits = ops.ingress_pack(
+        (torch.rand((256, 28, 28), generator=g_probe, device=dev) < 0.3).to(torch.uint8),
+        cfg.patch)
+    sv = placed["boundary", "kernel"]
+    probe = lambda: ops.fused_infer(probe_lits, sv.include_packed, sv.nonempty,  # noqa: E731
+                                    sv.weights)
+    before_mesh = time_ms(probe, inner=20)[0]
+    launches_mesh = mesh_serving(cfg, method, pools, cpu, registry, dev, card)
+    launches_mesh_svc = mesh_service_and_tuning(cfg, method, pools, registry, dev, card)
+    mesh_training(dev, card)
+    after_mesh = time_ms(probe, inner=20)[0]
+    print(f"[time] fused_infer B=256 boundary pool around the [mesh] phase (same inputs): "
+          f"before {before_mesh:.5f} ms, after {after_mesh:.5f} ms | {card}")
+
+    # --- 4. times at bucket 256 ----------------------------------------------
+    phase_s["3f mesh"] = time.perf_counter() - t_phase
     t_phase = time.perf_counter()
     b = 256
     spec = cfg.patch
@@ -1634,8 +1979,9 @@ def main() -> int:
         # no path calls, from its own window.
         adaptive_trained = launches_adaptive[name] + launches_trained[name]
         service = launches_storm[name] + launches_chaos[name] + launches_round[name]
+        mesh = launches_mesh[name] + launches_mesh_svc[name]
         main_path = (launches[name] + launches2[name] + adaptive_trained + service
-                     + launches_autotune[name])
+                     + launches_autotune[name] + mesh)
         count = launches3[name] if name == "class_sum" else main_path
         k = registry.KERNELS[name]
         rows.append({
@@ -1655,6 +2001,9 @@ def main() -> int:
             # Of those, the launches of the tuned drive (the autotuner's
             # sweep at every block_c/csrf set, then the tuned classifies).
             "autotune_launches": launches_autotune[name],
+            # Of those, the launches of the mesh drives (the six meshes and
+            # Table III's, the meshed service and the tuned meshed engine).
+            "mesh_launches": mesh,
             # ms at each block_c (fused_infer, clause_eval; else null).
             "block_c_ms": block_c_ms,
             # torch._int_mm on the same bits (class sums; null where it

@@ -15,7 +15,10 @@ microbatching, deadlines, quarantine, the circuit breaker), its hot swap
 and rollback, the train -> shadow -> promote lifecycle
 (``launch/lifecycle.py``), the per-bucket autotuner over the eval paths and
 the CUDA kernels' parameters (``serve/autotune.py``), and the ConvCoTM
-roofline model with the H100's ceilings (``roofline/``).
+roofline model with the H100's ceilings (``roofline/``).  The engine and
+the trainer run across a device mesh (``launch/mesh.py``,
+``serve/mesh.py``, ``distributed/``): one process drives every shard,
+replicated or clause-sharded, with exact int32 reductions between shards.
 
 Entry points run on the CUDA card unless the caller passes
 ``device="cpu"`` (see :func:`resolve_device`); with no device given and
@@ -28,8 +31,13 @@ import torch
 
 __all__ = [
     "AutotuneReport",
+    "DeviceMesh",
+    "ServeMesh",
     "TunedPlan",
     "autotune_servable",
+    "make_serve_device_mesh",
+    "make_serve_mesh",
+    "make_test_mesh",
     "resolve_device",
     "tm_path_roofline",
     "tm_serve_costs",
@@ -54,9 +62,15 @@ def resolve_device(device=None) -> torch.device:
 
 
 # Below resolve_device: the modules these import take it from this package.
+from repro_torch.launch.mesh import (  # noqa: E402
+    DeviceMesh,
+    make_serve_device_mesh,
+    make_test_mesh,
+)
 from repro_torch.roofline import tm_path_roofline, tm_serve_costs  # noqa: E402
 from repro_torch.serve.autotune import (  # noqa: E402
     AutotuneReport,
     TunedPlan,
     autotune_servable,
 )
+from repro_torch.serve.mesh import ServeMesh, make_serve_mesh  # noqa: E402

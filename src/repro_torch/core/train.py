@@ -27,7 +27,11 @@ the port bit for bit against the reference.  Every comparison is
 
 Two application modes: ``batch`` sums the per-sample deltas in int32 and
 applies them once; ``scan`` applies each sample in turn (exact TMU
-semantics).  ``config.train_eval`` picks the per-patch clause outputs:
+semantics).  Batch mode is data-parallel over a device mesh: each data
+shard computes its rows' deltas on its device, and
+:func:`~repro_torch.distributed.collectives.tree_psum_batch` sums them
+exactly, so the update equals the unmeshed one bit for bit.
+``config.train_eval`` picks the per-patch clause outputs:
 ``matmul`` (float32 violation counts) or ``dense`` (the broadcast); both
 give the same bits.
 """
@@ -43,6 +47,7 @@ from torch.profiler import record_function
 from repro_torch.core import clauses as cl
 from repro_torch.core.cotm import TA_HALF, WEIGHT_MAX, WEIGHT_MIN, CoTMConfig, CoTMModel
 from repro_torch.core.patches import extract_patch_features, make_literals
+from repro_torch.distributed.collectives import tree_psum_batch
 
 __all__ = [
     "TrainDraws",
@@ -235,14 +240,33 @@ def _step_literals(
     labels: torch.Tensor,
     config: CoTMConfig,
     mode: str,
+    mesh=None,
+    data_axis: str = "data",
 ) -> CoTMModel:
-    """One training step over a batch of literals."""
+    """One training step over a batch of literals.  With a ``mesh``
+    (:class:`~repro_torch.launch.mesh.DeviceMesh`, batch mode), the
+    batch's rows, labels and draws are split over the devices along
+    ``data_axis``; each shard computes its deltas on its device with a
+    copy of the model there, the int32 sums meet in
+    :func:`~repro_torch.distributed.collectives.tree_psum_batch`, and the
+    update runs on the model's device."""
     if mode == "batch":
-        ta_d, w_d = sample_deltas_literals(draws, model, lits, labels, config)
+        if mesh is None:
+            ta_d, w_d = sample_deltas_literals(draws, model, lits, labels, config)
+            with record_function("train.apply"):
+                return _apply(model, ta_d.sum(dim=0, dtype=torch.int32),
+                              w_d.sum(dim=0, dtype=torch.int32))
+        deltas = _shard_deltas(draws, model, lits, labels, config, mesh.along(data_axis))
         with record_function("train.apply"):
-            return _apply(model, ta_d.sum(dim=0, dtype=torch.int32),
-                          w_d.sum(dim=0, dtype=torch.int32))
+            ta_sum, w_sum = tree_psum_batch(deltas, mesh=mesh, axis=data_axis)
+            return _apply(model, ta_sum.to(model.ta_state.device),
+                          w_sum.to(model.weights.device))
     if mode == "scan":
+        if mesh is not None:
+            raise ValueError(
+                "mode='scan' is strictly sequential (exact TMU semantics) and cannot be "
+                "data-parallel; use mode='batch' with a mesh"
+            )
         for i in range(lits.shape[0]):
             ta_d, w_d = sample_deltas_literals(draws[i], model, lits[i : i + 1],
                                                labels[i : i + 1], config)
@@ -250,6 +274,28 @@ def _step_literals(
                 model = _apply(model, ta_d[0], w_d[0])
         return model
     raise ValueError(f"unknown mode: {mode}")
+
+
+def _shard_deltas(draws, model, lits, labels, config, devices):
+    """Per-shard (TA, weight) deltas as lists of row blocks, one per device
+    of ``devices``, each computed on its device (the int8 TA deltas are
+    summed in int32 by the reduction)."""
+    b, n = lits.shape[0], len(devices)
+    if b % n:
+        raise ValueError(f"batch {b} does not divide over {n} data shards")
+    k = b // n
+    replicas = {}
+    ta_blocks, w_blocks = [], []
+    for i, dev in enumerate(devices):
+        if dev not in replicas:
+            replicas[dev] = CoTMModel(ta_state=model.ta_state.to(dev),
+                                      weights=model.weights.to(dev))
+        rows = slice(i * k, (i + 1) * k)
+        ta_d, w_d = sample_deltas_literals(draws[rows].to(dev), replicas[dev],
+                                           lits[rows].to(dev), labels[rows].to(dev), config)
+        ta_blocks.append(ta_d)
+        w_blocks.append(w_d)
+    return ta_blocks, w_blocks
 
 
 def update_batch_literals(

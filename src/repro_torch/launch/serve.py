@@ -5,6 +5,16 @@
         --requests 32 --max-batch 256 [--eval-path fused_sparse] \
         [--ingress host] [--ckpt-dir DIR] [--autotune] [--device cpu]
 
+``--mesh DATA[xMODEL]`` (with ``--shard batch|clause``) serves across a
+device mesh (``repro_torch.serve.mesh``): request buckets split over the
+"data" axis, optionally the clause pool over "model".  The mesh takes the
+first DATA*MODEL CUDA cards, each once, and refuses to start on a machine
+with fewer; with ``--device cpu`` (or ``--device cuda:0``) it is that one
+device repeated, which runs every meshed code path on one device:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch convcotm-mnist \
+        --mesh 2x2 --device cpu --requests 16
+
 ``--service`` runs the same model behind the asyncio ``ServingService``
 (bounded queue, latency-aware microbatching, graceful drain) under an
 open-loop Poisson arrival stream of single-image requests:
@@ -38,20 +48,51 @@ from repro_torch.data import get_dataset
 from repro_torch.serve.engine import ServingEngine
 from repro_torch.serve.paths import available_paths
 
-__all__ = ["serve_tm", "serve_tm_service"]
+__all__ = ["parse_serve_mesh", "serve_tm", "serve_tm_service"]
+
+
+def parse_serve_mesh(spec: str | None, shard: str = "batch", device=None):
+    """``--mesh`` / ``--shard`` -> :class:`~repro_torch.serve.mesh.ServeMesh`.
+
+    ``spec`` is ``"DATA"`` or ``"DATAxMODEL"`` (``8``, ``4x2``); a bare count
+    lands on the axis ``shard`` selects: ``batch`` (the data axis) or
+    ``clause`` (the model axis, clause-sharded evaluation).  ``None`` means
+    one device, no mesh.  Without ``device`` the mesh takes distinct CUDA
+    cards (:func:`~repro_torch.serve.mesh.make_serve_mesh`, which refuses
+    too few); with one, that device repeated."""
+    if spec is None:
+        return None
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.serve.mesh import ServeMesh, make_serve_mesh
+
+    if "x" in spec:
+        data, model = (int(p) for p in spec.split("x", 1))
+    elif shard == "clause":
+        data, model = 1, int(spec)
+    else:
+        data, model = int(spec), 1
+    shard_clauses = shard == "clause" or model > 1
+    if device is None:
+        return make_serve_mesh(data, model, shard_clauses=shard_clauses)
+    return ServeMesh(make_test_mesh(data, model, device=device), shard_clauses=shard_clauses)
 
 
 def _tm_engine(arch: str, *, max_batch: int, eval_path: str | None, ckpt_dir: str | None,
-               seed: int, device, autotune: bool = False):
+               seed: int, device, autotune: bool = False, mesh=None):
     """The engine with ``arch`` registered (restored from ``ckpt_dir``, or a
-    seeded boundary model; armed for the autotuner with ``autotune``) and
-    the test split requests are drawn from; returns
-    ``(engine, vx, vy, source)``."""
+    seeded boundary model; armed for the autotuner with ``autotune``;
+    served across ``mesh``, a ServeMesh, when given) and the test split
+    requests are drawn from; returns ``(engine, vx, vy, source)``."""
     cfg = COTM_CONFIGS[arch]
     method = BOOLEANIZE_METHOD[arch]
     dataset = arch.split("-", 1)[1]               # convcotm-mnist -> mnist
     _, _, vx, vy, source = get_dataset(dataset, n_test=1024)
-    engine = ServingEngine(max_batch=max_batch, device=device, autotune=autotune)
+    engine = ServingEngine(max_batch=max_batch, mesh=mesh,
+                           device=None if mesh is not None else device, autotune=autotune)
+    if mesh is not None:
+        print(f'{arch}: serving on a {mesh.n_data}x{mesh.n_model} ("data","model") mesh '
+              f"({'clause-sharded' if mesh.shard_clauses else 'replicated'}) of "
+              f"{[str(d) for d in mesh.mesh.flat]}")
     if ckpt_dir is not None:
         engine.load_checkpoint(arch, ckpt_dir, cfg, booleanize_method=method, path=eval_path)
         print(f"{arch}: restored model from {ckpt_dir}")
@@ -78,14 +119,16 @@ def serve_tm(
     ingress: str = "device",
     device=None,
     autotune: bool = False,
+    mesh=None,
 ) -> dict:
     """Warm every bucket (tuning first with ``autotune``), then serve
     ``n_requests`` requests of 1..max_batch test images through
-    ``classify`` (``ingress='host'`` replays the host pipeline); returns
-    the engine's statistics."""
+    ``classify`` (``ingress='host'`` replays the host pipeline), across
+    ``mesh`` (a ServeMesh, see :func:`parse_serve_mesh`) when given;
+    returns the engine's statistics."""
     engine, vx, vy, source = _tm_engine(arch, max_batch=max_batch, eval_path=eval_path,
                                         ckpt_dir=ckpt_dir, seed=seed, device=device,
-                                        autotune=autotune)
+                                        autotune=autotune, mesh=mesh)
     warmed = engine.warmup(arch)
     print(f"{arch}: on {engine.device} ({engine.resolved_path(arch)} path); warmed "
           f"buckets {list(warmed)}")
@@ -129,6 +172,7 @@ async def serve_tm_service(
     abandon_frac: float = 0.0,
     device=None,
     autotune: bool = False,
+    mesh=None,
 ) -> dict:
     """Drive the async ``ServingService`` with open-loop Poisson arrivals
     of single-image requests at ``rate`` req/s, then drain gracefully;
@@ -140,7 +184,8 @@ async def serve_tm_service(
     per-request host ingress).  ``deadline_s`` stamps every request,
     ``malformed_frac`` corrupts that fraction of submissions (refused at
     validation) and ``abandon_frac`` models clients that stop waiting;
-    every admitted future still resolves.  ``autotune`` tunes at warmup.
+    every admitted future still resolves.  ``autotune`` tunes at warmup;
+    ``mesh`` (a ServeMesh) serves across a device mesh.
     """
     from repro_torch.serve.loadgen import poisson_open_loop
     from repro_torch.serve.service import ServiceConfig, ServingService
@@ -149,7 +194,7 @@ async def serve_tm_service(
         raise ValueError(f"unknown submit_form {submit_form!r}")
     engine, vx, vy, source = _tm_engine(arch, max_batch=max_batch, eval_path=eval_path,
                                         ckpt_dir=ckpt_dir, seed=seed, device=device,
-                                        autotune=autotune)
+                                        autotune=autotune, mesh=mesh)
     engine.warmup(arch)
     if autotune:
         _print_autotune(engine, arch)
@@ -217,6 +262,13 @@ def main(argv=None) -> None:
     ap.add_argument("--autotune", action="store_true",
                     help="measure the eval-path candidates per form and bucket at "
                          "warmup and serve each bucket from its winner")
+    ap.add_argument("--mesh", default=None, metavar="DATA[xMODEL]",
+                    help="serve across a device mesh, e.g. 4 (data-parallel) or 2x2 "
+                         "(batch over 2, clauses over 2); needs DATA*MODEL CUDA cards, "
+                         "or with --device one device repeated")
+    ap.add_argument("--shard", default="batch", choices=["batch", "clause"],
+                    help="which axis a bare --mesh count shards: request batches over "
+                         "\"data\" or the clause pool over \"model\"")
     ap.add_argument("--service", action="store_true",
                     help="serve through the asyncio ServingService")
     ap.add_argument("--rate", type=float, default=2000.0,
@@ -239,7 +291,8 @@ def main(argv=None) -> None:
     args = ap.parse_args(argv)
     common = dict(max_batch=args.max_batch, eval_path=args.eval_path,
                   ckpt_dir=args.ckpt_dir, seed=args.seed, device=args.device,
-                  autotune=args.autotune)
+                  autotune=args.autotune,
+                  mesh=parse_serve_mesh(args.mesh, args.shard, args.device))
     if args.service:
         stats = asyncio.run(serve_tm_service(
             args.arch, n_requests=args.requests, rate=args.rate,

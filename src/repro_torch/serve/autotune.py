@@ -31,14 +31,16 @@ Differences from the reference:
     (``block_c``, ``csrf``; see ``serve/paths.py``) are swept only where
     the CUDA kernels run, that is when the servable lies on a CUDA
     device.  On the CPU only ``()`` competes, as on the reference's CPU
-    backend.
+    backend.  On a mesh only ``()`` competes either way, as in the
+    reference: ``smesh`` measures through the meshed step the engine
+    dispatches (``serve/mesh.py``), and the clause-sharded step takes no
+    parameters.
   * **How a candidate is timed.** ``torch.cuda.synchronize(device)``
     around each call on the card, in place of ``jax.block_until_ready``;
     the best of ``repeats`` after one untimed warm call.
-  * **The memo key** holds the device type, the device name and
-    ``sparsity.n_active``, in place of the JAX backend and the mesh.
-  * **No mesh.** There is no ``smesh`` parameter: the engine serves one
-    card.
+  * **The memo key** holds the device type, the device name, the
+    ``ServeMesh`` (None unmeshed) and ``sparsity.n_active``, in place of
+    the JAX backend.
   * **Foreign plans.** A plan measured on another device cannot be
     applied here; :func:`plan_applies` says whether a plan names only
     registered paths and their own parameter sets, and the checkpointer
@@ -209,42 +211,50 @@ def _sweeps_params(device: torch.device) -> bool:
     return device.type == "cuda"
 
 
-def _sync(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+def _sync(devices: Sequence[torch.device]) -> None:
+    for device in devices:
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
 
 
-def _time_candidate(step, device: torch.device, *, repeats: int) -> float:
+def _time_candidate(step, devices: Sequence[torch.device], *, repeats: int) -> float:
     """Best of ``repeats`` seconds per call, after one untimed warm call;
-    the card is synchronised before and after each timed call."""
+    the cards are synchronised before and after each timed call."""
     step()
     best = float("inf")
     for _ in range(repeats):
-        _sync(device)
+        _sync(devices)
         t0 = time.perf_counter()
         step()
-        _sync(device)
+        _sync(devices)
         best = min(best, time.perf_counter() - t0)
     return best
 
 
 def _measure(servable: ServableModel, name: str, params: Params, form: str, bucket: int,
-             ingress: IngressSpec, *, repeats: int) -> float:
+             ingress: IngressSpec, *, repeats: int, smesh=None) -> float:
     """Seconds per engine classify step of one candidate on zero inputs of
-    the bucket's shape, on the servable's device."""
+    the bucket's shape, on the servable's device, or through the meshed
+    step on ``smesh``."""
     # The engine's steps, imported here: the engine imports this module.
     from repro_torch.serve.engine import classify_raw_step, classify_step
+    from repro_torch.serve.mesh import classify_step_meshed
 
     device = servable.include_packed.device
     arr = _zero_input(servable, sp.get_path(name), form, bucket, ingress)
     if arr.dtype == np.uint32:
         arr = arr.view(np.int32)               # packed words: same bits
+    if smesh is not None:
+        xs = smesh.place_batch(arr)
+        raw = ingress if form == "raw" else None
+        step = lambda: classify_step_meshed(servable, xs, smesh, name, raw, params)  # noqa: E731
+        return _time_candidate(step, smesh.distinct_devices, repeats=repeats)
     x = torch.from_numpy(arr).to(device)
     if form == "raw":
         step = lambda: classify_raw_step(servable, x, name, ingress, params)  # noqa: E731
     else:
         step = lambda: classify_step(servable, x, name, params)  # noqa: E731
-    return _time_candidate(step, device, repeats=repeats)
+    return _time_candidate(step, (device,), repeats=repeats)
 
 
 def autotune_servable(
@@ -256,10 +266,15 @@ def autotune_servable(
     *,
     repeats: int = 3,
     max_seconds: Optional[float] = None,
+    smesh=None,
 ) -> Tuple[TunedPlan, AutotuneReport]:
     """Time every admissible candidate per (form, bucket) on the servable's
     device; return the winning :class:`TunedPlan` and the full
     :class:`AutotuneReport`.
+
+    ``smesh`` (a :class:`~repro_torch.serve.mesh.ServeMesh`, on which the
+    servable is placed) measures through the meshed step the engine will
+    dispatch, at default parameters only.
 
     ``max_seconds`` bounds the wall clock: once exceeded, the remaining
     candidates of a cell are skipped (the best so far wins; the report
@@ -267,7 +282,7 @@ def autotune_servable(
     build or launch error is raised, never taken as a lost candidate.
     """
     device = servable.include_packed.device
-    sweep = _sweeps_params(device)
+    sweep = _sweeps_params(device) and smesh is None
     registered = sp.get_path(path_name)
     sparsity_key = None if servable.sparsity is None else servable.sparsity.n_active
     plan = servable.tuned or TunedPlan()
@@ -287,11 +302,11 @@ def autotune_servable(
                 if budget_hit and timed:
                     skipped.append(name)
                     continue
-                memo_key = (servable.config, device.type, device_name(device), sparsity_key,
-                            form, bucket, name, params)
+                memo_key = (servable.config, device.type, device_name(device), smesh,
+                            sparsity_key, form, bucket, name, params)
                 if memo_key not in _MEASURE_MEMO:
                     _MEASURE_MEMO[memo_key] = _measure(servable, name, params, form, bucket,
-                                                       ingress, repeats=repeats)
+                                                       ingress, repeats=repeats, smesh=smesh)
                 timed.append((_MEASURE_MEMO[memo_key], name, params))
             if not timed:
                 continue

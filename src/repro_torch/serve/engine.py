@@ -50,7 +50,18 @@ runs its bucket's winner (:meth:`_Entry.resolve`).  The sweep runs
 outside the engine lock, so a running service is not stalled for its
 length; the plan is installed under the lock.  The plan rides on the
 register image (``servable(name).tuned``), through swaps, rollbacks and
-checkpoints.  There is no mesh: the engine serves one card.
+checkpoints.
+
+Meshes, as in the reference (``serve/mesh.py``): an engine built with a
+:class:`~repro_torch.serve.mesh.ServeMesh` (or a bare
+:class:`~repro_torch.launch.mesh.DeviceMesh`, placed replicated) places
+every registered image on the mesh, replicated or clause-sharded, and
+splits every bucket over the mesh's data axis.  The shards are launched
+on their devices one after the other, none waited on, and their results
+land in their rows of one pinned host buffer; the handle's ``result()``
+waits on one CUDA event per distinct device.  Buckets are clamped from
+below to the data-axis size.  :meth:`ServingEngine.shrink_mesh` halves the
+data axis after a device loss and re-places every image.
 """
 
 from __future__ import annotations
@@ -71,7 +82,9 @@ from repro_torch.core import clauses as cl
 from repro_torch.core.cotm import CoTMConfig, CoTMModel
 from repro_torch.core.ingress import IngressSpec, raw_trailing_shape
 from repro_torch.data.pipeline import preprocess_for_serving
+from repro_torch.launch.mesh import DeviceMesh
 from repro_torch.serve.autotune import TunedPlan, autotune_servable
+from repro_torch.serve.mesh import ServeMesh, classify_step_meshed
 from repro_torch.serve.paths import (
     PACKED,
     Params,
@@ -121,10 +134,13 @@ class ClassifyResult:
 
 @dataclasses.dataclass
 class ServeStats:
-    """Running per-model accounting.  ``devices`` and ``data_shards`` are 1
-    (one card); ``autotune`` holds the last tuning pass (``rows``,
-    ``total_s``, ``plan``; empty when the model was not tuned here);
-    ``fallback_path`` and ``degrade_steps`` record the degradation chain."""
+    """Running per-model accounting.  ``devices`` is the mesh size the
+    model serves on (1 unmeshed) and ``data_shards`` its batch shards;
+    buckets are global batch sizes, and on a mesh each data shard runs
+    ``bucket // data_shards`` rows (:attr:`per_device_bucket_hits`).
+    ``autotune`` holds the last tuning pass (``rows``, ``total_s``,
+    ``plan``; empty when the model was not tuned here); ``fallback_path``
+    and ``degrade_steps`` record the degradation chain."""
 
     requests: int = 0
     images: int = 0
@@ -233,21 +249,25 @@ def classify_raw_step(servable: ServableModel, raw: torch.Tensor, path_name: str
 class InFlightClassify:
     """A dispatched request whose device work may still be running.
 
-    ``result()`` waits for the device, slices off the bucket padding,
+    ``result()`` waits for the devices, slices off the bucket padding,
     records the request's stats and returns the :class:`ClassifyResult`;
     it is idempotent.  Until then it holds the register image it was
     dispatched on, so a swap cannot free tensors that queued kernels read.
+    ``done`` holds one CUDA event per distinct card the request ran on
+    (empty on the CPU, where the work is complete at dispatch): on a mesh
+    of several cards one event would not say that another card's rows have
+    reached the host buffer.
     """
 
     def __init__(self, entry: _Entry, parts, n: int, t0: float, t_dispatch: float,
-                 done: Optional[torch.cuda.Event], version: int = 0,
+                 done: Tuple[torch.cuda.Event, ...] = (), version: int = 0,
                  servable: Optional[ServableModel] = None):
         self._entry = entry
         self._parts = parts            # [(host int32 [bucket, 1 + m], n_i, bucket)]
         self._n = n
         self._t0 = t0
         self._t_dispatch = t_dispatch
-        self._done = done              # None on the CPU: already complete
+        self._done = done
         # Version id captured under the engine lock at dispatch.
         self.version = version
         self._servable = servable
@@ -256,8 +276,8 @@ class InFlightClassify:
     def result(self) -> ClassifyResult:
         if self._result is not None:
             return self._result
-        if self._done is not None:
-            self._done.synchronize()
+        for event in self._done:
+            event.synchronize()
         self._servable = None
         t2 = time.perf_counter()
         out = np.concatenate([h.numpy()[:ni] for h, ni, _ in self._parts])
@@ -282,25 +302,47 @@ class InFlightClassify:
 
 
 class ServingEngine:
-    """Multi-model batched classification on one device.
+    """Multi-model batched classification on one device or a device mesh.
 
     ``device``: where the register images live and the classify steps run;
     by default the current CUDA card, and with no card a ``RuntimeError``
     (pass ``device="cpu"`` to run the plain versions on the CPU).
-    ``faults``: an optional :class:`~repro_torch.serve.faults.FaultPlan`
-    whose ``on_engine_dispatch`` runs at the top of every dispatch (chaos
-    tests).  ``autotune`` arms every registration for the autotuner by
-    default; ``autotune_repeats`` and ``autotune_max_seconds`` are its
-    timing repeats and wall-clock budget.  There is no ``mesh``: the engine
-    serves on one device.
+    ``mesh`` (a :class:`~repro_torch.serve.mesh.ServeMesh`, or a bare
+    :class:`~repro_torch.launch.mesh.DeviceMesh` taken as a replicated
+    ServeMesh) serves every model across the mesh (see ``serve/mesh.py``);
+    ``device`` is then the mesh's first device.  The data-axis size must be
+    a power of two <= ``max_batch``, so every power-of-two bucket splits
+    evenly.  ``faults``: an optional
+    :class:`~repro_torch.serve.faults.FaultPlan` whose ``on_engine_dispatch``
+    runs at the top of every dispatch (chaos tests).  ``autotune`` arms
+    every registration for the autotuner by default; ``autotune_repeats``
+    and ``autotune_max_seconds`` are its timing repeats and wall-clock
+    budget.
     """
 
-    def __init__(self, max_batch: int = 256, *, device=None, faults=None,
+    def __init__(self, max_batch: int = 256, *, mesh=None, device=None, faults=None,
                  autotune: bool = False, autotune_repeats: int = 3,
                  autotune_max_seconds: Optional[float] = None):
         if max_batch < 1:
             raise ValueError("max_batch must be >= 1")
+        if isinstance(mesh, DeviceMesh):
+            mesh = ServeMesh(mesh)
+        if mesh is not None:
+            if not isinstance(mesh, ServeMesh):
+                raise TypeError(f"mesh must be a ServeMesh or a DeviceMesh; got "
+                                f"{type(mesh).__name__}")
+            nd = mesh.n_data
+            if nd & (nd - 1):
+                raise ValueError(f'"data" axis size {nd} must be a power of two so pow2 '
+                                 f"buckets split evenly")
+            if nd > max_batch:
+                raise ValueError(f'"data" axis size {nd} exceeds max_batch={max_batch}')
+            if device is not None and resolve_device(device) != mesh.first_device:
+                raise ValueError(f"device {device} is not the mesh's first device "
+                                 f"{mesh.first_device}")
+            device = mesh.first_device
         self.max_batch = max_batch
+        self.mesh: Optional[ServeMesh] = mesh
         self.device = resolve_device(device)
         self.faults = faults
         self.autotune_default = autotune
@@ -315,13 +357,24 @@ class ServingEngine:
 
     @property
     def devices(self) -> int:
-        """Devices the engine serves on (one card)."""
-        return 1
+        """Mesh size (1 for the single-device engine)."""
+        return 1 if self.mesh is None else self.mesh.devices
 
     @property
     def data_shards(self) -> int:
-        """Batch shards per dispatched bucket (1: no mesh)."""
-        return 1
+        """Batch shards per dispatched bucket (the "data" axis size)."""
+        return 1 if self.mesh is None else self.mesh.n_data
+
+    def _cards(self) -> Tuple[torch.device, ...]:
+        """The distinct CUDA devices the engine's work runs on."""
+        devs = (self.device,) if self.mesh is None else self.mesh.distinct_devices
+        return tuple(d for d in devs if d.type == "cuda")
+
+    def _place(self, servable: ServableModel) -> ServableModel:
+        """The dispatch image: placed on the mesh, or moved to the device."""
+        if self.mesh is not None:
+            return self.mesh.place_servable(servable)
+        return servable.to(self.device)
 
     # --- registry ---------------------------------------------------------
 
@@ -354,8 +407,9 @@ class ServingEngine:
         tuned: Optional[TunedPlan] = None,
     ) -> ServableModel:
         """Freeze (if needed), attach the sparsity image
-        (:func:`analyze_sparsity`), move to the engine's device once, and
-        register a model under a dataset key.  ``path`` defaults to the
+        (:func:`analyze_sparsity`; not on a clause-sharded mesh), move to
+        the engine's device or place on its mesh once, and register a model
+        under a dataset key.  ``path`` defaults to the
         config's ``eval_path``; ``booleanize_kw`` (``threshold``,
         ``block_size``, ``c``, ``levels``) sets the ingress knobs of both
         request routes.  ``version`` (or the servable's own stamp) gives
@@ -368,7 +422,7 @@ class ServingEngine:
         it was.  The dispatched image carries no stamp; :meth:`servable`
         adds it."""
         if isinstance(model, ServableModel):
-            servable = copy.deepcopy(model)
+            servable = copy.deepcopy(model.replace(placement=None))
         else:
             if config is None:
                 raise ValueError("config required when registering a CoTMModel")
@@ -379,11 +433,14 @@ class ServingEngine:
         ingress = eval_path.ingress_spec(servable.config.patch, method=booleanize_method,
                                          **booleanize_kw)
         source = version if version is not None else servable.version
-        servable = analyze_sparsity(servable)
+        # Sparsity analysis is skipped on clause-sharded meshes: the active
+        # set is not shard-uniform, and placement drops it.
+        if self.mesh is None or not self.mesh.shard_clauses:
+            servable = analyze_sparsity(servable)
         if tuned is not None:
             servable = servable.replace(tuned=tuned)
         stamp = self._stamp(servable, source)
-        servable = servable.replace(version=None).to(self.device)
+        servable = self._place(servable.replace(version=None))
         with self._lock:
             self._servables[name] = _Entry(
                 servable=servable,
@@ -512,7 +569,7 @@ class ServingEngine:
         """
         entry = self._servables[name]
         if isinstance(model, ServableModel):
-            candidate = copy.deepcopy(model)
+            candidate = copy.deepcopy(model.replace(placement=None))
         else:
             if config is None:
                 raise ValueError("config required when swapping in a CoTMModel")
@@ -525,10 +582,12 @@ class ServingEngine:
                 f"geometry change)"
             )
         source = version if version is not None else candidate.version
-        candidate = analyze_sparsity(candidate.replace(sparsity=None), pad_to="pow2")
+        candidate = candidate.replace(sparsity=None)
+        if self.mesh is None or not self.mesh.shard_clauses:
+            candidate = analyze_sparsity(candidate, pad_to="pow2")
         stamp = self._stamp(candidate, source)
         carried = entry.servable.tuned if tuned is None and not retune else tuned
-        candidate = candidate.replace(tuned=carried, version=None).to(self.device)
+        candidate = self._place(candidate.replace(tuned=carried, version=None))
         with self._lock:
             stamp = dataclasses.replace(stamp, version=entry.version.version + 1)
             entry.previous = (entry.servable, entry.version)
@@ -581,18 +640,46 @@ class ServingEngine:
             entry.stats.degrade_steps += 1
             return nxt
 
-    def shrink_mesh(self) -> None:
-        """Nothing to shrink on one card: returns None, as the reference
-        does for an unmeshed engine."""
-        return None
+    def shrink_mesh(self) -> Optional[ServeMesh]:
+        """Re-place every registered image on a shrunk mesh after a device
+        loss on the data axis.
+
+        Halves the batch shards (the model axis is kept: clause shards hold
+        model state, the data axis only request rows) and re-places each
+        entry's image, and the image a swap displaced, with
+        ``ServeMesh.place_servable``: copies of the register image, no
+        re-freeze, no sparsity analysis.  Dispatches already made hold
+        their images and complete on the old mesh; the engine lock makes
+        the cutover atomic, as for :meth:`swap`.  Bucket warmth resets.
+        Returns the new mesh, or None when there is nothing to shrink
+        (unmeshed, or a data axis of 1)."""
+        with self._lock:
+            if self.mesh is None:
+                return None
+            new = self.mesh.shrunk()
+            if new is None:
+                return None
+            self.mesh = new
+            for entry in self._servables.values():
+                entry.servable = new.place_servable(entry.servable)
+                if entry.previous is not None:
+                    prev, stamp = entry.previous
+                    entry.previous = (new.place_servable(prev), stamp)
+                entry.compiled = set()
+                entry.stamped = None
+                entry.stats.devices = new.devices
+                entry.stats.data_shards = new.n_data
+            return new
 
     # --- serving ----------------------------------------------------------
 
     def bucket_for(self, n: int) -> int:
-        """Smallest power of two >= n, clamped to ``max_batch``."""
+        """Smallest power of two >= n, clamped to ``max_batch``, and on a
+        mesh clamped from below to the data-axis size, so every padded
+        bucket splits evenly over the batch shards."""
         if n < 1:
             raise ValueError("empty request")
-        return min(1 << (n - 1).bit_length(), self.max_batch)
+        return max(min(1 << (n - 1).bit_length(), self.max_batch), self.data_shards)
 
     def autotune(self, name: str, buckets=None, *, forms=FORMS,
                  repeats: Optional[int] = None,
@@ -604,7 +691,8 @@ class ServingEngine:
         between takes its nearest tuned neighbour's winner.  The sweep runs
         outside the engine lock, on the image live when it starts; the plan
         is installed under the lock, on that image only (a swap meanwhile
-        keeps its own plan).  The report and the plan land in
+        keeps its own plan).  On a mesh the sweep times the meshed steps
+        at default parameters only.  The report and the plan land in
         ``stats(name).autotune``; the plan also rides on
         ``servable(name).tuned``.
         """
@@ -613,11 +701,15 @@ class ServingEngine:
             buckets = dict.fromkeys((self.bucket_for(1), self.max_batch))
         buckets = [self.bucket_for(int(b)) for b in buckets]
         with self._lock:
+            # The image and the mesh it is placed on, together (a shrink
+            # meanwhile re-places the entry; the plan then is not installed).
             measured, path_name, ingress = entry.servable, entry.path_name, entry.ingress
+            smesh = self.mesh
         plan, report = autotune_servable(
             measured, path_name, ingress, buckets, forms,
             repeats=self.autotune_repeats if repeats is None else repeats,
             max_seconds=self.autotune_max_seconds if max_seconds is None else max_seconds,
+            smesh=smesh,
         )
         with self._lock:
             if entry.servable is measured:
@@ -656,8 +748,8 @@ class ServingEngine:
                     self._submit_bucket(entry, zeros, form=form, record_hit=False)
                 if fresh:
                     warmed.append(b)
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        for card in self._cards():
+            torch.cuda.synchronize(card)
         return tuple(warmed)
 
     def _zero_literals(self, entry: _Entry, b: int) -> np.ndarray:
@@ -678,7 +770,9 @@ class ServingEngine:
         literal-form winner shares), without waiting; returns
         ``(host_out, n, bucket)``, where ``host_out`` is int32
         ``[bucket, 1 + m]`` (predictions, class sums) that is complete once
-        the device has caught up.  Callers hold the engine lock."""
+        the devices have caught up.  On a mesh every data shard is launched
+        before any copy back, and each copies into its own rows of
+        ``host_out``.  Callers hold the engine lock."""
         if arr.dtype == np.uint32:
             arr = arr.view(np.int32)          # packed words: same bits
         n = arr.shape[0]
@@ -689,17 +783,25 @@ class ServingEngine:
         buf = host.numpy()
         buf[:n] = arr
         buf[n:] = 0
-        x = host.to(self.device, non_blocking=True)
         path_name, params = entry.resolve(form, bucket)
-        if form == "raw":
-            out = classify_raw_step(entry.servable, x, path_name, entry.ingress, params)
+        ingress = entry.ingress if form == "raw" else None
+        if self.mesh is not None:
+            outs = classify_step_meshed(entry.servable, self.mesh.place_batch(host), self.mesh,
+                                        path_name, ingress, params)
+        elif ingress is not None:
+            outs = [classify_raw_step(entry.servable, host.to(self.device, non_blocking=True),
+                                      path_name, ingress, params)]
         else:
-            out = classify_step(entry.servable, x, path_name, params)
+            outs = [classify_step(entry.servable, host.to(self.device, non_blocking=True),
+                                  path_name, params)]
         if on_card:
-            host_out = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
-            host_out.copy_(out, non_blocking=True)
+            host_out = torch.empty((bucket, outs[0].shape[1]), dtype=torch.int32,
+                                   pin_memory=True)
+            rows = bucket // len(outs)
+            for d, out in enumerate(outs):
+                host_out[d * rows:(d + 1) * rows].copy_(out, non_blocking=True)
         else:
-            host_out = out
+            host_out = outs[0] if len(outs) == 1 else torch.cat(outs)
         st = entry.stats
         if record_hit:
             st.bucket_hits[bucket] = st.bucket_hits.get(bucket, 0) + 1
@@ -785,11 +887,13 @@ class ServingEngine:
                 self._submit_bucket(entry, arr[i : i + self.max_batch], form=form)
                 for i in range(0, n, self.max_batch)
             ]
-            done = None
-            if self.device.type == "cuda":
-                done = torch.cuda.Event()
-                done.record(torch.cuda.current_stream(self.device))
-        return InFlightClassify(entry, parts, n, t0, t1, done, version=ver, servable=servable)
+            # One event per distinct card, after that card's copies back.
+            done = []
+            for card in self._cards():
+                done.append(torch.cuda.Event())
+                done[-1].record(torch.cuda.current_stream(card))
+        return InFlightClassify(entry, parts, n, t0, t1, tuple(done), version=ver,
+                                servable=servable)
 
     def classify(self, name: str, images, *, preprocessed: bool = False,
                  ingress: str = "device") -> ClassifyResult:

@@ -13,7 +13,9 @@ stamp (:class:`ServableVersion`, the ``version`` attribute), whose
 :func:`servable_digest` is the same string in both packages for the same
 model, and an optional ``tuned`` plan
 (:class:`~repro_torch.serve.autotune.TunedPlan`, the autotuner's winners
-per request form and bucket).
+per request form and bucket).  An image placed on a device mesh carries
+its per-device shards in ``placement``
+(:class:`~repro_torch.serve.mesh.Placement`).
 """
 
 from __future__ import annotations
@@ -29,8 +31,9 @@ from repro_torch.core import clauses as cl
 from repro_torch.core.cotm import WEIGHT_MAX, WEIGHT_MIN, CoTMConfig, CoTMModel
 from repro_torch.core.patches import pack_bits
 
-if TYPE_CHECKING:   # serve/autotune.py imports this module
+if TYPE_CHECKING:   # serve/autotune.py and serve/mesh.py import this module
     from repro_torch.serve.autotune import TunedPlan
+    from repro_torch.serve.mesh import Placement
 
 __all__ = [
     "ClauseSparsity",
@@ -135,8 +138,9 @@ class ServableModel(nn.Module):
 
     and the optional submodule ``sparsity`` (:func:`analyze_sparsity`);
     plain attributes ``config``, ``version`` (a :class:`ServableVersion`
-    or None) and ``tuned`` (a :class:`~repro_torch.serve.autotune.TunedPlan`
-    or None).
+    or None), ``tuned`` (a :class:`~repro_torch.serve.autotune.TunedPlan`
+    or None) and ``placement`` (a :class:`~repro_torch.serve.mesh.Placement`,
+    the image's shards on a mesh, or None).
     """
 
     include: torch.Tensor
@@ -148,7 +152,8 @@ class ServableModel(nn.Module):
     def __init__(self, include, include_packed, nonempty, weights, config: CoTMConfig,
                  sparsity: Optional[ClauseSparsity] = None, *,
                  version: Optional[ServableVersion] = None,
-                 tuned: Optional["TunedPlan"] = None):
+                 tuned: Optional["TunedPlan"] = None,
+                 placement: Optional["Placement"] = None):
         super().__init__()
         self.register_buffer("include", include)
         self.register_buffer("include_packed", include_packed)
@@ -158,19 +163,34 @@ class ServableModel(nn.Module):
         self.config = config
         self.version = version
         self.tuned = tuned
+        self.placement = placement
 
     @property
     def n_clauses(self) -> int:
         return self.include.shape[0]
 
     def replace(self, **changes) -> "ServableModel":
-        """A new image with ``changes`` (``sparsity``, ``version``, ``tuned``)
-        applied, sharing this one's tensors (``dataclasses.replace`` of the
-        reference's frozen dataclass): no copy, no transfer."""
+        """A new image with ``changes`` (``sparsity``, ``version``, ``tuned``,
+        ``placement``) applied, sharing this one's tensors
+        (``dataclasses.replace`` of the reference's frozen dataclass): no
+        copy, no transfer."""
         kw = {"sparsity": self.sparsity, "version": self.version, "tuned": self.tuned,
-              **changes}
+              "placement": self.placement, **changes}
         return ServableModel(self.include, self.include_packed, self.nonempty, self.weights,
                              self.config, **kw)
+
+    def on(self, device) -> "ServableModel":
+        """This image on ``device``, as a new image: unlike ``nn.Module.to``
+        it leaves this one (and its shared sparsity image) where it is.
+        Tensors already on ``device`` are shared; ``placement`` is dropped."""
+        sp = self.sparsity
+        if sp is not None:
+            sp = ClauseSparsity(*(getattr(sp, n).to(device) for n in (
+                "active_idx", "include", "include_packed", "exclude_packed",
+                "include_counts", "weights")))
+        return ServableModel(self.include.to(device), self.include_packed.to(device),
+                             self.nonempty.to(device), self.weights.to(device), self.config,
+                             sp, version=self.version, tuned=self.tuned)
 
     @property
     def n_classes(self) -> int:

@@ -78,8 +78,9 @@ layers:
     a real dispatch failure marks the service degraded and leaves the
     model on its path);
     a ``DeviceLost`` asks the engine to shrink its mesh
-    (``engine.shrink_mesh``, which on one card has none and returns
-    None) and retries member by member.  ``ServiceHealth`` snapshots
+    (``engine.shrink_mesh``: half the data shards, every image re-placed;
+    None, and nothing changed, on an unmeshed engine) and retries member
+    by member.  ``ServiceHealth`` snapshots
     (healthy / degraded / draining, last fault, fallback path) ride on
     every :meth:`ServingService.stats` call.
 

@@ -18,9 +18,14 @@ the model through epochs:
     :func:`~repro_torch.core.train.make_draws` per step, on the
     generator's device), or any iterator of
     :class:`~repro_torch.core.train.TrainDraws`, one per step (the tests
-    feed the reference's draws through it).
-
-Multi-GPU training is not ported yet: a ``mesh`` is refused.
+    feed the reference's draws through it);
+  * with a mesh (:class:`~repro_torch.launch.mesh.DeviceMesh`), batch
+    mode is data-parallel: each step's literals, labels and draws are
+    split over the devices along ``data_axis``, each shard computes its
+    deltas on its device, and an exact int32 reduction
+    (``distributed.collectives.tree_psum_batch``) combines them, so the
+    model equals the unmeshed run's bit for bit.  The dataset, the model,
+    its update and evaluation stay on the mesh's first device.
 """
 
 from __future__ import annotations
@@ -38,6 +43,7 @@ from repro_torch.core.cotm import CoTMConfig, CoTMModel, init_model
 from repro_torch.core.ingress import IngressSpec, device_ingress
 from repro_torch.core.train import TrainDraws, _step_literals, make_draws
 from repro_torch.data.pipeline import PipelineState, epoch_permutation
+from repro_torch.launch.mesh import DeviceMesh
 
 __all__ = ["EpochReport", "TMDataset", "TrainerEngine"]
 
@@ -75,13 +81,17 @@ class TrainerEngine:
       config: the ConvCoTM hyper-parameters (``config.train_eval`` picks
         the training clause evaluation, matmul by default).
       batch_size: samples per update step.
-      mode: ``'batch'`` (summed per-sample deltas) or ``'scan'`` (each
-        sample applied in turn).
-      mesh: refused; multi-GPU training is not ported yet.
+      mode: ``'batch'`` (summed per-sample deltas, the data-parallel
+        mode) or ``'scan'`` (each sample applied in turn: exact TMU
+        semantics, one device only).
+      mesh: optional :class:`~repro_torch.launch.mesh.DeviceMesh`; batch
+        mode then splits each step over the devices along ``data_axis``
+        (``batch_size`` must divide by that axis' size).
+      data_axis: the mesh axis that carries data parallelism.
       eval_batch: chunk size of :meth:`evaluate`.
       device: where the dataset and the model live; by default the CUDA
         card, and with no card a ``RuntimeError`` (``device="cpu"`` runs on
-        the CPU).
+        the CPU).  With a mesh, its first device along ``data_axis``.
     """
 
     #: prepare() chunk size: bounds the ingress temporaries.
@@ -93,24 +103,42 @@ class TrainerEngine:
         *,
         batch_size: int = 100,
         mode: str = "batch",
-        mesh=None,
+        mesh: Optional[DeviceMesh] = None,
+        data_axis: str = "data",
         eval_batch: int = 1024,
         device=None,
     ):
         if mode not in ("batch", "scan"):
             raise ValueError(f"unknown mode {mode!r}; expected 'batch' or 'scan'")
-        if mesh is not None:
-            raise NotImplementedError(
-                "multi-GPU training is not ported yet; TrainerEngine runs on one "
-                "device (pass mesh=None)"
+        if mesh is not None and not isinstance(mesh, DeviceMesh):
+            raise TypeError(f"mesh must be a DeviceMesh; got {type(mesh).__name__}")
+        if mode == "scan" and mesh is not None:
+            raise ValueError(
+                "mode='scan' is strictly sequential (exact TMU semantics) and cannot be "
+                "data-parallel; use mode='batch' with a mesh"
             )
         if batch_size < 1:
             raise ValueError("batch_size must be >= 1")
+        if mesh is not None:
+            if data_axis not in mesh.axis_names:
+                raise ValueError(f"data_axis {data_axis!r} not in mesh axes {mesh.axis_names}")
+            axis_size = mesh.shape[data_axis]
+            if batch_size % axis_size:
+                raise ValueError(
+                    f"batch_size={batch_size} must divide evenly over mesh axis "
+                    f"{data_axis!r} (size {axis_size})"
+                )
+            first = mesh.along(data_axis)[0]
+            if device is not None and resolve_device(device) != first:
+                raise ValueError(f"device {device} is not the mesh's first device {first}")
+            device = first
         if eval_batch < 1:
             raise ValueError("eval_batch must be >= 1")
         self.config = config
         self.batch_size = batch_size
         self.mode = mode
+        self.mesh = mesh
+        self.data_axis = data_axis
         self.eval_batch = eval_batch
         self.device = resolve_device(device)
 
@@ -189,12 +217,14 @@ class TrainerEngine:
                 draws = self._draws(source)
             ix = idx[s]
             model = _step_literals(draws, model, ds.literals[ix], ds.labels[ix],
-                                   self.config, self.mode)
+                                   self.config, self.mode, self.mesh, self.data_axis)
         return source, model, PipelineState(state.epoch + 1, 0, state.seed), steps * b
 
     def _sync(self):
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        devices = (self.device,) if self.mesh is None else dict.fromkeys(self.mesh.flat)
+        for dev in devices:
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
 
     # --- evaluation -------------------------------------------------------
 

@@ -34,6 +34,7 @@ from repro_torch.core.cotm import CoTMConfig
 from repro_torch.core.patches import PatchSpec
 from repro_torch.data import DoubleBufferedLoader, PipelineState, batches, synthetic_glyphs
 from repro_torch.data import datasets as t_datasets
+from repro_torch.launch.mesh import make_test_mesh
 from repro_torch.launch.train import run_tm_training
 from repro_torch.serve.engine import ServingEngine
 from repro_torch.train.tm_engine import TrainerEngine
@@ -167,10 +168,41 @@ def test_evaluate_predict_and_freeze_servable_match_reference():
     np.testing.assert_array_equal(res.predictions, eng.predict(tm, ds).numpy())
 
 
+@pytest.mark.parametrize("data", [2, 4])
+def test_meshed_fit_matches_unmeshed_reference_engine(data):
+    """Data-parallel batch mode on a mesh of ``data`` CPU shards: each
+    shard computes its rows' deltas, the int32 sums meet exactly, and the
+    model equals the unmeshed reference trainer's from the same draws."""
+    jcfg, tcfg = _cfgs()
+    x, y = _data()
+    key = jax.random.PRNGKey(3)
+    jeng = JTrainerEngine(jcfg, batch_size=16)
+    jds = jeng.prepare(x, y, booleanize_method="none")
+    jm0 = jeng.init_model(key)
+    tm0 = model_from_arrays(jm0.ta_state, jm0.weights)
+    _, jm, jstate, _ = jeng.fit(key, jm0, jds, epochs=2, state=JPipelineState(seed=5))
+
+    eng = TrainerEngine(tcfg, batch_size=16, mesh=make_test_mesh(data, 1))
+    assert eng.device == torch.device("cpu") and eng.mesh.shape == {"data": data, "model": 1}
+    ds = eng.prepare(x, y, booleanize_method="none")
+    _, draws = chain_draws(key, 8, 16, jcfg)
+    _, tm, state, reports = eng.fit(iter(draws), tm0, ds, epochs=2, eval_ds=ds,
+                                    state=PipelineState(seed=5))
+    _same_model(tm, jm)
+    assert state.as_dict() == dataclasses_asdict(jstate)
+    assert reports[-1].accuracy == jeng.evaluate(jm, jds)
+
+
 def test_engine_refuses_mesh_bad_mode_and_small_datasets():
     _, tcfg = _cfgs()
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
+    with pytest.raises(TypeError, match="mesh"):
         TrainerEngine(tcfg, mesh=object(), device="cpu")
+    with pytest.raises(ValueError, match="mode='scan'"):
+        TrainerEngine(tcfg, mode="scan", mesh=make_test_mesh(2, 1))
+    with pytest.raises(ValueError, match="batch_size=10 must divide"):
+        TrainerEngine(tcfg, batch_size=10, mesh=make_test_mesh(4, 1))
+    with pytest.raises(ValueError, match="data_axis 'pod'"):
+        TrainerEngine(tcfg, mesh=make_test_mesh(2, 1), data_axis="pod")
     with pytest.raises(ValueError, match="unknown mode"):
         TrainerEngine(tcfg, mode="async", device="cpu")
     eng = TrainerEngine(tcfg, batch_size=100, device="cpu")
