@@ -109,7 +109,26 @@ this file and builds the CUDA kernels from ``src/repro_torch/csrc``).
      16 outside the window; null, with its message, where it refuses the
      shape); classify throughput at bucket 256 and
      latency at bucket 1 on ``fused`` and ``fused_sparse``, a profile of
-     each; then one ``{"kernels": [...]}`` line.
+     each;
+  5. the LM substrate's serving path (``[lm]`` lines; plain PyTorch, no
+     kernel of its own, fp32 matmuls without TF32): each of the ten archs
+     at ``reduced_config`` in fp32, drawn on a seeded CPU generator and
+     copied to the card, runs ``prefill`` and 8 decode steps (h2o-danube
+     40, so its ring of 16 wraps twice; xLSTM on the reference's 3-layer
+     stack, and at its 17-layer reduced depth on weights of each layer's
+     own fan-in) on both,
+     logits within rtol = atol = 1e-3 and greedy tokens equal wherever
+     the CPU's top-2 margin exceeds 1e-2; h2o-danube-1.8b whole in fp32,
+     drawn on the card: 16 decode steps equal ``forward`` + ``lm_logits``
+     (2e-3); h2o-danube-1.8b whole in bf16 through ``generate`` (batch
+     4, prompt 32, 16 new tokens, greedy) twice the same tokens, decode
+     ms a step (host clock and CUDA events), tokens/s, ``prefill`` of
+     1 x 2,048 tokens, peak memory, a ``torch.profiler`` split of 8
+     decode steps; ``[roofline] lm`` lines put the decode byte floor
+     (``hbm_bytes_estimate`` over 3.35 TB/s) and the prefill compute
+     floor (``flops_estimate`` over SMs x 4,096 bf16 FLOPs per clock x
+     the highest SM clock) beside them; then one ``{"kernels": [...]}``
+     line.
 
 The last line is ``{"ok": true, "device": {...}}``.  Any failed phase
 raises and exits non-zero, as does a run without CUDA or outside the
@@ -202,17 +221,22 @@ def time_ms(fn, *, inner: int, repeats: int = 11, warmup: int = 3) -> tuple[floa
     return statistics.median(samples), held_all
 
 
+def max_sm_clock_mhz() -> float:
+    """The highest SM clock ``nvidia-smi`` reports for card 0, in MHz."""
+    return float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.split()[0])
+
+
 def ceilings() -> tuple[float, float]:
     """The card's ceilings from its SM count and the highest SM clock
     ``nvidia-smi`` reports: integer/logic results per second (64 per clock
     per SM) and int8 tensor-core multiply-adds per second (4,096)."""
     import torch
 
-    mhz = subprocess.run(
-        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.split()[0]
-    per_clock = torch.cuda.get_device_properties(0).multi_processor_count * float(mhz) * 1e6
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    per_clock = sms * max_sm_clock_mhz() * 1e6
     return per_clock * INT32_PER_CLOCK_PER_SM, per_clock * INT8_MMA_PER_CLOCK_PER_SM
 
 
@@ -1447,6 +1471,350 @@ def mesh_training(dev, card) -> None:
           f"{card}")
 
 
+# ---------------------------------------------------------------------------
+# 5. The LM substrate's serving path ([lm] lines)
+# ---------------------------------------------------------------------------
+
+#: Logits of the card and of the CPU agree within rtol = atol = this (fp32).
+LM_TOL = 1e-3
+#: Decode steps of each reduced arch on both devices; h2o-danube's reduced
+#: window is 16, so its 40 positions wrap the ring twice.
+LM_DECODE_STEPS = 8
+LM_RING_STEPS = 40
+#: The 3-layer xLSTM of the reference's own stepwise test: deeper, on
+#: weights of the reference's scale, the reduced xLSTM is too ill-conditioned
+#: for any tolerance (tests/test_torch_lm_models.py); its 17 layers are held
+#: on weights drawn with each layer's own fan-in.
+XLSTM_SHALLOW = dict(n_layers=3, block_pattern=("mlstm", "slstm"))
+#: Dense bf16 tensor-core FLOPs per clock per SM on an H100 (132 SMs x
+#: 4,096 x 1.83 GHz boost = 989 TFLOP/s, the data sheet's dense bf16 rate).
+BF16_FLOPS_PER_CLOCK_PER_SM = 4096
+
+
+def _lm_data(cfg, seed: int) -> dict:
+    """A seeded CPU batch of 2: frame embeds and 8 decoder tokens for
+    encoder-decoders, 8 frontend embeds before 8 tokens for vision archs,
+    16 tokens otherwise."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    b, s = 2, 16
+
+    def emb(n):
+        return torch.from_numpy(rng.standard_normal((b, n, cfg.d_model)).astype(np.float32)
+                                ).to(cfg.dtype)
+
+    def toks(n):
+        return torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, n)).astype(np.int32))
+
+    if cfg.is_encoder_decoder:
+        return {"frontend_embeds": emb(s), "dec_tokens": toks(s // 2)}
+    if cfg.modality == "vision":
+        return {"tokens": toks(s - 8), "frontend_embeds": emb(8)}
+    return {"tokens": toks(s)}
+
+
+def _lm_run(cfg, model, dev, data: dict, steps: int, feed=None):
+    """``prefill`` of ``data`` and ``steps`` decode steps from an empty
+    cache on ``dev``, starting from the batch's first token; each next
+    token is ``feed``'s (another device's greedy tokens) or this run's own
+    argmax.  Returns (prefill logits, decode logits [B, steps, V], tokens
+    fed [B, steps]), on ``dev``."""
+    import torch
+
+    from repro_torch.models import encdec as ed
+    from repro_torch.models import transformer as tfm
+    from repro_torch.train.serve_step import decode, prefill
+
+    with torch.no_grad():
+        batch = {k: v.to(dev) for k, v in data.items()}
+        first = prefill(model, batch, cfg)
+        b = first.shape[0]
+        cross = None
+        if cfg.is_encoder_decoder:
+            cross = ed.prepare_cross_cache(model, ed.encode(model, batch["frontend_embeds"], cfg),
+                                           cfg)
+            cache = ed.init_self_cache(b, cfg, steps, dev)
+            tok = batch["dec_tokens"][:, :1]
+        else:
+            cache = tfm.init_decode_cache(b, cfg, steps, dev)
+            tok = batch["tokens"][:, :1]
+        logits, fed = [], []
+        for i in range(steps):
+            lg, cache = decode(model, tok, cache, i, cfg, cross_cache=cross)
+            logits.append(lg)
+            nxt = lg.argmax(-1).to(torch.int32) if feed is None else feed[:, i].to(dev)
+            fed.append(nxt)
+            tok = nxt[:, None]
+        return first, torch.stack(logits, 1), torch.stack(fed, 1)
+
+
+def _lm_card_and_cpu(cfg, dev, steps: int, seed: int, decls=None):
+    """The reduced ``cfg`` (``decls``, its ``model_decls`` by default) drawn
+    on a seeded CPU generator and copied to the card; both run :func:`_lm_run` on one batch, the card fed the CPU's
+    greedy tokens.  Returns the worst logit deviation (prefill and decode),
+    whether all logits agree within ``LM_TOL``, the positions whose CPU
+    top-2 margin exceeds ten times ``LM_TOL`` and how many of them the
+    card's argmax matches, and the smallest margin."""
+    import copy
+
+    import torch
+
+    from repro_torch.launch.specs import model_decls
+    from repro_torch.models.base import init_params
+
+    decls = model_decls(cfg) if decls is None else decls
+    cpu_model = init_params(decls, torch.Generator().manual_seed(seed))
+    card_model = copy.deepcopy(cpu_model).to(dev)
+    check(all(p.device == dev for p in card_model.parameters()), f"{cfg.name}: not on {dev}")
+    data = _lm_data(cfg, seed)
+    cpu_first, cpu_logits, cpu_toks = _lm_run(cfg, cpu_model, "cpu", data, steps)
+    card_first, card_logits, _ = _lm_run(cfg, card_model, dev, data, steps, feed=cpu_toks)
+    card_first, card_logits = card_first.cpu(), card_logits.cpu()
+    err = max(float((card_first - cpu_first).abs().max()),
+              float((card_logits - cpu_logits).abs().max()))
+    close = (torch.allclose(card_first, cpu_first, rtol=LM_TOL, atol=LM_TOL)
+             and torch.allclose(card_logits, cpu_logits, rtol=LM_TOL, atol=LM_TOL)
+             and bool(torch.isfinite(card_logits).all()))
+    top2 = cpu_logits.topk(2, dim=-1).values
+    margin = top2[..., 0] - top2[..., 1]
+    clear = margin > 10 * LM_TOL
+    same = int((card_logits.argmax(-1) == cpu_logits.argmax(-1))[clear].sum())
+    return err, close, int(clear.sum()), same, float(margin.min())
+
+
+def lm_card_against_cpu(dev, card: str) -> None:
+    """[lm] 1: every arch, reduced, fp32: the card against the CPU."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config, list_archs, reduced_config
+
+    check(not torch.backends.cuda.matmul.allow_tf32
+          and torch.get_float32_matmul_precision() == "highest",
+          "fp32 matmuls must not run in TF32")
+    print(f"[lm] fp32 matmuls: allow_tf32={torch.backends.cuda.matmul.allow_tf32}, "
+          f"float32_matmul_precision={torch.get_float32_matmul_precision()!r}")
+    for arch in list_archs():
+        changes = XLSTM_SHALLOW if arch == "xlstm-350m" else {}
+        cfg = dataclasses.replace(reduced_config(get_config(arch)), dtype=torch.float32,
+                                  **changes)
+        steps = LM_RING_STEPS if cfg.sliding_window else LM_DECODE_STEPS
+        err, close, n_clear, same, min_margin = _lm_card_and_cpu(cfg, dev, steps, SEED)
+        what = f"{cfg.n_layers} layers" + (", 3-layer xLSTM" if changes else "")
+        ring = ""
+        if cfg.sliding_window:
+            ring = (f", a ring of {cfg.sliding_window} over {steps} positions, "
+                    f"{(steps - 1) // cfg.sliding_window} wraps")
+        print(f"[lm] {arch} reduced ({what}{ring}) card == CPU: prefill + {steps} decode "
+              f"steps, max |dlogit| {err:.3g} (rtol=atol={LM_TOL:g}); greedy tokens equal at "
+              f"{same} of {n_clear} positions with a top-2 margin > {10 * LM_TOL:g} "
+              f"(smallest margin {min_margin:.3g}) | {card}")
+        check(close, f"[lm] {arch}: card and CPU logits differ by {err:.3g} > {LM_TOL:g}")
+        check(n_clear > 0 and same == n_clear,
+              f"[lm] {arch}: greedy tokens differ at {n_clear - same} clear positions")
+    # The reduced xLSTM at its 17 layers, on weights drawn with each
+    # layer's own fan-in (std 1/sqrt(d_in)).
+    from repro_torch.launch.specs import model_decls
+    from repro_torch.models import transformer as tfm
+
+    cfg = dataclasses.replace(reduced_config(get_config("xlstm-350m")), dtype=torch.float32)
+    decls = {**model_decls(cfg), "layers": [tfm._block_decls(cfg.pattern_for_layer(i), cfg)
+                                            for i in range(cfg.n_layers)]}
+    err, close, n_clear, same, min_margin = _lm_card_and_cpu(cfg, dev, LM_DECODE_STEPS, SEED,
+                                                             decls)
+    print(f"[lm] xlstm-350m reduced ({cfg.n_layers} layers, weights of each layer's own "
+          f"fan-in) card == CPU: prefill + {LM_DECODE_STEPS} decode steps, max |dlogit| "
+          f"{err:.3g} (rtol=atol={LM_TOL:g}); greedy tokens equal at {same} of {n_clear} "
+          f"positions with a top-2 margin > {10 * LM_TOL:g} (smallest margin "
+          f"{min_margin:.3g}) | {card}")
+    check(close, f"[lm] xlstm-350m 17 layers: card and CPU logits differ by {err:.3g}")
+    check(n_clear > 0 and same == n_clear,
+          f"[lm] xlstm-350m 17 layers: greedy tokens differ at {n_clear - same} clear positions")
+
+
+def lm_full_width_stepwise(dev, card: str) -> None:
+    """[lm] 2: h2o-danube-1.8b whole, fp32, on the card: 16 decode steps
+    equal forward + lm_logits over the same tokens (rtol = atol = 2e-3)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.specs import model_decls
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.base import init_params, param_count
+    from repro_torch.models.layers import lm_logits
+    from repro_torch.train.serve_step import decode
+
+    cfg = dataclasses.replace(get_config("h2o-danube-1.8b"), dtype=torch.float32)
+    t = time.perf_counter()
+    model = init_params(model_decls(cfg), torch.Generator(device=dev).manual_seed(SEED))
+    n_params = sum(p.numel() for p in model.parameters())
+    check(n_params == param_count(model_decls(cfg)), "full-width parameter count")
+    toks = torch.from_numpy(np.random.default_rng(SEED + 41).integers(
+        0, cfg.vocab_size, (2, 16)).astype(np.int32)).to(dev)
+    with torch.no_grad():
+        hidden, _ = tfm.forward(model, toks, cfg)
+        full = lm_logits(model["embed"], hidden, cfg).float()
+        cache = tfm.init_decode_cache(2, cfg, 16, dev)
+        steps = []
+        for i in range(16):
+            lg, cache = decode(model, toks[:, i : i + 1], cache, i, cfg)
+            steps.append(lg)
+        steps = torch.stack(steps, 1)
+    torch.cuda.synchronize()
+    err = float((steps - full).abs().max())
+    print(f"[lm] h2o-danube-1.8b full width fp32 on the card ({cfg.n_layers} layers, d "
+          f"{cfg.d_model}, {n_params:,} parameters, {n_params * 4 / 1e9:.2f} GB): 16 decode "
+          f"steps == forward + lm_logits, max |dlogit| {err:.3g} (rtol=atol=2e-3; logits "
+          f"up to {float(full.abs().max()):.3g}), {time.perf_counter() - t:.2f} s | {card}")
+    check(bool(torch.isfinite(steps).all()), "[lm] full width: non-finite logits")
+    check(torch.allclose(steps, full, rtol=2e-3, atol=2e-3),
+          f"[lm] full width: stepwise decode differs from the forward by {err:.3g}")
+    del model, hidden, full, cache, steps
+    torch.cuda.empty_cache()
+
+
+def lm_served(dev, card: str) -> dict:
+    """[lm] 3: h2o-danube-1.8b whole, bf16, served through ``generate``
+    (batch 4, prompt 32, 16 new tokens, greedy), twice the same tokens;
+    times, peak memory and a profile of 8 decode steps.  Returns the
+    times the roofline lines read."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import generate
+    from repro_torch.configs import get_config
+    from repro_torch.launch.specs import model_decls
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.base import init_params
+    from repro_torch.train.serve_step import decode, prefill, sample_tokens
+
+    cfg = get_config("h2o-danube-1.8b")
+    torch.cuda.reset_peak_memory_stats()
+    model = init_params(model_decls(cfg), torch.Generator(device=dev).manual_seed(SEED))
+    b, plen, gen = 4, 32, 16
+    prompts = torch.from_numpy(np.random.default_rng(SEED + 42).integers(
+        0, cfg.vocab_size, (b, plen)).astype(np.int32)).to(dev)
+    first = generate(cfg, model, prompts, gen)
+    check(first.shape == (b, gen) and first.dtype == torch.int32, "[lm] generate: shape")
+    check(bool(((first >= 0) & (first < cfg.vocab_size)).all()), "[lm] generate: vocab")
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    second = generate(cfg, model, prompts, gen)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    check(torch.equal(first, second), "[lm] generate: two runs gave different tokens")
+
+    # Each decode step of a third run timed on both clocks: generate's loop
+    # (the prompt teacher-forced, then greedy tokens) run here step by step.
+    cache = tfm.init_decode_cache(b, cfg, plen + gen, dev)
+    sampler = torch.Generator(device=dev).manual_seed(0)
+    done = torch.zeros((b,), dtype=torch.bool, device=dev)
+    events, host, out = [torch.cuda.Event(enable_timing=True)], [], []
+    torch.cuda.synchronize()
+    host.append(time.perf_counter())
+    events[0].record()
+    tok = prompts[:, :1]
+    for i in range(plen + gen):
+        if i >= plen:
+            tok, done = sample_tokens(sampler, logits, temperature=0.0, done=done)
+            out.append(tok)
+            tok = tok[:, None]
+        logits, cache = decode(model, tok, cache, i, cfg)
+        events.append(torch.cuda.Event(enable_timing=True))
+        events[-1].record()
+        torch.cuda.synchronize()
+        host.append(time.perf_counter())
+        if i + 1 < plen:
+            tok = prompts[:, i + 1 : i + 2]
+    third = torch.stack(out, dim=1)
+    del cache
+    check(torch.equal(first, third), "[lm] the timed decode loop gave other tokens than generate")
+    step_host = [(b2 - a) * 1e3 for a, b2 in zip(host, host[1:])]
+    step_dev = [a.elapsed_time(b2) for a, b2 in zip(events, events[1:])]
+    decode_ms, decode_dev_ms = statistics.median(step_host), statistics.median(step_dev)
+    print(f"[lm] h2o-danube-1.8b bf16 generate (batch {b}, prompt {plen}, {gen} new, greedy): "
+          f"two runs equal, tokens in the vocab; first row {first[0].tolist()} | {card}")
+    print(f"[lm] decode step: median {decode_ms:.3f} ms on the host clock, "
+          f"{decode_dev_ms:.3f} ms by CUDA events ({len(step_host)} steps; min "
+          f"{min(step_host):.3f}, max {max(step_host):.3f}); generate wall {wall * 1e3:.1f} ms "
+          f"for {plen + gen} decode steps: {b * gen / wall:.1f} new tokens/s, "
+          f"{b * (plen + gen) / wall:.1f} decoded tokens/s | {card}")
+
+    t2048 = torch.from_numpy(np.random.default_rng(SEED + 43).integers(
+        0, cfg.vocab_size, (1, 2048)).astype(np.int32)).to(dev)
+    pre = prefill(model, {"tokens": t2048}, cfg)
+    check(bool(torch.isfinite(pre).all()), "[lm] prefill: non-finite logits")
+    prefill_ms, held = time_ms(lambda: prefill(model, {"tokens": t2048}, cfg), inner=1,
+                               repeats=5, warmup=1)
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[lm] prefill batch 1 x 2,048 tokens (4 query chunks of 512): {prefill_ms:.3f} ms "
+          f"by CUDA events{'' if held else ' (host gaps in)'}; peak memory "
+          f"{peak / 2**30:.2f} GiB (max_memory_allocated, the served phase) | {card}")
+
+    # Where a decode step's time goes: 8 steps (prompt 4, 4 new).
+    generate(cfg, model, prompts[:, :4], 4)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        generate(cfg, model, prompts[:, :4], 4)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t) * 1e6
+    rows = prof.key_averages()
+    on_card = device_rows(rows)
+    busy = sum(self_dev_us(e) for e in on_card)
+    if busy:
+        print(f"[profile] lm decode: 8 steps, wall {wall_us / 8:.1f} us/step, device busy "
+              f"{busy / 8:.1f} us/step ({100 * busy / wall_us:.1f}% of wall), idle "
+              f"{100 * (1 - busy / wall_us):.1f}%; {sum(e.count for e in on_card) / 8:.0f} "
+              f"device operations a step | {card}")
+        print_top_device("lm decode", on_card, 8, "step")
+        for e in sorted(rows, key=lambda e: e.self_cpu_time_total, reverse=True)[:8]:
+            print(f"[profile] lm decode: host {e.self_cpu_time_total / 8:9.2f} us/step "
+                  f"x{e.count // 8:<4d} {e.key[:80]}")
+    else:
+        print("[profile] lm decode: the profiler captured no device time (not measured)")
+    del model
+    torch.cuda.empty_cache()
+    return {"cfg": cfg, "decode_ms": decode_ms, "decode_dev_ms": decode_dev_ms,
+            "prefill_ms": prefill_ms}
+
+
+def lm_roofline(served: dict, card: str) -> None:
+    """[roofline] lm: the decode step's byte floor and prefill's compute
+    floor beside the measured times."""
+    import torch
+
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.roofline import flops_estimate, hbm_bytes_estimate
+
+    cfg = served["cfg"]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    mhz = max_sm_clock_mhz()
+    peak = sms * mhz * 1e6 * BF16_FLOPS_PER_CLOCK_PER_SM
+    print(f"[roofline] lm: dense bf16 peak {peak / 1e12:.1f} TFLOP/s = {sms} SMs x {mhz:g} MHz "
+          f"(max SM clock) x {BF16_FLOPS_PER_CLOCK_PER_SM} FLOPs/clock/SM, against the data "
+          f"sheet's 989 TFLOP/s at 1,830 MHz | {card}")
+    nbytes = hbm_bytes_estimate(cfg, ShapeConfig("decode", 48, 4, "decode"), chips=1)
+    floor = nbytes / HBM_BYTES_PER_S * 1e3
+    print(f"[roofline] lm decode (batch 4, cache 48): byte floor {floor:.4f} ms "
+          f"({nbytes:.4g} B over 3.35 TB/s, hbm_bytes_estimate) against {served['decode_ms']:.3f} "
+          f"ms host / {served['decode_dev_ms']:.3f} ms events, achieved fraction "
+          f"{floor / served['decode_ms']:.4f} | {card}")
+    flops = flops_estimate(cfg, ShapeConfig("prefill", 2048, 1, "prefill"))
+    floor = flops / peak * 1e3
+    print(f"[roofline] lm prefill (batch 1 x 2,048): compute floor {floor:.3f} ms ({flops:.4g} "
+          f"FLOPs, flops_estimate, over the bf16 peak) against {served['prefill_ms']:.3f} ms, "
+          f"achieved fraction {floor / served['prefill_ms']:.4f} (the port's attention runs "
+          f"in fp32) | {card}")
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -2056,6 +2424,18 @@ def main() -> int:
         for blabel, imgs, reps in (("bucket 256", imgs256, 20), ("bucket 1", img1, 50)):
             profile_classify(engine, name, imgs, reps, f"{label} {blabel}")
     phase_s["4 times and profiles"] = time.perf_counter() - t_phase
+
+    # --- 5. the LM substrate's serving path -----------------------------------
+    # It has no kernel of its own: the six kernels' counters stay at 0.
+    t_phase = time.perf_counter()
+    registry.reset_launches()
+    lm_card_against_cpu(dev, card)
+    lm_full_width_stepwise(dev, card)
+    lm_roofline(lm_served(dev, card), card)
+    lm_launches = registry.launch_counts()
+    print(f"[engine] launches during the [lm] phase: {lm_launches}")
+    check(not any(lm_launches.values()), f"the LM path launched a TM kernel: {lm_launches}")
+    phase_s["5 lm"] = time.perf_counter() - t_phase
     print(f"[env] phase seconds: {', '.join(f'{k} {v:.2f}' for k, v in phase_s.items())}")
     print(f"[env] {card} | build {build_s:.2f} s")
 

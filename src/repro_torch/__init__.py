@@ -1,4 +1,5 @@
-"""PyTorch / CUDA port of the ConvCoTM serving stack and trainer, for NVIDIA Hopper.
+"""PyTorch / CUDA port of the ConvCoTM serving stack and trainer, and of the
+LM substrate's serving path, for NVIDIA Hopper.
 
 A second package beside ``repro`` (the JAX reference).  It imports
 ``torch`` and numpy only: never ``jax`` and nothing of ``repro``; the
@@ -20,6 +21,14 @@ the trainer run across a device mesh (``launch/mesh.py``,
 ``serve/mesh.py``, ``distributed/``): one process drives every shard,
 replicated or clause-sharded, with exact int32 reductions between shards.
 
+The LM substrate's serving path sits beside it: the ten architecture
+configs (``configs.ARCHS``, ``get_config``), the decoder, MoE, RG-LRU,
+xLSTM and encoder-decoder blocks (``models/``), ``prefill``/``decode``
+(``train/serve_step.py``) and :func:`generate` (``launch/serve.py``), in
+plain PyTorch (no kernel of its own), with the forward half of the LM
+roofline model.  ``convert.lm_params_from_arrays`` carries the reference's
+parameters across.
+
 Entry points run on the CUDA card unless the caller passes
 ``device="cpu"`` (see :func:`resolve_device`); with no device given and
 no card present they raise instead of quietly running on the CPU.
@@ -30,11 +39,14 @@ from __future__ import annotations
 import torch
 
 __all__ = [
+    "ARCHS",
     "AutotuneReport",
     "DeviceMesh",
     "ServeMesh",
     "TunedPlan",
     "autotune_servable",
+    "generate",
+    "get_config",
     "make_serve_device_mesh",
     "make_serve_mesh",
     "make_test_mesh",
@@ -62,6 +74,8 @@ def resolve_device(device=None) -> torch.device:
 
 
 # Below resolve_device: the modules these import take it from this package.
+from repro_torch.configs import ARCHS, get_config  # noqa: E402
+from repro_torch.launch.serve import generate  # noqa: E402
 from repro_torch.launch.mesh import (  # noqa: E402
     DeviceMesh,
     make_serve_device_mesh,

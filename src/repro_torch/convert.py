@@ -10,18 +10,34 @@ reference's to read its state: ``freeze`` on both sides of
 :func:`draws_from_arrays` builds a training step's :class:`TrainDraws`
 from arrays, such as the uniforms and Gumbel noise the reference's
 ``jax.random`` keys give, so both packages can take the same step.
+
+For the LM substrate, :func:`lm_params_from_arrays` takes the reference's
+parameter tree (nested dicts of numpy arrays, as
+``jax.tree.map(np.asarray, params)`` gives) and returns the port's model;
+:func:`lm_params_to_arrays` is its inverse.  They are the one place that
+knows both layouts: the reference stacks layers (``layers.cyc[pos]`` with
+a leading cycle axis, ``layers.tail[i]``; ``enc``/``dec`` with a leading
+layer axis), the port lists them in layer order.
 """
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
+from repro_torch.configs.base import ModelConfig
 from repro_torch.core.cotm import CoTMModel
 from repro_torch.core.train import TrainDraws
+from repro_torch.launch.specs import model_decls
+from repro_torch.models.base import ParamTree, _leaves, _param_at
+from repro_torch.models.transformer import layer_split
 
 __all__ = [
     "draws_from_arrays",
+    "lm_params_from_arrays",
+    "lm_params_to_arrays",
     "model_from_arrays",
     "model_to_arrays",
     "words_from_uint32",
@@ -78,3 +94,86 @@ def words_from_uint32(words, device="cpu") -> torch.Tensor:
     """The reference's uint32 words -> an int32 word tensor (same bits)."""
     arr = np.ascontiguousarray(np.asarray(words, dtype=np.uint32)).view(np.int32)
     return torch.tensor(arr, device=device)
+
+
+def _ref_index(cfg: ModelConfig, path):
+    """The reference's location of the port's parameter at ``path``: the
+    key path into its tree and the index along a stacked leading axis
+    (None for an unstacked leaf)."""
+    if cfg.is_encoder_decoder:
+        if path[0] in ("enc", "dec"):
+            return (path[0], *path[2:]), path[1]
+        return path, None
+    if path[0] != "layers":
+        return path, None
+    i, rest = path[1], path[2:]
+    pattern, n_full, _ = layer_split(cfg)
+    lp = len(pattern)
+    if i < n_full * lp:
+        return ("layers", "cyc", str(i % lp), *rest), i // lp
+    return ("layers", "tail", str(i - n_full * lp), *rest), None
+
+
+def _tensor_from_array(arr) -> torch.Tensor:
+    arr = np.asarray(arr)
+    if arr.dtype.name == "bfloat16":     # ml_dtypes' bfloat16: carry the bits
+        bits = np.ascontiguousarray(arr).view(np.uint16).view(np.int16)
+        return torch.from_numpy(bits.copy()).view(torch.bfloat16)
+    return torch.from_numpy(np.ascontiguousarray(arr).copy())
+
+
+def _array_from_tensor(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        # numpy knows bfloat16 once ml_dtypes (which JAX loads) registered it.
+        return t.view(torch.int16).numpy().view(np.dtype("bfloat16"))
+    return t.numpy()
+
+
+@torch.no_grad()
+def lm_params_from_arrays(cfg: ModelConfig, tree, *, device, dtype=None) -> ParamTree:
+    """The port's model of ``cfg`` holding the reference's parameters
+    ``tree`` (nested dicts of numpy arrays).  Each parameter takes its
+    declaration's dtype: ``cfg.dtype`` for the weights (``dtype`` instead,
+    when given) and float32 where the reference fixes it (norm scales, the
+    router, ``r_rec``, ``b``, ``lambda_p``, ``shared_mix``)."""
+    if dtype is not None:
+        cfg = dataclasses.replace(cfg, dtype=dtype)
+    decls = model_decls(cfg)
+    model = ParamTree(decls, device)
+    for path, d in _leaves(decls):
+        keys, j = _ref_index(cfg, path)
+        node = tree
+        for k in keys:
+            node = node[k]
+        src = _tensor_from_array(node if j is None else np.asarray(node)[j])
+        if tuple(src.shape) != d.shape:
+            raise ValueError(f"{'/'.join(map(str, path))}: the reference's array has "
+                             f"shape {tuple(src.shape)}, the port declares {d.shape}")
+        _param_at(model, path).copy_(src.to(d.dtype))
+    return model
+
+
+def lm_params_to_arrays(model: ParamTree, cfg: ModelConfig):
+    """The reference's parameter tree (nested dicts of numpy arrays, layers
+    stacked as its ``model_decls`` stacks them) from the port's model of
+    ``cfg``: the inverse of :func:`lm_params_from_arrays`."""
+    stacks: dict = {}
+    # The reference keeps both groups of its layers, empty or not.
+    tree: dict = {} if cfg.is_encoder_decoder else {"layers": {"cyc": {}, "tail": {}}}
+    for path, _ in _leaves(model_decls(cfg)):
+        keys, j = _ref_index(cfg, path)
+        arr = _array_from_tensor(_param_at(model, path))
+        if j is None:
+            node = tree
+            for k in keys[:-1]:
+                node = node.setdefault(k, {})
+            node[keys[-1]] = arr
+        else:
+            stacks.setdefault(keys, {})[j] = arr
+    for keys, parts in stacks.items():
+        node = tree
+        for k in keys[:-1]:
+            node = node.setdefault(k, {})
+        node[keys[-1]] = np.stack([parts[j] for j in range(len(parts))])
+    return tree

@@ -1,5 +1,5 @@
-"""Serve a ConvCoTM on the card with the batched engine (TM part of
-``repro/launch/serve.py``).
+"""Serve a ConvCoTM with the batched engine, or an LM arch with the
+prefill + decode loop, on the card (the port of ``repro/launch/serve.py``).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch convcotm-mnist \
         --requests 32 --max-batch 256 [--eval-path fused_sparse] \
@@ -31,24 +31,119 @@ made from ``--seed``.  Requests are drawn from the arch's test split
 absent); accuracy is printed for a restored model.  ``--autotune`` (both
 modes) measures the eval-path candidates per request form and bucket at
 warmup and serves each bucket from its winner; the plan is printed.
+
+LM archs (``configs.ARCHS``) generate from random prompts on weights drawn
+from ``--seed`` (``--reduced`` for the small same-family config), through
+:func:`generate`'s cached decode steps; the run prints tokens/s and the
+first two rows of tokens:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch h2o-danube-1.8b \
+        --batch 4 --prompt-len 32 --gen 16 [--temperature T] [--dtype float32]
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-350m \
+        --reduced --device cpu --gen 4
 """
 
 from __future__ import annotations
 
 import argparse
 import asyncio
+import dataclasses
 import json
+import time
+from typing import Optional
 
 import numpy as np
 import torch
 
+from repro_torch import resolve_device
+from repro_torch.configs import get_config, list_archs, reduced_config
 from repro_torch.configs.convcotm import BOOLEANIZE_METHOD, COTM_CONFIGS
 from repro_torch.core.cotm import init_boundary_model
 from repro_torch.data import get_dataset
+from repro_torch.launch.specs import model_decls
+from repro_torch.models import encdec as ed
+from repro_torch.models import transformer as tfm
+from repro_torch.models.base import init_params
 from repro_torch.serve.engine import ServingEngine
 from repro_torch.serve.paths import available_paths
+from repro_torch.train.serve_step import decode, sample_tokens
 
-__all__ = ["parse_serve_mesh", "serve_tm", "serve_tm_service"]
+__all__ = ["generate", "parse_serve_mesh", "serve_lm", "serve_tm", "serve_tm_service"]
+
+
+@torch.no_grad()
+def generate(
+    cfg,
+    params,
+    prompt_tokens: torch.Tensor,      # [B, P]
+    gen_len: int,
+    *,
+    max_seq: Optional[int] = None,
+    temperature: float = 0.0,
+    frontend_embeds: Optional[torch.Tensor] = None,
+    seed: int = 0,
+) -> torch.Tensor:
+    """Prompt -> generated tokens [B, gen_len] int32 via cached decode steps,
+    on the prompt's device.
+
+    The prompt runs through the decode path token by token (teacher
+    forcing), so the cache fills as continuous serving fills it; then each
+    sampled token is decoded in turn.  ``frontend_embeds`` feed the
+    encoder of an encoder-decoder arch."""
+    b, plen = prompt_tokens.shape
+    max_seq = max_seq or (plen + gen_len)
+    dev = prompt_tokens.device
+    cross = None
+    if cfg.is_encoder_decoder:
+        cross = ed.prepare_cross_cache(params, ed.encode(params, frontend_embeds, cfg), cfg)
+        cache = ed.init_self_cache(b, cfg, max_seq, dev)
+    else:
+        cache = tfm.init_decode_cache(b, cfg, max_seq, dev)
+    generator = torch.Generator(device=dev).manual_seed(seed)
+
+    logits = None
+    for i in range(plen):
+        logits, cache = decode(params, prompt_tokens[:, i : i + 1], cache, i, cfg,
+                               cross_cache=cross)
+
+    out = []
+    done = torch.zeros((b,), dtype=torch.bool, device=dev)
+    for i in range(plen, plen + gen_len):
+        tok, done = sample_tokens(generator, logits, temperature=temperature, done=done)
+        out.append(tok)
+        logits, cache = decode(params, tok[:, None], cache, i, cfg, cross_cache=cross)
+    return torch.stack(out, dim=1)
+
+
+def serve_lm(arch: str, *, reduced: bool = False, batch: int = 4, prompt_len: int = 32,
+             gen: int = 16, temperature: float = 0.0, dtype: Optional[str] = None,
+             seed: int = 0, device=None) -> dict:
+    """Generate from random prompts on ``arch`` with weights drawn from
+    ``seed``; prints tokens/s and the first two rows of tokens."""
+    dev = resolve_device(device)
+    cfg = get_config(arch)
+    if reduced:
+        cfg = reduced_config(cfg)
+    if dtype is not None:
+        cfg = dataclasses.replace(cfg, dtype=getattr(torch, dtype))
+    params = init_params(model_decls(cfg), torch.Generator(device=dev).manual_seed(seed))
+    rng = np.random.default_rng(seed)
+    prompts = torch.from_numpy(
+        rng.integers(0, cfg.vocab_size, (batch, prompt_len)).astype(np.int32)).to(dev)
+    fe = None
+    if cfg.is_encoder_decoder or cfg.modality == "vision":
+        fe = torch.from_numpy(rng.standard_normal((batch, 16, cfg.d_model)).astype(np.float32)
+                              ).to(device=dev, dtype=cfg.dtype)
+    t0 = time.perf_counter()
+    toks = generate(cfg, params, prompts, gen, temperature=temperature, frontend_embeds=fe,
+                    seed=seed)
+    toks = toks.cpu()
+    dt = time.perf_counter() - t0
+    print(f"generated {tuple(toks.shape)} in {dt:.3f}s ({batch * gen / dt:.1f} tok/s) "
+          f"on {dev}")
+    print(toks.numpy()[:2])
+    return {"arch": cfg.name, "device": str(dev), "dtype": str(cfg.dtype), "seconds": dt,
+            "tokens_per_s": batch * gen / dt}
 
 
 def parse_serve_mesh(spec: str | None, shard: str = "batch", device=None):
@@ -246,7 +341,7 @@ async def serve_tm_service(
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--arch", required=True, choices=sorted(COTM_CONFIGS))
+    ap.add_argument("--arch", required=True, choices=sorted(COTM_CONFIGS) + list_archs())
     ap.add_argument("--requests", type=int, default=32)
     ap.add_argument("--max-batch", type=int, default=256)
     ap.add_argument("--eval-path", default="fused", choices=available_paths())
@@ -288,7 +383,23 @@ def main(argv=None) -> None:
     ap.add_argument("--abandon-frac", type=float, default=0.0,
                     help="fraction of admitted requests whose client walks away; "
                          "their futures still resolve (--service)")
+    ap.add_argument("--reduced", action="store_true",
+                    help="LM archs: the small same-family config")
+    ap.add_argument("--batch", type=int, default=4, help="LM archs: prompts per batch")
+    ap.add_argument("--prompt-len", type=int, default=32, help="LM archs: prompt tokens")
+    ap.add_argument("--gen", type=int, default=16, help="LM archs: tokens to generate")
+    ap.add_argument("--temperature", type=float, default=0.0,
+                    help="LM archs: sampling temperature (0: greedy)")
+    ap.add_argument("--dtype", default=None, choices=["bfloat16", "float32"],
+                    help="LM archs: weight and activation dtype (default: the config's)")
     args = ap.parse_args(argv)
+    if args.arch not in COTM_CONFIGS:
+        stats = serve_lm(args.arch, reduced=args.reduced, batch=args.batch,
+                         prompt_len=args.prompt_len, gen=args.gen,
+                         temperature=args.temperature, dtype=args.dtype, seed=args.seed,
+                         device=args.device)
+        print(json.dumps(stats))
+        return
     common = dict(max_batch=args.max_batch, eval_path=args.eval_path,
                   ckpt_dir=args.ckpt_dir, seed=args.seed, device=args.device,
                   autotune=args.autotune,

@@ -1,0 +1,144 @@
+"""Declarative parameters: the port's copy of ``repro/models/base.py``.
+
+Modules describe their parameters as a nested dict of :class:`ParamDecl`
+(shape, dtype, init, logical sharding axes), the reference's declarations
+field for field.  A list in the tree is a run of layers.  The walkers
+turn a declaration tree into
+
+  * a :class:`ParamTree`, an ``nn.Module`` whose children and
+    ``nn.Parameter``s carry the declarations' names, shapes and dtypes,
+    drawn by :func:`init_params` or left on the meta device by
+    :func:`abstract_params` (the counterpart of ``ShapeDtypeStruct``);
+  * counts of parameters and bytes (:func:`param_count`,
+    :func:`param_bytes`).
+
+The logical ``axes`` are kept as plain data for the sharding half of the
+LM substrate.  Apply functions are plain functions ``f(p, x, cfg, ...)``
+that index a tree as the reference indexes its dicts: ``p["wq"]``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+from torch import nn
+
+__all__ = [
+    "ParamDecl",
+    "ParamTree",
+    "abstract_params",
+    "init_params",
+    "param_bytes",
+    "param_count",
+]
+
+
+@dataclasses.dataclass(frozen=True)
+class ParamDecl:
+    """One parameter: shape, dtype, init scheme, logical sharding axes."""
+
+    shape: Tuple[int, ...]
+    axes: Tuple[Any, ...]                 # logical axes, len == ndim
+    dtype: Any = torch.bfloat16
+    init: str = "normal"                  # normal | zeros | ones | embed
+    scale: Optional[float] = None         # stddev override
+
+    def __post_init__(self):
+        if len(self.shape) != len(self.axes):
+            raise ValueError(f"shape {self.shape} vs axes {self.axes}")
+
+
+class ParamTree(nn.Module):
+    """A module built from a declaration dict: each sub-dict is a child
+    :class:`ParamTree`, each list an ``nn.ModuleList``, each
+    :class:`ParamDecl` an ``nn.Parameter`` of its shape and dtype.
+    Parameters are made without gradients (serving needs none; a trainer
+    turns them on with ``requires_grad_()``).  ``tree["name"]`` reads a
+    child or parameter, as the reference reads its dicts."""
+
+    def __init__(self, decls: Dict, device=None):
+        super().__init__()
+        for name, d in decls.items():
+            if isinstance(d, ParamDecl):
+                t = torch.empty(d.shape, dtype=d.dtype, device=device)
+                self.register_parameter(name, nn.Parameter(t, requires_grad=False))
+            elif isinstance(d, list):
+                self.add_module(name, nn.ModuleList(ParamTree(x, device) for x in d))
+            else:
+                self.add_module(name, ParamTree(d, device))
+
+    def __getitem__(self, name: str):
+        return getattr(self, name)
+
+    def __contains__(self, name: str) -> bool:
+        return name in self._parameters or name in self._modules
+
+
+def _leaves(decls, path=()):
+    """``(path, decl)`` in the reference's draw order: dict keys sorted,
+    list items in order."""
+    if isinstance(decls, ParamDecl):
+        yield path, decls
+    elif isinstance(decls, list):
+        for i, d in enumerate(decls):
+            yield from _leaves(d, path + (i,))
+    else:
+        for k in sorted(decls):
+            yield from _leaves(decls[k], path + (k,))
+
+
+def _param_at(tree: nn.Module, path) -> nn.Parameter:
+    node = tree
+    for k in path:
+        node = node[k]
+    return node
+
+
+@torch.no_grad()
+def _init_one(t: torch.Tensor, decl: ParamDecl, generator: torch.Generator) -> None:
+    if decl.init == "zeros":
+        t.zero_()
+        return
+    if decl.init == "ones":
+        t.fill_(1)
+        return
+    fan_in = decl.shape[0] if decl.shape else 1
+    if decl.init == "embed":
+        std = decl.scale if decl.scale is not None else 1.0
+    else:
+        std = decl.scale if decl.scale is not None else 1.0 / math.sqrt(max(fan_in, 1))
+    draw = torch.randn(decl.shape, generator=generator, dtype=torch.float32,
+                       device=generator.device)
+    t.copy_((draw * std).to(decl.dtype))
+
+
+def init_params(decls: Dict, generator: torch.Generator, device=None) -> ParamTree:
+    """A :class:`ParamTree` on ``device`` (the generator's by default; the
+    draws are made on the generator's device and copied) with
+    the reference's distributions: normal with std ``1/sqrt(fan_in)``
+    (``fan_in`` the first dim), ``embed`` 1.0, ``scale`` where given,
+    zeros, ones.  A layer the reference draws inside a stacked ``[n, ...]``
+    array carries that array's std as its decls' ``scale``
+    (``transformer._cycle_decls``).  Leaves draw in sorted path order from
+    ``generator``; the draws are torch's, not ``jax.random``'s."""
+    device = generator.device if device is None else torch.device(device)
+    tree = ParamTree(decls, device)
+    for path, d in _leaves(decls):
+        _init_one(_param_at(tree, path), d, generator)
+    return tree
+
+
+def abstract_params(decls: Dict) -> ParamTree:
+    """The tree on the meta device: shapes and dtypes, no memory."""
+    return ParamTree(decls, "meta")
+
+
+def param_count(decls: Dict) -> int:
+    return sum(math.prod(d.shape) for _, d in _leaves(decls))
+
+
+def param_bytes(decls: Dict) -> int:
+    return sum(math.prod(d.shape) * d.dtype.itemsize for _, d in _leaves(decls))

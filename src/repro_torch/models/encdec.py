@@ -1,0 +1,166 @@
+"""Encoder-decoder backbone (SeamlessM4T-large-v2's transformer core): the
+port's copy of ``repro/models/encdec.py``.
+
+The modality frontend (speech feature extractor) is a stub: callers pass
+precomputed frame embeddings [B, S_enc, d] to the encoder.  The decoder is
+a causal transformer with cross-attention; decode uses a self-attention
+cache plus a cross-attention K/V cache computed once from the encoder's
+output.  Layers are ``nn.ModuleList``s in layer order; caches are
+per-layer lists.  The reference stacks each of ``enc`` and ``dec`` whole,
+and its layers draw as its stacks draw (``transformer._cycle_decls``).
+
+The parameter tree: ``{embed, enc: [layer, ...], enc_norm, dec: [layer,
+...], dec_norm}``.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Tuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import attention as attn
+from repro_torch.models.layers import (
+    embed_decls,
+    embed_lookup,
+    lm_logits,
+    mlp,
+    mlp_decls,
+    rmsnorm,
+    rmsnorm_decls,
+)
+from repro_torch.models.transformer import _cycle_decls
+
+__all__ = [
+    "encdec_decls",
+    "encdec_forward",
+    "encode",
+    "prepare_cross_cache",
+    "init_self_cache",
+    "encdec_decode_step",
+]
+
+
+def _enc_layer_decls(cfg: ModelConfig) -> Dict:
+    return {
+        "attn_norm": rmsnorm_decls(cfg.d_model),
+        "attn": attn.attention_decls(cfg),
+        "mlp_norm": rmsnorm_decls(cfg.d_model),
+        "mlp": mlp_decls(cfg.d_model, cfg.d_ff, cfg.dtype),
+    }
+
+
+def _dec_layer_decls(cfg: ModelConfig) -> Dict:
+    return {
+        "self_norm": rmsnorm_decls(cfg.d_model),
+        "self_attn": attn.attention_decls(cfg),
+        "cross_norm": rmsnorm_decls(cfg.d_model),
+        "cross_attn": attn.attention_decls(cfg, cross=True),
+        "mlp_norm": rmsnorm_decls(cfg.d_model),
+        "mlp": mlp_decls(cfg.d_model, cfg.d_ff, cfg.dtype),
+    }
+
+
+def encdec_decls(cfg: ModelConfig) -> Dict:
+    n_enc = cfg.n_encoder_layers or cfg.n_layers
+    return {
+        "embed": embed_decls(cfg),
+        "enc": [_cycle_decls(_enc_layer_decls(cfg), n_enc) for _ in range(n_enc)],
+        "enc_norm": rmsnorm_decls(cfg.d_model),
+        "dec": [_cycle_decls(_dec_layer_decls(cfg), cfg.n_layers) for _ in range(cfg.n_layers)],
+        "dec_norm": rmsnorm_decls(cfg.d_model),
+    }
+
+
+def _positions(b: int, s: int, device) -> torch.Tensor:
+    return torch.arange(s, dtype=torch.int32, device=device).expand(b, s)
+
+
+def encode(params, frontend_embeds: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Bidirectional encoder over stub frame embeddings [B, S_enc, d]."""
+    x = frontend_embeds.to(cfg.dtype)
+    b, s, _ = x.shape
+    positions = _positions(b, s, x.device)
+    for lp in params["enc"]:
+        h = rmsnorm(lp["attn_norm"], x, cfg.norm_eps)
+        x = x + attn.attention_apply(lp["attn"], h, cfg, positions, causal=False)
+        h = rmsnorm(lp["mlp_norm"], x, cfg.norm_eps)
+        x = x + mlp(lp["mlp"], h)
+    return rmsnorm(params["enc_norm"], x, cfg.norm_eps)
+
+
+def encdec_forward(
+    params, frontend_embeds: torch.Tensor, dec_tokens: torch.Tensor, cfg: ModelConfig,
+) -> torch.Tensor:
+    """Returns decoder hidden states [B, S_dec, d]."""
+    enc_out = encode(params, frontend_embeds, cfg)
+    x = embed_lookup(params["embed"], dec_tokens)
+    b, s, _ = x.shape
+    positions = _positions(b, s, x.device)
+    for lp in params["dec"]:
+        h = rmsnorm(lp["self_norm"], x, cfg.norm_eps)
+        x = x + attn.attention_apply(lp["self_attn"], h, cfg, positions, causal=True)
+        h = rmsnorm(lp["cross_norm"], x, cfg.norm_eps)
+        x = x + attn.attention_apply(lp["cross_attn"], h, cfg, positions, kv_source=enc_out)
+        h = rmsnorm(lp["mlp_norm"], x, cfg.norm_eps)
+        x = x + mlp(lp["mlp"], h)
+    return rmsnorm(params["dec_norm"], x, cfg.norm_eps)
+
+
+# ---------------------------------------------------------------------------
+# Decode
+# ---------------------------------------------------------------------------
+
+def prepare_cross_cache(params, enc_out: torch.Tensor, cfg: ModelConfig
+                        ) -> List[Dict[str, torch.Tensor]]:
+    """Per-layer cross-attention K/V [B, KV, S_enc, hd] of the encoder output
+    (the reference stacks them into [L, B, KV, S_enc, hd])."""
+    kv, hd = cfg.n_kv_heads, cfg.head_dim
+    b, s, _ = enc_out.shape
+    out = []
+    for lp in params["dec"]:
+        k = (enc_out @ lp["cross_attn"]["wk"]).reshape(b, s, kv, hd)
+        v = (enc_out @ lp["cross_attn"]["wv"]).reshape(b, s, kv, hd)
+        out.append({"k": k.transpose(1, 2), "v": v.transpose(1, 2)})
+    return out
+
+
+def init_self_cache(batch: int, cfg: ModelConfig, max_seq: int, device=None
+                    ) -> List[Dict[str, torch.Tensor]]:
+    return attn.init_kv_cache(batch, cfg, max_seq, cfg.n_layers, device)
+
+
+def encdec_decode_step(
+    params,
+    tokens: torch.Tensor,                  # [B, 1]
+    self_cache: List[Dict],                # per layer {k, v}: [B, KV, S_cache, hd]
+    cross_cache: List[Dict],               # per layer {k, v}: [B, KV, S_enc, hd]
+    pos: int,
+    cfg: ModelConfig,
+) -> Tuple[torch.Tensor, List[Dict]]:
+    """One decode step -> (logits [B, vocab] float32, self cache).  The
+    cross-attention has no mask and no soft-cap."""
+    x = embed_lookup(params["embed"], tokens)
+    h_heads, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    b = x.shape[0]
+    g = h_heads // kvh
+    new_self = []
+    for lp, sc, xc in zip(params["dec"], self_cache, cross_cache):
+        h = rmsnorm(lp["self_norm"], x, cfg.norm_eps)
+        y, nk, nv = attn.decode_attention(lp["self_attn"], h, sc["k"], sc["v"], pos, cfg)
+        x = x + y
+        new_self.append({"k": nk, "v": nv})
+        # Cross attention against the fixed encoder K/V.
+        h = rmsnorm(lp["cross_norm"], x, cfg.norm_eps)
+        q = (h @ lp["cross_attn"]["wq"]).reshape(b, 1, h_heads, hd)
+        qg = q.transpose(1, 2).reshape(b, kvh, g, 1, hd)
+        bias = torch.zeros((1, xc["k"].shape[2]), dtype=torch.float32, device=x.device)
+        o = attn._sdpa(qg, xc["k"], xc["v"], bias)
+        o = o.reshape(b, h_heads, 1, hd).transpose(1, 2).reshape(b, 1, h_heads * hd)
+        x = x + o @ lp["cross_attn"]["wo"]
+        h = rmsnorm(lp["mlp_norm"], x, cfg.norm_eps)
+        x = x + mlp(lp["mlp"], h)
+    x = rmsnorm(params["dec_norm"], x, cfg.norm_eps)
+    logits = lm_logits(params["embed"], x[:, 0], cfg).float()
+    return logits, new_self

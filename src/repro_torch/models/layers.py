@@ -1,0 +1,168 @@
+"""Shared layers: the port's copy of ``repro/models/layers.py``.
+
+RMSNorm, logit soft-capping, RoPE (GPT-NeoX half rotation) and Qwen2-VL's
+M-RoPE, the gated MLP (SwiGLU / GeGLU), the token embedding and the LM
+head.  Casts sit where the reference has them: norms, rotations and
+soft-capping compute in float32 and return the input's dtype.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.base import ParamDecl
+
+__all__ = [
+    "rmsnorm_decls",
+    "rmsnorm",
+    "rope",
+    "mrope",
+    "mlp_decls",
+    "mlp",
+    "embed_decls",
+    "embed_lookup",
+    "lm_logits",
+    "softcap",
+]
+
+
+# ---------------------------------------------------------------------------
+# RMSNorm
+# ---------------------------------------------------------------------------
+
+def rmsnorm_decls(d: int) -> Dict:
+    return {"scale": ParamDecl((d,), (None,), init="ones", dtype=torch.float32)}
+
+
+def rmsnorm(p, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    dt = x.dtype
+    x = x.float()
+    var = torch.mean(x * x, dim=-1, keepdim=True)
+    y = x * torch.rsqrt(var + eps) * p["scale"]
+    return y.to(dt)
+
+
+def softcap(x: torch.Tensor, cap: Optional[float]) -> torch.Tensor:
+    """Gemma-style logit soft-capping: cap * tanh(x / cap)."""
+    if cap is None:
+        return x
+    return (cap * torch.tanh(x.float() / cap)).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Rotary embeddings (GPT-NeoX half-rotation convention)
+# ---------------------------------------------------------------------------
+
+def _rope_angles(positions: torch.Tensor, dim: int, theta: float
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """positions [...] -> (sin, cos) [..., dim/2] in fp32."""
+    # log(theta) in float32, as the reference takes it, from the host (a
+    # tensor made from a Python number would be a copy to the device).
+    log_theta = float(np.log(np.float32(theta)))
+    arange = torch.arange(0, dim, 2, dtype=torch.float32, device=positions.device)
+    freqs = torch.exp(-log_theta * arange / dim)
+    ang = positions.float()[..., None] * freqs
+    return torch.sin(ang), torch.cos(ang)
+
+
+def _apply_rot(x: torch.Tensor, sin: torch.Tensor, cos: torch.Tensor) -> torch.Tensor:
+    """x [..., hd]; sin/cos broadcastable [..., hd/2]."""
+    half = x.shape[-1] // 2
+    x1f, x2f = x[..., :half].float(), x[..., half:].float()
+    return torch.cat([x1f * cos - x2f * sin, x2f * cos + x1f * sin], dim=-1).to(x.dtype)
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """Standard RoPE. x [B, S, H, hd]; positions [B, S] (or [S])."""
+    if positions.ndim == 1:
+        positions = positions[None]
+    sin, cos = _rope_angles(positions, x.shape[-1], theta)      # [B, S, hd/2]
+    return _apply_rot(x, sin[:, :, None, :], cos[:, :, None, :])
+
+
+def mrope(
+    x: torch.Tensor,
+    positions: torch.Tensor,
+    theta: float,
+    sections: Tuple[int, int, int],
+) -> torch.Tensor:
+    """Qwen2-VL multimodal RoPE.
+
+    Args:
+      x: [B, S, H, hd].
+      positions: [3, B, S]: temporal / height / width position ids (all
+        equal for pure text).
+      sections: per-axis number of *pairs*; sums to hd/2 (e.g. (16, 24, 24)
+        for hd=128).
+    """
+    hd = x.shape[-1]
+    if sum(sections) != hd // 2:
+        raise ValueError(f"mrope sections {sections} != head_dim/2 = {hd // 2}")
+    sins, coss = [], []
+    for i, sec in enumerate(sections):
+        # Each section uses its own position stream but the global
+        # frequency table's slice [offset : offset+sec], as HF does.
+        s, c = _rope_angles(positions[i], hd, theta)             # [B, S, hd/2]
+        off = sum(sections[:i])
+        sins.append(s[..., off : off + sec])
+        coss.append(c[..., off : off + sec])
+    sin = torch.cat(sins, dim=-1)
+    cos = torch.cat(coss, dim=-1)
+    return _apply_rot(x, sin[:, :, None, :], cos[:, :, None, :])
+
+
+# ---------------------------------------------------------------------------
+# Gated MLP (SwiGLU/GeGLU)
+# ---------------------------------------------------------------------------
+
+def mlp_decls(d: int, ff: int, dtype=torch.bfloat16) -> Dict:
+    return {
+        "w_gate": ParamDecl((d, ff), ("fsdp", "tensor"), dtype=dtype),
+        "w_up": ParamDecl((d, ff), ("fsdp", "tensor"), dtype=dtype),
+        "w_down": ParamDecl((ff, d), ("tensor", "fsdp"), dtype=dtype),
+    }
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu``'s default: the tanh approximation."""
+    return F.gelu(x, approximate="tanh")
+
+
+def mlp(p, x: torch.Tensor, activation: str = "silu") -> torch.Tensor:
+    g = x @ p["w_gate"]
+    u = x @ p["w_up"]
+    act = F.silu if activation == "silu" else gelu
+    return (act(g) * u) @ p["w_down"]
+
+
+# ---------------------------------------------------------------------------
+# Embedding / LM head
+# ---------------------------------------------------------------------------
+
+def embed_decls(cfg: ModelConfig) -> Dict:
+    d = {
+        "tok": ParamDecl(
+            (cfg.vocab_size, cfg.d_model), ("tensor", "fsdp"),
+            dtype=cfg.dtype, init="embed", scale=0.02,
+        )
+    }
+    if not cfg.tie_embeddings:
+        d["head"] = ParamDecl(
+            (cfg.d_model, cfg.vocab_size), ("fsdp", "tensor"), dtype=cfg.dtype
+        )
+    return d
+
+
+def embed_lookup(p, tokens: torch.Tensor) -> torch.Tensor:
+    return F.embedding(tokens, p["tok"])
+
+
+def lm_logits(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    if cfg.tie_embeddings:
+        return x @ p["tok"].T
+    return x @ p["head"]

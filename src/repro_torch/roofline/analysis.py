@@ -1,4 +1,7 @@
-"""Roofline ceilings of the ConvCoTM eval paths on an NVIDIA H100.
+"""Roofline ceilings of the ConvCoTM eval paths on an NVIDIA H100, and the
+LM substrate's ideal model FLOPs (``model_flops``, the reference's
+``6·N·D`` / ``2·N·D``).  ``roofline_terms`` and the HLO parsers of the
+reference's ``analysis.py`` wait for the sharding half of the LM substrate.
 
 ``tm_path_roofline`` is the port's copy of the reference's
 (``repro/roofline/analysis.py``) with the H100's ceilings in place of the
@@ -24,13 +27,20 @@ from typing import Any, Dict, Optional
 
 from repro_torch.roofline.flops import tm_serve_costs
 
-__all__ = ["H100_BYTES_PER_S", "H100_INT_OPS_PER_S", "tm_path_roofline"]
+__all__ = ["H100_BYTES_PER_S", "H100_INT_OPS_PER_S", "model_flops", "tm_path_roofline"]
 
 #: HBM3 bytes per second of an H100 SXM (NVIDIA's data sheet).
 H100_BYTES_PER_S = 3.35e12
 #: 32-bit integer results per second of an H100 80GB HBM3: 132 SMs x 64 per
 #: clock x 1,980 MHz (the highest SM clock ``nvidia-smi`` reports, 700 W).
 H100_INT_OPS_PER_S = 132 * 64 * 1980e6
+
+
+def model_flops(n_params: int, n_active_params: int, tokens: int, kind: str) -> float:
+    """Ideal model FLOPs: 6·N·D train, 2·N·D forward-only (per step), N the
+    active parameters."""
+    n = n_active_params
+    return (6.0 if kind == "train" else 2.0) * n * tokens
 
 
 def tm_path_roofline(
