@@ -127,8 +127,38 @@ this file and builds the CUDA kernels from ``src/repro_torch/csrc``).
      decode steps; ``[roofline] lm`` lines put the decode byte floor
      (``hbm_bytes_estimate`` over 3.35 TB/s) and the prefill compute
      floor (``flops_estimate`` over SMs x 4,096 bf16 FLOPs per clock x
-     the highest SM clock) beside them; then one ``{"kernels": [...]}``
-     line.
+     the highest SM clock) beside them;
+  6. the LM substrate's training path (``[lm train]`` lines; plain
+     PyTorch, no kernel of its own, the six kernels' counters held at 0):
+     each of the ten archs at ``reduced_config`` in fp32, microbatches
+     2, remat on, drawn on a seeded CPU generator: one train step and
+     then three on the card and on the CPU from the same weights and
+     batches, held on weights of each layer's own fan-in (xLSTM at its
+     17 layers: loss 1e-5, grad_norm 1e-4, the three losses 1e-4
+     relative) and printed beside them on the reference's draws (xLSTM
+     on the 3-layer stack); remat on against off on the card (1e-6) on
+     both; h2o-danube-1.8b
+     whole in fp32 at 1 x 512 tokens, on the reference's draws and on
+     weights of each layer's own fan-in: ``lm_loss`` equals the served
+     forward's cross entropy (1e-4), and the gradient's directional
+     derivatives along g/|g| and along the embedding, layer 0's query
+     weight and layer 23's MLP down projection equal central differences
+     (1e-2 at a first-order change of 1e-2; held on the fan-in weights,
+     printed on the reference's draws); on the reference's draws a
+     float64 witness: the same model in float64, its loss and gradient,
+     and central differences of the float64 loss along the same
+     directions, held against the float64 and the float32 gradient
+     (1e-2 at a first-order change of 1e-5); h2o-danube-1.8b whole in
+     bf16 with fp32
+     masters trained 8 steps at 4 x 2,048 on ``synthetic_lm_batch``
+     (microbatches 2, remat full, lr 3e-4, warmup 1): each step's loss,
+     grad_norm, lr and ms (host clock and CUDA events), tokens/s, peak
+     memory, the losses finite and falling, a ``torch.profiler`` split
+     of one more step, and ``[roofline] lm train`` (the step's compute
+     floor from ``flops_estimate`` over the bf16 peak); a resumed
+     ``run_training`` on the card (reduced, fp32, checkpoint at step 2)
+     against the uninterrupted run (1e-5); then one ``{"kernels":
+     [...]}`` line.
 
 The last line is ``{"ok": true, "device": {...}}``.  Any failed phase
 raises and exits non-zero, as does a run without CUDA or outside the
@@ -1618,13 +1648,10 @@ def lm_card_against_cpu(dev, card: str) -> None:
     # The reduced xLSTM at its 17 layers, on weights drawn with each
     # layer's own fan-in (std 1/sqrt(d_in)).
     from repro_torch.launch.specs import model_decls
-    from repro_torch.models import transformer as tfm
 
     cfg = dataclasses.replace(reduced_config(get_config("xlstm-350m")), dtype=torch.float32)
-    decls = {**model_decls(cfg), "layers": [tfm._block_decls(cfg.pattern_for_layer(i), cfg)
-                                            for i in range(cfg.n_layers)]}
-    err, close, n_clear, same, min_margin = _lm_card_and_cpu(cfg, dev, LM_DECODE_STEPS, SEED,
-                                                             decls)
+    err, close, n_clear, same, min_margin = _lm_card_and_cpu(
+        cfg, dev, LM_DECODE_STEPS, SEED, model_decls(cfg, fan_in=True))
     print(f"[lm] xlstm-350m reduced ({cfg.n_layers} layers, weights of each layer's own "
           f"fan-in) card == CPU: prefill + {LM_DECODE_STEPS} decode steps, max |dlogit| "
           f"{err:.3g} (rtol=atol={LM_TOL:g}); greedy tokens equal at {same} of {n_clear} "
@@ -1813,6 +1840,430 @@ def lm_roofline(served: dict, card: str) -> None:
           f"FLOPs, flops_estimate, over the bf16 peak) against {served['prefill_ms']:.3f} ms, "
           f"achieved fraction {floor / served['prefill_ms']:.4f} (the port's attention runs "
           f"in fp32) | {card}")
+
+
+# ---------------------------------------------------------------------------
+# 6. The LM substrate's training path ([lm train] lines)
+# ---------------------------------------------------------------------------
+
+#: Card against CPU, reduced archs, fp32: one step's loss (relative), its
+#: gradient norm, and the losses of 3 steps; held on weights of each
+#: layer's own fan-in, printed on the reference's draws.
+TRAIN_LOSS_RTOL = 1e-5
+TRAIN_GNORM_RTOL = 1e-4
+TRAIN_STEPS_RTOL = 1e-4
+#: Remat on against remat off on the card (loss and gradient norm).
+REMAT_RTOL = 1e-6
+#: Full width: the training loss against the serving forward's cross
+#: entropy, and the directional derivatives against central differences.
+FULL_LOSS_RTOL = 1e-4
+FD_RTOL = 1e-2
+#: The central differences take the step along each unit direction ``u``
+#: that moves the loss by this much to first order: eps = FD_DELTA / <g, u>.
+#: The check is made at FD_DELTA; the other steps are printed beside it.
+FD_DELTA = 1e-2
+FD_DELTAS = (1e-1, 1e-2, 1e-3, 1e-4)
+#: The float64 witness on the reference's draws: its central differences
+#: against the float64 and the float32 gradient at FD64_DELTA (FD_RTOL),
+#: the other steps printed.
+FD64_DELTA = 1e-5
+FD64_DELTAS = (1e-2, 1e-3, 1e-4, 1e-5, 1e-6)
+#: The bf16 training run of h2o-danube-1.8b.
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICROBATCHES, TRAIN_RUN_STEPS = 4, 2048, 2, 8
+
+
+def _train_cfgs(dtype):
+    """``(arch, cfg, decls, fan_in)``: every arch reduced in ``dtype``, on
+    weights of each layer's own fan-in (xLSTM at its 17 layers), then on
+    the reference's draws (xLSTM on the 3-layer stack, as in the [lm]
+    phase)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config, list_archs, reduced_config
+    from repro_torch.launch.specs import model_decls
+
+    for fan_in in (True, False):
+        for arch in list_archs():
+            extra = XLSTM_SHALLOW if arch == "xlstm-350m" and not fan_in else {}
+            cfg = dataclasses.replace(reduced_config(get_config(arch)), dtype=dtype, **extra)
+            yield arch, cfg, model_decls(cfg, fan_in=fan_in), fan_in
+
+
+def _train_run(cfg, tcfg, model, dev, steps: int):
+    """``steps`` train steps of a copy of ``model`` on ``dev`` over the
+    synthetic batches (batch 4, seq 32); returns the metrics per step as
+    floats and the state."""
+    import copy
+
+    from repro_torch.launch.train import synthetic_lm_batch
+    from repro_torch.train.train_step import init_train_state, make_train_step
+
+    state = init_train_state(copy.deepcopy(model).to(dev), tcfg)
+    step_fn = make_train_step(cfg, tcfg)
+    out = []
+    for step in range(steps):
+        batch = {k: v.to(dev) for k, v in synthetic_lm_batch(cfg, 4, 32, step, "cpu").items()}
+        state, m = step_fn(state, batch)
+        out.append({k: float(v) for k, v in m.items()})
+    return out, state
+
+
+def _train_errors(runs, ref) -> tuple[float, float, float]:
+    """The largest relative deviation of ``runs`` (lists of per-step
+    metrics) from ``ref``: the first step's loss and gradient norm, and
+    the losses over all steps."""
+    def rel(a, b):
+        return abs(a - b) / abs(b)
+
+    return (max(rel(r[0]["loss"], ref[0]["loss"]) for r in runs),
+            max(rel(r[0]["grad_norm"], ref[0]["grad_norm"]) for r in runs),
+            max(rel(a["loss"], b["loss"]) for r in runs for a, b in zip(r, ref)))
+
+
+def lm_train_card_against_cpu(dev, card: str) -> None:
+    """[lm train] 1: every arch reduced, fp32, microbatches 2, remat on:
+    the card against the CPU from the same weights and batches (one step,
+    then three), and remat on against remat off on the card (1e-6).  The
+    card == CPU tolerances hold on weights of each layer's own fan-in; on
+    the reference's draws, whose init leaves some reduced archs' float32
+    gradients ill-conditioned (tests/test_torch_lm_train.py), the same
+    errors are printed beside them, not held."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import TrainConfig
+    from repro_torch.models.base import init_params
+
+    tcfg = TrainConfig(learning_rate=1e-3, warmup_steps=1, total_steps=6, microbatches=2,
+                       remat="full")
+    tol = (TRAIN_LOSS_RTOL, TRAIN_GNORM_RTOL, TRAIN_STEPS_RTOL)
+    for arch, cfg, decls, fan_in in _train_cfgs(torch.float32):
+        model = init_params(decls, torch.Generator().manual_seed(SEED))
+        cpu, _ = _train_run(cfg, tcfg, model, "cpu", 3)
+        on_card, state = _train_run(cfg, tcfg, model, dev, 3)
+        check(all(p.device == dev for p in state["params"].parameters()),
+              f"[lm train] {arch}: the state is not on {dev}")
+        off, _ = _train_run(cfg, dataclasses.replace(tcfg, remat="none"), model, dev, 1)
+        e_loss, e_gn, e_steps = _train_errors([on_card], cpu)
+        r_loss, r_gn, _ = _train_errors([on_card[:1]], off)
+        weights = ("weights of each layer's own fan-in" if fan_in
+                   else "the reference's draws, printed only")
+        held = "tolerance " if fan_in else "not held; "
+        print(f"[lm train] {arch} reduced ({cfg.n_layers} layers, {weights}) card == CPU: loss "
+              f"{on_card[0]['loss']:.6f} (rel {e_loss:.2e}; {held}{tol[0]:.0e}), grad_norm "
+              f"{on_card[0]['grad_norm']:.6f} (rel {e_gn:.2e}; {held}{tol[1]:.0e}), 3 steps' "
+              f"losses rel {e_steps:.2e} ({held}{tol[2]:.0e}); remat on == off on the card: "
+              f"loss rel {r_loss:.2e}, grad_norm rel {r_gn:.2e} | {card}")
+        what = f"[lm train] {arch} ({weights})"
+        check(all(torch.isfinite(torch.tensor(m["loss"])) for m in on_card),
+              f"{what}: non-finite loss")
+        if fan_in:
+            check(e_loss <= tol[0], f"{what}: loss rel {e_loss:.3g}")
+            check(e_gn <= tol[1], f"{what}: grad_norm rel {e_gn:.3g}")
+            check(e_steps <= tol[2], f"{what}: 3 steps' losses rel {e_steps:.3g}")
+        check(r_loss <= REMAT_RTOL and r_gn <= REMAT_RTOL,
+              f"{what}: remat on and off differ ({r_loss:.3g}, {r_gn:.3g})")
+
+
+def _grads(model, toks, cfg):
+    """The loss (a float) and its gradient by parameter name, remat on."""
+    import torch
+
+    from repro_torch.models import transformer as tfm
+
+    model.requires_grad_(True)
+    names, leaves = zip(*model.named_parameters())
+    loss = tfm.lm_loss(model, toks, cfg, remat=True)
+    grads = dict(zip(names, torch.autograd.grad(loss, leaves)))
+    model.requires_grad_(False)
+    return float(loss.detach()), grads
+
+
+def _directions(cfg) -> dict:
+    """The supports of the four unit directions: all parameters (g/|g|),
+    the embedding, layer 0's query weight, the last layer's MLP down
+    projection."""
+    last = cfg.n_layers - 1
+    return {"g/|g|": None, "embed.tok": ["embed.tok"], "layers.0.attn.wq": ["layers.0.attn.wq"],
+            f"layers.{last}.mlp.w_down": [f"layers.{last}.mlp.w_down"]}
+
+
+def _central_differences(model, toks, cfg, grads, support, deltas, against) -> tuple:
+    """Central differences of ``model``'s loss along u = ``grads`` / |grads|
+    on ``support``.  For each first-order change ``delta`` of ``deltas``
+    the step is eps = delta / |grads|; the parameters are set to
+    theta +- eps u as their dtype stores them, and the difference of the
+    two losses is held against <g, theta+ - theta-> over the stored steps
+    for each gradient g of ``against`` (so the rounding of a step of a few
+    ulps does not count as an error).  Returns (|grads| on ``support``,
+    which is <grads, u>, and {name of ``against``: {delta: relative
+    error}})."""
+    import torch
+
+    from repro_torch.models import transformer as tfm
+
+    params = dict(model.named_parameters())
+    norm = float(torch.sqrt(sum(torch.sum(grads[n].double() ** 2) for n in support)))
+    errs = {k: {} for k in against}
+    with torch.no_grad():
+        saved = {n: params[n].detach().clone() for n in support}
+        for delta in deltas:
+            eps = delta / norm
+            losses, dots = [], dict.fromkeys(against, 0.0)
+            for sign in (1.0, -1.0):
+                for n in support:
+                    params[n].copy_(saved[n] + (sign * eps / norm) * grads[n])
+                    step = params[n].double() - saved[n].double()
+                    for k, g in against.items():
+                        dots[k] += sign * float(torch.sum(g[n].double() * step))
+                losses.append(float(tfm.lm_loss(model, toks, cfg)))
+            for n in support:
+                params[n].copy_(saved[n])
+            for k in against:
+                errs[k][delta] = abs((losses[0] - losses[1]) - dots[k]) / abs(dots[k])
+        del saved
+    return norm, errs
+
+
+def _ladder(errs: dict) -> str:
+    return "{" + ", ".join(f"{d:g}: {e:.2e}" for d, e in errs.items()) + "}"
+
+
+def lm_train_full_width_fp32(dev, card: str) -> None:
+    """[lm train] 2: h2o-danube-1.8b whole, fp32, 1 x 512 tokens, remat on:
+    the training loss equals the serving forward's cross entropy, and the
+    gradient's directional derivatives equal central differences of the
+    loss (:func:`_central_differences`), held on weights of each layer's
+    own fan-in and printed on the reference's draws, whose float32 loss
+    does not resolve a central difference at this width (PERF.md).  There
+    the float64 witness (:func:`_fd64_witness`) follows."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.specs import model_decls
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.base import init_params
+    from repro_torch.models.layers import lm_logits
+
+    cfg = dataclasses.replace(get_config("h2o-danube-1.8b"), dtype=torch.float32)
+    toks = torch.from_numpy(np.random.default_rng(SEED + 51).integers(
+        0, cfg.vocab_size, (1, 512)).astype(np.int32)).to(dev)
+    for weights, fan_in in (("the reference's draws", False),
+                            ("weights of each layer's own fan-in", True)):
+        t = time.perf_counter()
+        model = init_params(model_decls(cfg, fan_in=fan_in),
+                            torch.Generator(device=dev).manual_seed(SEED))
+        with torch.no_grad():
+            hidden, _ = tfm.forward(model, toks, cfg)
+            logits = lm_logits(model["embed"], hidden[:, :-1], cfg).float()
+            served = float(torch.nn.functional.cross_entropy(logits[0], toks[0, 1:].long()))
+            del hidden, logits
+        loss, grads = _grads(model, toks, cfg)
+        e_loss = abs(loss - served) / abs(served)
+        print(f"[lm train] h2o-danube-1.8b full width fp32 (1 x 512, remat on, {weights}): "
+              f"lm_loss {loss:.6f} == the served forward's cross entropy {served:.6f} (rel "
+              f"{e_loss:.2e}, tolerance {FULL_LOSS_RTOL:g}) | {card}")
+        check(np.isfinite(loss) and e_loss <= FULL_LOSS_RTOL,
+              f"[lm train] full width: lm_loss {loss} against the served cross entropy {served}")
+        for label, support in _directions(cfg).items():
+            norm, errs = _central_differences(model, toks, cfg, grads, support or list(grads),
+                                              FD_DELTAS, {"g": grads})
+            errs = errs["g"]
+            verdict = (f"at {FD_DELTA:g}: rel {errs[FD_DELTA]:.2e} (tolerance {FD_RTOL:g})"
+                       if fan_in else "not held")
+            print(f"[lm train] full width ({weights}) directional derivative along {label}: "
+                  f"<g, u> {norm:.6g}; central differences {verdict}; rel by first-order "
+                  f"change {_ladder(errs)} | {card}")
+            if fan_in:
+                check(errs[FD_DELTA] <= FD_RTOL, f"[lm train] full width: directional "
+                      f"derivative along {label} off by {errs[FD_DELTA]:.3g}")
+        print(f"[lm train] full width fp32 checks on {weights}: {time.perf_counter() - t:.2f} s")
+        del model
+        torch.cuda.empty_cache()
+        if not fan_in:
+            _fd64_witness(grads, loss, toks, cfg, dev, card)
+        del grads
+        torch.cuda.empty_cache()
+
+
+def _fd64_witness(g32: dict, loss32: float, toks, cfg, dev, card: str) -> None:
+    """[lm train] 2b: on the reference's draws, the same model in float64
+    (the float32 draws widened exactly, 14.6 GB): its loss against the
+    float32 loss, its gradient against the float32 one, and central
+    differences of the float64 loss along the float32 gradient's four
+    directions, held against the float64 and the float32 gradient at
+    ``FD64_DELTA`` and printed against both at each step of
+    ``FD64_DELTAS``: the full-width check of the float32 backward on the
+    weights the port trains."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.launch.specs import model_decls
+    from repro_torch.models.base import init_params
+
+    t = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    cfg64 = dataclasses.replace(cfg, dtype=torch.float64)
+    model = init_params(model_decls(cfg64), torch.Generator(device=dev).manual_seed(SEED))
+    loss64, g64 = _grads(model, toks, cfg64)
+    e_loss = abs(loss32 - loss64) / abs(loss64)
+    print(f"[lm train] full width float64 witness (the reference's draws, widened): lm_loss "
+          f"{loss64:.12f}, the float32 loss {loss32:.6f} (rel {e_loss:.2e}, tolerance "
+          f"{FULL_LOSS_RTOL:g}) | {card}")
+    check(e_loss <= FULL_LOSS_RTOL, f"[lm train] float64 witness: loss {loss64} against {loss32}")
+    for label, support in _directions(cfg).items():
+        support = support or list(g32)
+        dist = float(torch.sqrt(sum(torch.sum((g32[n].double() - g64[n].double()) ** 2)
+                                    for n in support))
+                     / torch.sqrt(sum(torch.sum(g64[n].double() ** 2) for n in support)))
+        norm, errs = _central_differences(model, toks, cfg64, g32, support, FD64_DELTAS,
+                                          {"fp64": g64, "fp32": g32})
+        e64, e32 = errs["fp64"][FD64_DELTA], errs["fp32"][FD64_DELTA]
+        print(f"[lm train] full width float64 witness along {label}: <g32, u> {norm:.6g}, "
+              f"|g32 - g64| / |g64| {dist:.2e}; float64 central differences at {FD64_DELTA:g} "
+              f"against the float64 gradient rel {e64:.2e}, against the float32 gradient rel "
+              f"{e32:.2e} (tolerance {FD_RTOL:g}); by first-order change against the float64 "
+              f"gradient {_ladder(errs['fp64'])}, against the float32 gradient "
+              f"{_ladder(errs['fp32'])} | {card}")
+        for name, e in (("float64", e64), ("float32", e32)):
+            check(e <= FD_RTOL, f"[lm train] float64 witness: the {name} gradient along "
+                  f"{label} off by {e:.3g}")
+    print(f"[lm train] full width float64 witness: {time.perf_counter() - t:.2f} s, peak "
+          f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB | {card}")
+    del model, g64
+    torch.cuda.empty_cache()
+
+
+def lm_train_run(dev, card: str) -> dict:
+    """[lm train] 3: h2o-danube-1.8b whole, bf16 weights with fp32 masters,
+    trained 8 steps at 4 x 2,048 (microbatches 2, remat full) on the
+    synthetic stream; each step's metrics and times, tokens/s, peak memory,
+    and a profile of one more step.  Returns the median step time."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.launch.specs import model_decls
+    from repro_torch.launch.train import synthetic_lm_batch
+    from repro_torch.models.base import init_params
+    from repro_torch.train.train_step import init_train_state, make_train_step
+
+    cfg = get_config("h2o-danube-1.8b")
+    tcfg = TrainConfig(learning_rate=3e-4, warmup_steps=1, total_steps=TRAIN_RUN_STEPS,
+                       microbatches=TRAIN_MICROBATCHES, remat="full")
+    torch.cuda.reset_peak_memory_stats()
+    model = init_params(model_decls(cfg), torch.Generator(device=dev).manual_seed(SEED))
+    state = init_train_state(model, tcfg)
+    step_fn = make_train_step(cfg, tcfg)
+    batches = [synthetic_lm_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, s, dev)
+               for s in range(TRAIN_RUN_STEPS + 1)]
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    losses, host_ms, dev_ms = [], [], []
+    for step in range(TRAIN_RUN_STEPS):
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        start.record()
+        state, m = step_fn(state, batches[step])
+        stop.record()
+        torch.cuda.synchronize()
+        host_ms.append((time.perf_counter() - t) * 1e3)
+        dev_ms.append(start.elapsed_time(stop))
+        m = {k: float(v) for k, v in m.items()}
+        losses.append(m["loss"])
+        print(f"[lm train] h2o-danube-1.8b bf16 step {step}: loss {m['loss']:.4f} grad_norm "
+              f"{m['grad_norm']:.4f} lr {m['lr']:.3e}; {host_ms[-1]:.1f} ms host clock, "
+              f"{dev_ms[-1]:.1f} ms CUDA events | {card}")
+    peak = torch.cuda.max_memory_allocated()
+    steady = host_ms[1:]
+    step_ms = statistics.median(steady)
+    print(f"[lm train] h2o-danube-1.8b bf16 (fp32 masters) at {TRAIN_BATCH} x {TRAIN_SEQ}, "
+          f"microbatches {TRAIN_MICROBATCHES}, remat full, {TRAIN_RUN_STEPS} steps: median step "
+          f"{step_ms:.1f} ms host ({statistics.median(dev_ms[1:]):.1f} ms events; first step "
+          f"{host_ms[0]:.1f} ms), {tokens / step_ms * 1e3:,.0f} tokens/s; peak memory "
+          f"{peak / 2**30:.2f} GiB (max_memory_allocated) | {card}")
+    check(all(np.isfinite(losses)), f"[lm train] non-finite loss: {losses}")
+    check(float(np.mean(losses[-3:])) < losses[0],
+          f"[lm train] the loss did not fall: first {losses[0]}, last three {losses[-3:]}")
+
+    # Where a step's time goes: one more step under the profiler.
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        state, m = step_fn(state, batches[TRAIN_RUN_STEPS])
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t) * 1e6
+    rows = prof.key_averages()
+    on_card = device_rows(rows)
+    busy = sum(self_dev_us(e) for e in on_card)
+    if busy:
+        print(f"[profile] lm train step: wall {wall_us / 1e3:.1f} ms, device busy "
+              f"{busy / 1e3:.1f} ms ({100 * busy / wall_us:.1f}% of wall), idle "
+              f"{100 * (1 - busy / wall_us):.1f}%; {sum(e.count for e in on_card)} device "
+              f"operations a step | {card}")
+        print_top_device("lm train step", on_card, 1, "step")
+        for e in sorted(rows, key=lambda e: e.self_cpu_time_total, reverse=True)[:8]:
+            print(f"[profile] lm train step: host {e.self_cpu_time_total / 1e3:9.2f} ms/step "
+                  f"x{e.count:<6d} {e.key[:80]}")
+    else:
+        print("[profile] lm train step: the profiler captured no device time (not measured)")
+    del state, model, batches
+    torch.cuda.empty_cache()
+    return {"cfg": cfg, "step_ms": step_ms}
+
+
+def lm_train_roofline(run: dict, card: str) -> None:
+    """[roofline] lm train: the step's compute floor (``flops_estimate``
+    over the dense bf16 peak) beside the measured step."""
+    import torch
+
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.roofline import flops_estimate
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    peak = sms * max_sm_clock_mhz() * 1e6 * BF16_FLOPS_PER_CLOCK_PER_SM
+    flops = flops_estimate(run["cfg"], ShapeConfig("train", TRAIN_SEQ, TRAIN_BATCH, "train"))
+    floor = flops / peak * 1e3
+    print(f"[roofline] lm train (batch {TRAIN_BATCH} x {TRAIN_SEQ}): compute floor {floor:.1f} "
+          f"ms ({flops:.4g} FLOPs, flops_estimate, 3x the forward, no remat recompute, over "
+          f"{peak / 1e12:.1f} TFLOP/s dense bf16) against {run['step_ms']:.1f} ms, achieved "
+          f"fraction {floor / run['step_ms']:.4f} | {card}")
+
+
+def lm_train_resume(dev, card: str) -> None:
+    """[lm train] 4: reduced h2o-danube, fp32, on the card through
+    ``run_training``: 4 steps straight against 2 steps, a checkpoint and a
+    resumed run to 4; the last losses and the final states agree."""
+    import dataclasses
+    import tempfile
+
+    import torch
+
+    from repro_torch.configs import TrainConfig, get_config, reduced_config
+    from repro_torch.launch.train import run_training
+
+    cfg = dataclasses.replace(reduced_config(get_config("h2o-danube-1.8b")), dtype=torch.float32)
+    tcfg = TrainConfig(learning_rate=1e-3, warmup_steps=1, total_steps=4, checkpoint_every=2)
+    kw = dict(device=dev, batch=4, seq=32, log_every=4)
+    with tempfile.TemporaryDirectory() as d:
+        whole = run_training(cfg, tcfg, steps=4, ckpt_dir=f"{d}/a", **kw)
+        again = run_training(cfg, tcfg, steps=4, ckpt_dir=f"{d}/c", **kw)
+        run_training(cfg, tcfg, steps=2, ckpt_dir=f"{d}/b", **kw)
+        resumed = run_training(cfg, tcfg, steps=4, ckpt_dir=f"{d}/b", **kw)
+    err = abs(resumed["loss"] - whole["loss"]) / abs(whole["loss"])
+    repeat = "bit for bit" if again == whole else (
+        f"not bit for bit (loss {again['loss']!r} against {whole['loss']!r}: the card's "
+        f"backward is not deterministic)")
+    print(f"[lm train] resume on the card (reduced h2o-danube fp32, 4 steps, checkpoint at 2): "
+          f"last loss {resumed['loss']:.7f} against {whole['loss']:.7f} uninterrupted (rel "
+          f"{err:.2e}, tolerance 1e-5); an uninterrupted run repeated: {repeat} | {card}")
+    check(err <= 1e-5, f"[lm train] resumed run's loss {resumed['loss']} != {whole['loss']}")
 
 
 def main() -> int:
@@ -2436,6 +2887,20 @@ def main() -> int:
     print(f"[engine] launches during the [lm] phase: {lm_launches}")
     check(not any(lm_launches.values()), f"the LM path launched a TM kernel: {lm_launches}")
     phase_s["5 lm"] = time.perf_counter() - t_phase
+
+    # --- 6. the LM substrate's training path ----------------------------------
+    # Plain PyTorch as well: the six kernels' counters stay at 0.
+    t_phase = time.perf_counter()
+    registry.reset_launches()
+    lm_train_card_against_cpu(dev, card)
+    lm_train_full_width_fp32(dev, card)
+    lm_train_roofline(lm_train_run(dev, card), card)
+    lm_train_resume(dev, card)
+    train_launches = registry.launch_counts()
+    print(f"[engine] launches during the [lm train] phase: {train_launches}")
+    check(not any(train_launches.values()),
+          f"the LM training path launched a TM kernel: {train_launches}")
+    phase_s["6 lm train"] = time.perf_counter() - t_phase
     print(f"[env] phase seconds: {', '.join(f'{k} {v:.2f}' for k, v in phase_s.items())}")
     print(f"[env] {card} | build {build_s:.2f} s")
 

@@ -8,11 +8,14 @@ Layout:  <dir>/step_<n>/
                                 renamed into place, so a step is atomic
 
 A tree is nested dicts (keys sorted), lists/tuples and dataclasses of
-tensors or arrays.  Leaf names follow the reference's: the path's dict
+tensors or arrays.  A bfloat16 leaf is written as its uint16 payload with
+``"dtype": "bfloat16"`` in the manifest, as the reference writes it, and
+read back bit for bit (no ``ml_dtypes`` needed).  Leaf names follow the reference's: the path's dict
 keys and list indices joined by ``/``, a dataclass field as ``.field``
 (``.ta_state`` for a ``CoTMModel``), so either package restores the
 other's checkpoints.  Tensors are copied to the host to be written; a
-restore gives tensors on the template's device (or ``device``).
+restore gives tensors on the template's device (or ``device``; the host
+for a template of meta tensors, which gives shapes only).
 
 :func:`save_servable` stores a frozen register image as the reference
 does: ``include`` uint8, ``include_packed`` as uint32 words,
@@ -86,13 +89,29 @@ def _unflatten(template: Any, leaves: Dict[str, Any], prefix: Tuple[str, ...] = 
     return leaves["/".join(prefix)]
 
 
-def _to_numpy(leaf: Any) -> np.ndarray:
+def _to_numpy(leaf: Any) -> Tuple[np.ndarray, str]:
+    """``(array to write, logical dtype)``.  numpy has no bfloat16 of its
+    own, so a bfloat16 leaf (a tensor, or an ``ml_dtypes`` array the caller
+    made) is written as its uint16 payload under the dtype ``"bfloat16"``,
+    as the reference writes it."""
     if isinstance(leaf, torch.Tensor):
-        return leaf.detach().cpu().numpy()
-    return np.asarray(leaf)
+        leaf = leaf.detach().cpu()
+        if leaf.dtype == torch.bfloat16:
+            return leaf.view(torch.int16).numpy().view(np.uint16), "bfloat16"
+        arr = leaf.numpy()
+    else:
+        arr = np.asarray(leaf)
+        if arr.dtype.name == "bfloat16":
+            return arr.view(np.uint16), "bfloat16"
+    return arr, str(arr.dtype)
 
 
-def _write(host: List[Tuple[str, np.ndarray]], directory: str, step: int,
+def _bf16_from_payload(arr: np.ndarray) -> torch.Tensor:
+    """A bfloat16 tensor from its uint16 payload (bit for bit)."""
+    return torch.from_numpy(np.ascontiguousarray(arr).view(np.int16)).view(torch.bfloat16)
+
+
+def _write(host: List[Tuple[str, np.ndarray, str]], directory: str, step: int,
            extra: Optional[Dict]) -> str:
     final = os.path.join(directory, f"step_{step:08d}")
     staging = final + ".tmp"
@@ -100,11 +119,11 @@ def _write(host: List[Tuple[str, np.ndarray]], directory: str, step: int,
         shutil.rmtree(staging)
     os.makedirs(staging, exist_ok=True)
     manifest = {"step": step, "leaves": {}, "extra": extra or {}}
-    for name, arr in host:
+    for name, arr, dtype in host:
         fname = name.replace("/", "__") + ".npy"
         np.save(os.path.join(staging, fname), arr)
         manifest["leaves"][name] = {"file": fname, "shape": list(arr.shape),
-                                    "dtype": str(arr.dtype)}
+                                    "dtype": dtype}
     with open(os.path.join(staging, "manifest.json"), "w") as f:
         json.dump(manifest, f)
     open(os.path.join(staging, "COMMITTED"), "w").close()
@@ -115,7 +134,7 @@ def _write(host: List[Tuple[str, np.ndarray]], directory: str, step: int,
 
 
 def _host_leaves(tree: Any):
-    return [(name, _to_numpy(leaf)) for name, leaf in _flatten(tree)]
+    return [(name, *_to_numpy(leaf)) for name, leaf in _flatten(tree)]
 
 
 def save_pytree(tree: Any, directory: str, step: int, extra: Optional[Dict] = None) -> str:
@@ -146,14 +165,22 @@ def latest_step(directory: str) -> Optional[int]:
     return steps[-1][0] if steps else None
 
 
-def _leaf_like(arr: np.ndarray, tmpl: Any, device) -> Any:
-    """``arr`` in the template leaf's dtype: a tensor (on ``device``, else
-    the template's device) for a tensor template, an array otherwise."""
+def _leaf_like(arr: np.ndarray, dtype: Optional[str], tmpl: Any, device) -> Any:
+    """``arr`` (written under the logical ``dtype``) in the template leaf's
+    dtype: a tensor (on ``device``, else the template's device) for a
+    tensor template, an array otherwise."""
     if isinstance(tmpl, torch.Tensor):
-        if tmpl.dtype == torch.int32 and arr.dtype == np.uint32:
-            arr = arr.view(np.int32)                 # packed words: same bits
-        t = torch.from_numpy(np.ascontiguousarray(arr)).to(tmpl.dtype)
-        return t.to(device if device is not None else tmpl.device)
+        if dtype == "bfloat16":
+            t = _bf16_from_payload(arr)
+        else:
+            if tmpl.dtype == torch.int32 and arr.dtype == np.uint32:
+                arr = arr.view(np.int32)             # packed words: same bits
+            t = torch.from_numpy(np.ascontiguousarray(arr))
+        if device is None:
+            device = "cpu" if tmpl.is_meta else tmpl.device
+        return t.to(tmpl.dtype).to(device)
+    if dtype == "bfloat16":
+        arr = _bf16_from_payload(arr).float().numpy()
     return arr.astype(np.asarray(tmpl).dtype)
 
 
@@ -178,7 +205,7 @@ def restore_pytree(
             raise ValueError(
                 f"leaf {name}: checkpoint shape {arr.shape} != template {tuple(tmpl.shape)}"
             )
-        leaves[name] = _leaf_like(arr, tmpl, device)
+        leaves[name] = _leaf_like(arr, meta.get("dtype"), tmpl, device)
     return _unflatten(template, leaves), step, manifest.get("extra", {})
 
 
@@ -276,11 +303,15 @@ class Checkpointer:
             error, self._error = self._error, None
             raise error
 
-    def save(self, tree: Any, step: int, extra: Optional[Dict] = None):
+    def save(self, tree: Any, step: int, extra: Optional[Dict] = None, *, fresh: bool = False):
+        """Save ``tree`` as ``step`` on a thread.  The host copy is made on
+        the caller's thread, since the caller may update its tensors in
+        place after this returns; with ``fresh`` the caller hands over host
+        tensors or arrays that nothing else holds, written as they are."""
         self.wait()
-        # The host copy is made on the caller's thread: the caller may
-        # update the tensors in place after this returns.
-        host = [(name, arr.copy()) for name, arr in _host_leaves(tree)]
+        host = _host_leaves(tree)
+        if not fresh:
+            host = [(name, arr.copy(), dtype) for name, arr, dtype in host]
 
         def work():
             try:

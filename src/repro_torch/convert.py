@@ -14,10 +14,15 @@ from arrays, such as the uniforms and Gumbel noise the reference's
 For the LM substrate, :func:`lm_params_from_arrays` takes the reference's
 parameter tree (nested dicts of numpy arrays, as
 ``jax.tree.map(np.asarray, params)`` gives) and returns the port's model;
-:func:`lm_params_to_arrays` is its inverse.  They are the one place that
-knows both layouts: the reference stacks layers (``layers.cyc[pos]`` with
-a leading cycle axis, ``layers.tail[i]``; ``enc``/``dec`` with a leading
-layer axis), the port lists them in layer order.
+:func:`lm_state_to_arrays` goes the other way, for a model (``{"params":
+model}``), a whole train state (parameters, AdamW moments and masters, the
+step, the compression residual) or gradients, and
+:func:`lm_state_from_arrays` takes such a state back.  They are the one
+place that knows both layouts: the reference stacks layers
+(``layers.cyc[pos]`` with a leading cycle axis, ``layers.tail[i]``;
+``enc``/``dec`` with a leading layer axis), the port lists them in layer
+order.  The port's checkpoints of an LM train state are written in the
+reference's layout, so either package resumes the other's run.
 """
 
 from __future__ import annotations
@@ -33,11 +38,13 @@ from repro_torch.core.train import TrainDraws
 from repro_torch.launch.specs import model_decls
 from repro_torch.models.base import ParamTree, _leaves, _param_at
 from repro_torch.models.transformer import layer_split
+from repro_torch.train.optimizer import OptState
 
 __all__ = [
     "draws_from_arrays",
     "lm_params_from_arrays",
-    "lm_params_to_arrays",
+    "lm_state_from_arrays",
+    "lm_state_to_arrays",
     "model_from_arrays",
     "model_to_arrays",
     "words_from_uint32",
@@ -115,6 +122,11 @@ def _ref_index(cfg: ModelConfig, path):
 
 
 def _tensor_from_array(arr) -> torch.Tensor:
+    """A CPU tensor of ``arr``: a tensor as it is, a numpy array copied (an
+    ``ml_dtypes`` bfloat16 array by its bits, read from the dtype's name, so
+    ``ml_dtypes`` need not be loaded)."""
+    if isinstance(arr, torch.Tensor):
+        return arr.detach().cpu()
     arr = np.asarray(arr)
     if arr.dtype.name == "bfloat16":     # ml_dtypes' bfloat16: carry the bits
         bits = np.ascontiguousarray(arr).view(np.uint16).view(np.int16)
@@ -122,31 +134,64 @@ def _tensor_from_array(arr) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(arr).copy())
 
 
-def _array_from_tensor(t: torch.Tensor) -> np.ndarray:
-    t = t.detach().cpu()
-    if t.dtype == torch.bfloat16:
-        # numpy knows bfloat16 once ml_dtypes (which JAX loads) registered it.
-        return t.view(torch.int16).numpy().view(np.dtype("bfloat16"))
-    return t.numpy()
+def _to_host(t: torch.Tensor) -> torch.Tensor:
+    """A fresh CPU copy of ``t``, which nothing else holds; a meta tensor
+    (a shape template) stays as it is."""
+    return t if t.is_meta else t.to("cpu", copy=True)
+
+
+def _name(path) -> str:
+    """The port's ``named_parameters()`` name of a declaration path."""
+    return ".".join(map(str, path))
+
+
+def _ref_leaf(cfg: ModelConfig, tree, path) -> torch.Tensor:
+    """The reference's leaf for the port's parameter at ``path`` (its layer
+    of a stacked array), as a CPU tensor."""
+    keys, j = _ref_index(cfg, path)
+    node = tree
+    for k in keys:
+        node = node[k]
+    if j is not None:
+        node = node[j] if isinstance(node, torch.Tensor) else np.asarray(node)[j]
+    return _tensor_from_array(node)
+
+
+def _to_ref_layout(cfg: ModelConfig, leaf_at, finish):
+    """The reference's nested tree, layers stacked as its ``model_decls``
+    stacks them, over the port's declaration paths: each of its leaves is
+    ``finish`` of ``leaf_at(path)``, or of the stack of a group's layers.
+    A stack is made where the layers are and finished before the next is
+    made, so a state on the card is copied to the host one leaf at a time."""
+    groups: dict = {}
+    # The reference keeps both groups of its layers, empty or not.
+    tree: dict = {} if cfg.is_encoder_decoder else {"layers": {"cyc": {}, "tail": {}}}
+    for path, _ in _leaves(model_decls(cfg)):
+        keys, j = _ref_index(cfg, path)
+        groups.setdefault(keys, []).append((j, path))
+    for keys, members in groups.items():
+        node = tree
+        for k in keys[:-1]:
+            node = node.setdefault(k, {})
+        j, path = members[0]
+        node[keys[-1]] = finish(leaf_at(path) if j is None else torch.stack(
+            [leaf_at(p) for _, p in sorted(members, key=lambda m: m[0])]))
+    return tree
 
 
 @torch.no_grad()
 def lm_params_from_arrays(cfg: ModelConfig, tree, *, device, dtype=None) -> ParamTree:
     """The port's model of ``cfg`` holding the reference's parameters
-    ``tree`` (nested dicts of numpy arrays).  Each parameter takes its
-    declaration's dtype: ``cfg.dtype`` for the weights (``dtype`` instead,
-    when given) and float32 where the reference fixes it (norm scales, the
-    router, ``r_rec``, ``b``, ``lambda_p``, ``shared_mix``)."""
+    ``tree`` (nested dicts of numpy arrays or tensors).  Each parameter
+    takes its declaration's dtype: ``cfg.dtype`` for the weights (``dtype``
+    instead, when given) and float32 where the reference fixes it (norm
+    scales, the router, ``r_rec``, ``b``, ``lambda_p``, ``shared_mix``)."""
     if dtype is not None:
         cfg = dataclasses.replace(cfg, dtype=dtype)
     decls = model_decls(cfg)
     model = ParamTree(decls, device)
     for path, d in _leaves(decls):
-        keys, j = _ref_index(cfg, path)
-        node = tree
-        for k in keys:
-            node = node[k]
-        src = _tensor_from_array(node if j is None else np.asarray(node)[j])
+        src = _ref_leaf(cfg, tree, path)
         if tuple(src.shape) != d.shape:
             raise ValueError(f"{'/'.join(map(str, path))}: the reference's array has "
                              f"shape {tuple(src.shape)}, the port declares {d.shape}")
@@ -154,26 +199,61 @@ def lm_params_from_arrays(cfg: ModelConfig, tree, *, device, dtype=None) -> Para
     return model
 
 
-def lm_params_to_arrays(model: ParamTree, cfg: ModelConfig):
-    """The reference's parameter tree (nested dicts of numpy arrays, layers
-    stacked as its ``model_decls`` stacks them) from the port's model of
-    ``cfg``: the inverse of :func:`lm_params_from_arrays`."""
-    stacks: dict = {}
-    # The reference keeps both groups of its layers, empty or not.
-    tree: dict = {} if cfg.is_encoder_decoder else {"layers": {"cyc": {}, "tail": {}}}
-    for path, _ in _leaves(model_decls(cfg)):
-        keys, j = _ref_index(cfg, path)
-        arr = _array_from_tensor(_param_at(model, path))
-        if j is None:
-            node = tree
-            for k in keys[:-1]:
-                node = node.setdefault(k, {})
-            node[keys[-1]] = arr
+def lm_state_to_arrays(state, cfg: ModelConfig) -> dict:
+    """A train state (or any dict of its parts) in the reference's layout.
+
+    ``state["params"]`` (the model), ``state["opt"]`` (an ``OptState``:
+    ``step``, ``m``, ``v``, ``master``) and every other entry holding
+    tensors keyed by parameter name (``residual``, gradients) become the
+    reference's trees, layers stacked as its ``model_decls`` stacks them,
+    under its checkpoint's leaf names (``params/...``, ``opt/.m/...``,
+    ``opt/.step``).  Leaves are fresh CPU tensors in their own dtypes,
+    which nothing else holds (numpy has no bfloat16 without ``ml_dtypes``,
+    and the port's checkpointer writes bfloat16 tensors as the reference
+    does); a state on the meta device gives a template of meta tensors,
+    the shapes a restore needs.  The reference's parameter tree of a model
+    alone is ``lm_state_to_arrays({"params": model}, cfg)["params"]``."""
+    def tree_of(named):
+        if isinstance(named, torch.nn.Module):
+            named = dict(named.named_parameters())
+        return _to_ref_layout(cfg, lambda path: named[_name(path)].detach(), _to_host)
+
+    out = {}
+    for key, part in state.items():
+        if isinstance(part, OptState):
+            out[key] = OptState(step=_to_host(part.step.detach()), m=tree_of(part.m),
+                                v=tree_of(part.v), master=tree_of(part.master))
         else:
-            stacks.setdefault(keys, {})[j] = arr
-    for keys, parts in stacks.items():
-        node = tree
-        for k in keys[:-1]:
-            node = node.setdefault(k, {})
-        node[keys[-1]] = np.stack([parts[j] for j in range(len(parts))])
-    return tree
+            out[key] = tree_of(part)
+    return out
+
+
+@torch.no_grad()
+def lm_state_from_arrays(cfg: ModelConfig, tree, *, device) -> dict:
+    """The port's train state (or any dict of its parts) on ``device`` from
+    one in the reference's layout (:func:`lm_state_to_arrays`'s output, a
+    restored checkpoint of either package, or the reference's own state as
+    numpy arrays): ``params`` becomes the model in ``cfg.dtype`` with
+    gradients on, ``opt`` (any object with ``step``, ``m``, ``v``,
+    ``master``) an ``OptState`` in float32 with an int32 step, and every
+    other entry (``residual``, gradients) tensors keyed by parameter name
+    in their own dtypes."""
+    decls = model_decls(cfg)
+
+    def named(t, dtype=None):
+        return {_name(path): _ref_leaf(cfg, t, path).to(device=device, dtype=dtype)
+                for path, _ in _leaves(decls)}
+
+    state = {}
+    for key, part in tree.items():
+        if key == "params":
+            state[key] = lm_params_from_arrays(cfg, part, device=device).requires_grad_(True)
+        elif key == "opt":
+            f32 = torch.float32
+            state[key] = OptState(
+                step=_tensor_from_array(part.step).to(device=device, dtype=torch.int32
+                                                      ).reshape(()),
+                m=named(part.m, f32), v=named(part.v, f32), master=named(part.master, f32))
+        else:
+            state[key] = named(part)
+    return state

@@ -18,10 +18,14 @@ from repro_torch.models.base import ParamTree, abstract_params
 __all__ = ["abstract_model", "model_decls"]
 
 
-def model_decls(cfg: ModelConfig) -> Dict:
+def model_decls(cfg: ModelConfig, fan_in: bool = False) -> Dict:
+    """The declaration tree of ``cfg``.  Its layers draw as the reference's
+    stacked layers draw; with ``fan_in``, each layer with its own fan-in
+    (std ``1/sqrt(d_in)``), the well-scaled weights the gradient checks
+    are held on."""
     if cfg.is_encoder_decoder:
-        return ed.encdec_decls(cfg)
-    return tfm.model_decls(cfg)
+        return ed.encdec_decls(cfg, fan_in)
+    return tfm.model_decls(cfg, fan_in)
 
 
 def abstract_model(cfg: ModelConfig) -> ParamTree:

@@ -21,7 +21,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.base import ParamDecl
-from repro_torch.models.layers import mrope, rope
+from repro_torch.models.layers import mrope, rope, wide
 
 __all__ = [
     "attention_decls",
@@ -78,7 +78,7 @@ def _sdpa(
     bias: torch.Tensor,       # [Sq, Sk]
 ) -> torch.Tensor:
     scale = q.shape[-1] ** -0.5
-    scores = torch.einsum("bkgqh,bksh->bkgqs", q.float(), k.float())
+    scores = torch.einsum("bkgqh,bksh->bkgqs", wide(q), wide(k))
     scores = scores * scale + bias[None, None, None]
     w = torch.softmax(scores, dim=-1)
     return torch.einsum("bkgqs,bksh->bkgqh", w.to(v.dtype), v)

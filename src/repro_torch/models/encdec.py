@@ -29,12 +29,14 @@ from repro_torch.models.layers import (
     mlp_decls,
     rmsnorm,
     rmsnorm_decls,
+    wide,
 )
-from repro_torch.models.transformer import _cycle_decls
+from repro_torch.models.transformer import _cycle_decls, remat_call
 
 __all__ = [
     "encdec_decls",
     "encdec_forward",
+    "encdec_loss",
     "encode",
     "prepare_cross_cache",
     "init_self_cache",
@@ -62,13 +64,19 @@ def _dec_layer_decls(cfg: ModelConfig) -> Dict:
     }
 
 
-def encdec_decls(cfg: ModelConfig) -> Dict:
+def encdec_decls(cfg: ModelConfig, fan_in: bool = False) -> Dict:
+    """Each layer draws as the reference's stack of its group draws, or
+    with ``fan_in`` as declared, with its own fan-in."""
     n_enc = cfg.n_encoder_layers or cfg.n_layers
+
+    def stacked(d, n):
+        return d if fan_in else _cycle_decls(d, n)
+
     return {
         "embed": embed_decls(cfg),
-        "enc": [_cycle_decls(_enc_layer_decls(cfg), n_enc) for _ in range(n_enc)],
+        "enc": [stacked(_enc_layer_decls(cfg), n_enc) for _ in range(n_enc)],
         "enc_norm": rmsnorm_decls(cfg.d_model),
-        "dec": [_cycle_decls(_dec_layer_decls(cfg), cfg.n_layers) for _ in range(cfg.n_layers)],
+        "dec": [stacked(_dec_layer_decls(cfg), cfg.n_layers) for _ in range(cfg.n_layers)],
         "dec_norm": rmsnorm_decls(cfg.d_model),
     }
 
@@ -77,35 +85,59 @@ def _positions(b: int, s: int, device) -> torch.Tensor:
     return torch.arange(s, dtype=torch.int32, device=device).expand(b, s)
 
 
-def encode(params, frontend_embeds: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """Bidirectional encoder over stub frame embeddings [B, S_enc, d]."""
+def encode(params, frontend_embeds: torch.Tensor, cfg: ModelConfig, *,
+           remat: bool = True) -> torch.Tensor:
+    """Bidirectional encoder over stub frame embeddings [B, S_enc, d];
+    ``remat`` recomputes each layer in the backward."""
     x = frontend_embeds.to(cfg.dtype)
     b, s, _ = x.shape
     positions = _positions(b, s, x.device)
-    for lp in params["enc"]:
+
+    def body(x, lp):
         h = rmsnorm(lp["attn_norm"], x, cfg.norm_eps)
         x = x + attn.attention_apply(lp["attn"], h, cfg, positions, causal=False)
         h = rmsnorm(lp["mlp_norm"], x, cfg.norm_eps)
-        x = x + mlp(lp["mlp"], h)
+        return x + mlp(lp["mlp"], h)
+
+    for lp in params["enc"]:
+        x = remat_call(remat, body, x, lp)
     return rmsnorm(params["enc_norm"], x, cfg.norm_eps)
 
 
 def encdec_forward(
-    params, frontend_embeds: torch.Tensor, dec_tokens: torch.Tensor, cfg: ModelConfig,
+    params, frontend_embeds: torch.Tensor, dec_tokens: torch.Tensor, cfg: ModelConfig, *,
+    remat: bool = True,
 ) -> torch.Tensor:
-    """Returns decoder hidden states [B, S_dec, d]."""
-    enc_out = encode(params, frontend_embeds, cfg)
+    """Returns decoder hidden states [B, S_dec, d]; ``remat`` recomputes
+    each encoder and decoder layer in the backward."""
+    enc_out = encode(params, frontend_embeds, cfg, remat=remat)
     x = embed_lookup(params["embed"], dec_tokens)
     b, s, _ = x.shape
     positions = _positions(b, s, x.device)
-    for lp in params["dec"]:
+
+    def body(x, lp):
         h = rmsnorm(lp["self_norm"], x, cfg.norm_eps)
         x = x + attn.attention_apply(lp["self_attn"], h, cfg, positions, causal=True)
         h = rmsnorm(lp["cross_norm"], x, cfg.norm_eps)
         x = x + attn.attention_apply(lp["cross_attn"], h, cfg, positions, kv_source=enc_out)
         h = rmsnorm(lp["mlp_norm"], x, cfg.norm_eps)
-        x = x + mlp(lp["mlp"], h)
+        return x + mlp(lp["mlp"], h)
+
+    for lp in params["dec"]:
+        x = remat_call(remat, body, x, lp)
     return rmsnorm(params["dec_norm"], x, cfg.norm_eps)
+
+
+def encdec_loss(
+    params, frontend_embeds: torch.Tensor, dec_tokens: torch.Tensor, cfg: ModelConfig, *,
+    remat: bool = True,
+) -> torch.Tensor:
+    """Mean next-token cross entropy of the decoder, float32 (unchunked)."""
+    hidden = encdec_forward(params, frontend_embeds, dec_tokens, cfg, remat=remat)
+    head = params["embed"]["tok"].T if cfg.tie_embeddings else params["embed"]["head"]
+    logits = wide(hidden[:, :-1] @ head)
+    tgt = logits.gather(-1, dec_tokens[:, 1:].long()[..., None])[..., 0]
+    return torch.mean(torch.logsumexp(logits, dim=-1) - tgt)
 
 
 # ---------------------------------------------------------------------------

@@ -3,7 +3,8 @@
 RMSNorm, logit soft-capping, RoPE (GPT-NeoX half rotation) and Qwen2-VL's
 M-RoPE, the gated MLP (SwiGLU / GeGLU), the token embedding and the LM
 head.  Casts sit where the reference has them: norms, rotations and
-soft-capping compute in float32 and return the input's dtype.
+soft-capping compute in float32 (:func:`wide`: float64 stays float64) and
+return the input's dtype.
 """
 
 from __future__ import annotations
@@ -28,7 +29,15 @@ __all__ = [
     "embed_lookup",
     "lm_logits",
     "softcap",
+    "wide",
 ]
+
+
+def wide(x: torch.Tensor) -> torch.Tensor:
+    """``x`` in float32 for the reference's float32 casts, or as it is when
+    it is float64, so a float64 dense decoder computes in float64 (the
+    full-width gradient witness of ``chip_smoke.py``)."""
+    return x if x.dtype == torch.float64 else x.float()
 
 
 # ---------------------------------------------------------------------------
@@ -41,7 +50,7 @@ def rmsnorm_decls(d: int) -> Dict:
 
 def rmsnorm(p, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     dt = x.dtype
-    x = x.float()
+    x = wide(x)
     var = torch.mean(x * x, dim=-1, keepdim=True)
     y = x * torch.rsqrt(var + eps) * p["scale"]
     return y.to(dt)
@@ -51,7 +60,7 @@ def softcap(x: torch.Tensor, cap: Optional[float]) -> torch.Tensor:
     """Gemma-style logit soft-capping: cap * tanh(x / cap)."""
     if cap is None:
         return x
-    return (cap * torch.tanh(x.float() / cap)).to(x.dtype)
+    return (cap * torch.tanh(wide(x) / cap)).to(x.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -73,7 +82,7 @@ def _rope_angles(positions: torch.Tensor, dim: int, theta: float
 def _apply_rot(x: torch.Tensor, sin: torch.Tensor, cos: torch.Tensor) -> torch.Tensor:
     """x [..., hd]; sin/cos broadcastable [..., hd/2]."""
     half = x.shape[-1] // 2
-    x1f, x2f = x[..., :half].float(), x[..., half:].float()
+    x1f, x2f = wide(x[..., :half]), wide(x[..., half:])
     return torch.cat([x1f * cos - x2f * sin, x2f * cos + x1f * sin], dim=-1).to(x.dtype)
 
 

@@ -9,7 +9,10 @@ Layers are an ``nn.ModuleList`` in layer order.  The reference stacks the
 full cycles of the pattern under one ``lax.scan`` and runs the remainder
 (the tail) unrolled; :func:`layer_split` gives that split, which
 ``convert.lm_params_from_arrays`` reads to carry the reference's stacked
-weights across.  Decode caches are per-layer lists on an explicit device.
+weights across.  With ``remat`` each full cycle runs under
+``torch.utils.checkpoint`` (the reference's ``jax.checkpoint`` of its scan
+body) and the tail without.  Decode caches are per-layer lists on an
+explicit device.
 
 The parameter tree: ``{embed, layers: [block, ...], final_norm}``.
 """
@@ -21,6 +24,7 @@ import math
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
@@ -37,11 +41,13 @@ from repro_torch.models.layers import (
     rmsnorm,
     rmsnorm_decls,
     softcap,
+    wide,
 )
 
 __all__ = [
     "model_decls",
     "forward",
+    "lm_loss",
     "init_decode_cache",
     "decode_step",
     "layer_split",
@@ -98,11 +104,12 @@ def layer_split(cfg: ModelConfig) -> Tuple[Tuple[str, ...], int, Tuple[str, ...]
     return pattern, n_full, tail
 
 
-def model_decls(cfg: ModelConfig) -> Dict:
+def model_decls(cfg: ModelConfig, fan_in: bool = False) -> Dict:
     """Layers of the full cycles draw as the reference's stacked cycles
-    draw (:func:`_cycle_decls` over ``n_full``); the tail's as declared."""
+    draw (:func:`_cycle_decls` over ``n_full``); the tail's as declared.
+    With ``fan_in`` every layer draws as declared, with its own fan-in."""
     pattern, n_full, _ = layer_split(cfg)
-    n_cyc = n_full * len(pattern)
+    n_cyc = 0 if fan_in else n_full * len(pattern)
     layers = []
     for i in range(cfg.n_layers):
         d = _block_decls(cfg.pattern_for_layer(i), cfg)
@@ -154,6 +161,15 @@ def _block_apply(
     return x, aux
 
 
+def remat_call(remat: bool, fn, *args):
+    """``fn(*args)``, rematerialised in the backward when ``remat`` and
+    autograd is recording (``jax.checkpoint``'s counterpart): only the
+    arguments are kept, the activations inside are recomputed."""
+    if remat and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
 def forward(
     params,
     tokens: Optional[torch.Tensor],
@@ -161,11 +177,13 @@ def forward(
     *,
     positions: Optional[torch.Tensor] = None,
     frontend_embeds: Optional[torch.Tensor] = None,
+    remat: bool = True,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Token ids (and/or frontend embeds) -> (hidden [B, S, d], aux loss).
 
     ``frontend_embeds`` [B, S_f, d] are prepended to the token embeddings
-    (the stub modality frontends of the audio/VLM archs)."""
+    (the stub modality frontends of the audio/VLM archs).  ``remat``
+    recomputes each full cycle of the pattern in the backward."""
     parts = []
     if frontend_embeds is not None:
         parts.append(frontend_embeds.to(cfg.dtype))
@@ -178,13 +196,61 @@ def forward(
         if cfg.mrope_sections is not None:
             positions = positions.expand(3, b, s)
 
+    layers = params["layers"]
+
+    def run(x, aux, first: int, last: int):
+        for i in range(first, last):
+            x, a = _block_apply(cfg.pattern_for_layer(i), layers[i], x, cfg, positions)
+            if a is not None:
+                aux = aux + a
+        return x, aux
+
+    pattern, n_full, _ = layer_split(cfg)
+    lp = len(pattern)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
-    for i, p in enumerate(params["layers"]):
-        x, a = _block_apply(cfg.pattern_for_layer(i), p, x, cfg, positions)
-        if a is not None:
-            aux_total = aux_total + a
+    for c in range(n_full):
+        x, aux_total = remat_call(remat, run, x, aux_total, c * lp, (c + 1) * lp)
+    x, aux_total = run(x, aux_total, n_full * lp, cfg.n_layers)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return x, aux_total
+
+
+def lm_loss(
+    params,
+    tokens: torch.Tensor,
+    cfg: ModelConfig,
+    *,
+    loss_chunk: int = 1024,
+    frontend_embeds: Optional[torch.Tensor] = None,
+    remat: bool = True,
+) -> torch.Tensor:
+    """Next-token cross entropy over the token region, float32.
+
+    The logits are taken in sequence chunks of ``loss_chunk`` (the whole
+    ``S - 1`` when it does not divide), each chunk's body recomputed in
+    the backward under ``remat``, so at most one ``[B, chunk, vocab]``
+    float32 block is alive.  Adds ``0.01`` times the MoE balance loss."""
+    hidden, aux = forward(params, tokens, cfg, frontend_embeds=frontend_embeds, remat=remat)
+    # Align: predict token t+1 from hidden t over the *token* region only.
+    off = hidden.shape[1] - tokens.shape[1]
+    inputs = hidden[:, off:-1]
+    targets = tokens[:, 1:].long()
+    b, sm1, _ = inputs.shape
+    chunk = min(loss_chunk, sm1)
+    if sm1 % chunk:
+        chunk = sm1
+    head = params["embed"]["tok"].T if cfg.tie_embeddings else params["embed"]["head"]
+
+    def body(h, t):
+        logits = softcap(wide(h @ head), cfg.logit_softcap)
+        tgt = logits.gather(-1, t[..., None])[..., 0]
+        return torch.sum(torch.logsumexp(logits, dim=-1) - tgt)
+
+    total = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for c0 in range(0, sm1, chunk):
+        total = total + remat_call(remat, body, inputs[:, c0 : c0 + chunk],
+                                   targets[:, c0 : c0 + chunk])
+    return total / (b * sm1) + 0.01 * aux
 
 
 # ---------------------------------------------------------------------------

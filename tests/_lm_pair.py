@@ -22,7 +22,7 @@ from repro.models import encdec as jed
 from repro.models import transformer as jtfm
 from repro.models.base import init_params as j_init
 from repro_torch.configs import ARCHS, reduced_config
-from repro_torch.convert import lm_params_from_arrays
+from repro_torch.convert import lm_params_from_arrays, lm_state_to_arrays
 
 ARCH_NAMES = sorted(ARCHS)
 DTYPES = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16)}
@@ -41,6 +41,20 @@ def models(jc, tc, seed: int = 0):
     """(reference params, port model) holding the same weights."""
     params = j_init(JS.model_decls(jc), jax.random.PRNGKey(seed))
     return params, lm_params_from_arrays(tc, jax.tree.map(np.asarray, params), device="cpu")
+
+
+def np_leaf(t: torch.Tensor) -> np.ndarray:
+    """A CPU tensor as numpy, a bfloat16 one by its bits as ``ml_dtypes``'
+    bfloat16 (which JAX loads)."""
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(jnp.bfloat16)
+    return t.numpy()
+
+
+def ref_params(model, tc) -> dict:
+    """The reference's parameter tree of the port's ``model``, as numpy
+    (``convert.lm_state_to_arrays`` of the model alone)."""
+    return jax.tree.map(np_leaf, lm_state_to_arrays({"params": model}, tc)["params"])
 
 
 def batch(cfg, b: int = 2, s: int = 16, seed: int = 0):

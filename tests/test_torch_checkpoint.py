@@ -180,3 +180,64 @@ def test_loaders_without_cuda_raise(tmp_path, models, monkeypatch, loader):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         load()
+
+
+# bfloat16 leaves: the uint16 payload under "dtype": "bfloat16", both ways.
+
+def _bf16_tree():
+    """The smallest failing input (a 3-element bf16 leaf) and a wider one
+    with every class of value bfloat16 has, beside an fp32 leaf."""
+    bits = np.array([0x0000, 0x8000, 0x3F80, 0xBF80, 0x7F80, 0xFF80, 0x0001, 0x7F7F,
+                     0x4049, 0x3DCC], dtype=np.uint16)             # +-0, +-1, +-inf, ...
+    wide = torch.from_numpy(bits.view(np.int16).copy()).view(torch.bfloat16).reshape(2, 5)
+    return {"w": torch.ones(3, dtype=torch.bfloat16), "wide": wide,
+            "f": torch.arange(4, dtype=torch.float32)}
+
+
+def _bits(t):
+    if isinstance(t, torch.Tensor):
+        return t.view(torch.int16).numpy() if t.dtype == torch.bfloat16 else t.numpy()
+    t = np.asarray(t)
+    return t.view(np.int16) if t.dtype.name == "bfloat16" else t
+
+
+def test_bf16_tree_written_by_the_port_restores_in_both(tmp_path):
+    tree = _bf16_tree()
+    tck.save_pytree(tree, str(tmp_path), 1)
+    with open(tmp_path / "step_00000001" / "manifest.json") as f:
+        leaves = json.load(f)["leaves"]
+    assert leaves["w"]["dtype"] == "bfloat16" and leaves["f"]["dtype"] == "float32"
+    template = {k: torch.zeros_like(v) for k, v in tree.items()}
+    got, step, _ = tck.restore_pytree(template, str(tmp_path))
+    assert step == 1
+    jtemplate = {"w": jax.numpy.zeros(3, jax.numpy.bfloat16),
+                 "wide": jax.numpy.zeros((2, 5), jax.numpy.bfloat16),
+                 "f": jax.numpy.zeros(4, jax.numpy.float32)}
+    jgot, _, _ = jck.restore_pytree(jtemplate, str(tmp_path))
+    for k, v in tree.items():
+        assert got[k].dtype == v.dtype
+        np.testing.assert_array_equal(_bits(got[k]), _bits(v), err_msg=k)
+        assert jgot[k].dtype == jtemplate[k].dtype
+        np.testing.assert_array_equal(_bits(jgot[k]), _bits(v), err_msg=k)
+
+
+def test_bf16_tree_written_by_the_reference_restores_in_the_port(tmp_path):
+    tree = _bf16_tree()
+    jtree = {k: jax.numpy.asarray(v.float().numpy(), jax.numpy.bfloat16
+                                  if v.dtype == torch.bfloat16 else jax.numpy.float32)
+             for k, v in tree.items()}
+    jck.save_pytree(jtree, str(tmp_path), 2)
+    got, step, _ = tck.restore_pytree({k: torch.zeros_like(v) for k, v in tree.items()},
+                                      str(tmp_path))
+    assert step == 2
+    for k, v in tree.items():
+        assert got[k].dtype == v.dtype
+        np.testing.assert_array_equal(_bits(got[k]), _bits(jtree[k]), err_msg=k)
+        np.testing.assert_array_equal(_bits(got[k]), _bits(v), err_msg=k)
+    # An async save of the same tree by the port writes the same payloads.
+    ck = tck.Checkpointer(str(tmp_path / "port"))
+    ck.save(got, 3)
+    ck.wait()
+    again, _, _ = ck.restore({k: torch.zeros_like(v) for k, v in tree.items()})
+    for k, v in tree.items():
+        np.testing.assert_array_equal(_bits(again[k]), _bits(v), err_msg=k)

@@ -1,7 +1,8 @@
 """The port stands alone: it imports neither JAX nor the JAX package.
 
 A fresh interpreter imports ``repro_torch`` and every module under it and
-must end with no ``jax*`` and no ``repro``/``repro.*`` module loaded.
+must end with no ``jax*``, no ``ml_dtypes`` and no ``repro``/``repro.*``
+module loaded.
 ``chip_smoke.py`` imports neither either, and refuses to run (non-zero
 exit, no result line) without CUDA or outside a checkout.
 """
@@ -22,7 +23,7 @@ names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torc
 for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] == "repro" or m.split(".")[0].startswith("jax"))
+             if m.split(".")[0] in ("repro", "ml_dtypes") or m.split(".")[0].startswith("jax"))
 print(len(names), bad)
 sys.exit(1 if bad or len(names) < 15 else 0)
 """
@@ -54,7 +55,8 @@ def test_no_port_source_names_jax_or_the_reference_package():
     files = [REPO / "chip_smoke.py", *sorted((REPO / "src" / "repro_torch").rglob("*.py"))]
     for f in files:
         roots = _imported_roots(f)
-        assert not {r for r in roots if r == "repro" or r.startswith("jax")}, (f, roots)
+        assert not {r for r in roots
+                    if r in ("repro", "ml_dtypes") or r.startswith("jax")}, (f, roots)
 
 
 def test_chip_smoke_fails_without_cuda_or_outside_the_repo(tmp_path):

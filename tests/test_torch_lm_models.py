@@ -41,6 +41,7 @@ from _lm_pair import (
     j_decode_step,
     j_forward,
     models,
+    ref_params,
     to_jax,
     to_torch,
 )
@@ -51,7 +52,6 @@ from repro.models import transformer as jtfm
 from repro.models.base import abstract_params as j_abstract
 from repro.models.base import init_params as j_init
 from repro.models.layers import lm_logits as j_lm_logits
-from repro_torch.convert import lm_params_to_arrays
 from repro_torch.launch.specs import abstract_model, model_decls
 from repro_torch.models import encdec as ted
 from repro_torch.models import transformer as ttfm
@@ -187,10 +187,8 @@ def test_xlstm_reduced_depth_matches_reference_on_well_scaled_weights():
     to the reference."""
     jc, tc = configs("xlstm-350m")
     assert tc.n_layers == 17
-    decls = {**model_decls(tc), "layers": [ttfm._block_decls(tc.pattern_for_layer(i), tc)
-                                           for i in range(tc.n_layers)]}
-    model = init_params(decls, torch.Generator().manual_seed(0))
-    params = jax.tree.map(jnp.asarray, lm_params_to_arrays(model, tc))
+    model = init_params(model_decls(tc, fan_in=True), torch.Generator().manual_seed(0))
+    params = jax.tree.map(jnp.asarray, ref_params(model, tc))
     toks = batch(jc, b=B, s=16, seed=1)["tokens"]
     want, _ = j_forward(jc)(params, jnp.asarray(toks))
     got, _ = ttfm.forward(model, torch.from_numpy(toks), tc)
@@ -261,7 +259,7 @@ def test_parameter_tree_matches_the_reference_declarations(arch):
     meta = abstract_model(tc)
     assert all(p.device.type == "meta" for p in meta.parameters())
     gen = torch.Generator().manual_seed(0)
-    got = lm_params_to_arrays(init_params(model_decls(tc), gen), tc)
+    got = ref_params(init_params(model_decls(tc), gen), tc)
     shapes = jax.tree.map(lambda a, w: (a.shape, a.dtype.name) == (w.shape, w.dtype.name),
                           got, want)
     assert all(jax.tree.leaves(shapes))
@@ -287,5 +285,5 @@ def test_init_params_draws_the_reference_distributions(arch):
             return bool((g == w).all())
         return abs(g.std() / w.std() - 1) < 6 / np.sqrt(w.size)
 
-    held = jax.tree.map(same_draw, lm_params_to_arrays(a, tc), want)
+    held = jax.tree.map(same_draw, ref_params(a, tc), want)
     assert all(jax.tree.leaves(held)), held

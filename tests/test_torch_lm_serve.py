@@ -21,7 +21,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from _lm_pair import batch, configs, f32, j_decode_step, models, to_jax, to_torch
+from _lm_pair import (batch, configs, f32, j_decode_step, models, ref_params, to_jax,
+                      to_torch)
 
 from repro.core.cotm import CoTMConfig as JCoTMConfig
 from repro.core.cotm import CoTMModel as JCoTMModel
@@ -37,7 +38,6 @@ from repro.train import serve_step as jss
 from repro_torch import generate
 from repro_torch.convert import (
     lm_params_from_arrays,
-    lm_params_to_arrays,
     model_from_arrays,
     words_from_uint32,
 )
@@ -195,7 +195,7 @@ def test_parameter_round_trip_is_exact(arch):
     jc, tc = configs(arch, "bfloat16")
     params, _ = models(jc, tc)
     arrays = jax.tree.map(np.asarray, params)
-    back = lm_params_to_arrays(lm_params_from_arrays(tc, arrays, device="cpu"), tc)
+    back = ref_params(lm_params_from_arrays(tc, arrays, device="cpu"), tc)
     same = jax.tree.map(lambda a, b: a.dtype == b.dtype and a.shape == b.shape
                         and np.array_equal(a.view(np.uint8), b.view(np.uint8)), arrays, back)
     assert all(jax.tree.leaves(same))
