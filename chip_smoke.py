@@ -157,8 +157,26 @@ this file and builds the CUDA kernels from ``src/repro_torch/csrc``).
      of one more step, and ``[roofline] lm train`` (the step's compute
      floor from ``flops_estimate`` over the bf16 peak); a resumed
      ``run_training`` on the card (reduced, fp32, checkpoint at step 2)
-     against the uninterrupted run (1e-5); then one ``{"kernels":
-     [...]}`` line.
+     against the uninterrupted run (1e-5);
+  7. the LM substrate over a mesh (``[lm mesh]`` lines), on meshes of the
+     card repeated, the six kernels' counters held at 0: every reduced
+     arch in fp32, 3 train steps at 4 x 32 on a (2, 2) "tp" mesh at
+     microbatches 1 against the unmeshed step at the matching count (2;
+     1 for the MoE archs, whose routing groups and balance loss are the
+     whole microbatch's), losses 1e-6 and grad_norm 1e-5 relative, and
+     whether bit for bit; again compressed for h2o-danube and qwen2-moe;
+     a "serve_tp" (1, 2) decode of reduced recurrentgemma (8 steps, logits
+     equal); h2o-danube-1.8b whole, bf16 with fp32 masters, 4 x 2,048,
+     remat full: 3 unmeshed steps at microbatches 2, freed, then 3 on the
+     (2, 2) mesh at microbatches 1 from the same initial state (each
+     step's loss, grad_norm, ms on both clocks and tokens/s, the largest
+     relative differences held at 1e-3 and 1e-2, peak memory, the state's
+     bytes a grid position against ``launch.dryrun.cell_bytes`` and the
+     25.64 GB whole); its bf16 ``generate`` on a (1, 2) "serve_tp" mesh
+     (the unmeshed tokens, decode ms a step); and the dry-run of
+     h2o-danube-1.8b x train_4k on both production meshes (argument bytes
+     a device against the card's memory, the dominant roofline term);
+     then one ``{"kernels": [...]}`` line.
 
 The last line is ``{"ok": true, "device": {...}}``.  Any failed phase
 raises and exits non-zero, as does a run without CUDA or outside the
@@ -2266,6 +2284,294 @@ def lm_train_resume(dev, card: str) -> None:
     check(err <= 1e-5, f"[lm train] resumed run's loss {resumed['loss']} != {whole['loss']}")
 
 
+# ---------------------------------------------------------------------------
+# 7. The LM substrate over a mesh ([lm mesh] lines)
+# ---------------------------------------------------------------------------
+
+#: The meshed train step against the unmeshed one: losses and grad_norm
+#: (relative) on the reduced archs in fp32, and on h2o-danube-1.8b whole in
+#: bf16 (at least these; printed as measured).
+MESH_LOSS_RTOL, MESH_GNORM_RTOL = 1e-6, 1e-5
+MESH_FULL_LOSS_RTOL, MESH_FULL_GNORM_RTOL = 1e-3, 1e-2
+#: The (data, model) grids of the phase, every position the card: the
+#: train mesh under the "tp" profile, the decode mesh under "serve_tp".
+MESH_TRAIN, MESH_SERVE = (2, 2), (1, 2)
+#: h2o-danube-1.8b's train state in GB (bf16 parameters; fp32 m, v, master).
+H2O_STATE_GB = 25.64
+
+
+@contextlib.contextmanager
+def _sharding_profile(name: str):
+    """The port's sharding profile set to ``name`` for a ``with`` block."""
+    from repro_torch.sharding import partition
+
+    before = partition.get_profile()
+    partition.set_profile(name)
+    try:
+        yield
+    finally:
+        partition.set_profile(before)
+
+
+def _mesh_steps(state, step_fn, batches) -> list:
+    """Each step's metrics as floats, with its host-clock and CUDA-event ms."""
+    import torch
+
+    out = []
+    for b in batches:
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        start.record()
+        state, m = step_fn(state, b)
+        stop.record()
+        torch.cuda.synchronize()
+        m = {k: float(v) for k, v in m.items()}
+        m["host_ms"], m["dev_ms"] = (time.perf_counter() - t) * 1e3, start.elapsed_time(stop)
+        out.append(m)
+    return out
+
+
+def _rel_errs(a: list, b: list, key: str) -> float:
+    return max(abs(x[key] - y[key]) / abs(y[key]) for x, y in zip(a, b))
+
+
+def lm_mesh_reduced(dev, card: str) -> None:
+    """[lm mesh] 1: every arch reduced, fp32, on weights of each layer's own
+    fan-in: 3 train steps at 4 x 32 on a (2, 2) "tp" mesh of the card at
+    microbatches 1 against the unmeshed step on the card at the matching
+    count (2, which adds the same per-shard sums; 1 for the MoE archs, whose
+    routing groups and balance loss are those of the whole microbatch);
+    again with compression for h2o-danube and qwen2-moe; then a "serve_tp"
+    (1, 2) decode of reduced recurrentgemma, 8 steps, logits equal."""
+    import copy
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import TrainConfig, get_config, list_archs, reduced_config
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.launch.specs import model_decls
+    from repro_torch.launch.train import synthetic_lm_batch
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.base import init_params
+    from repro_torch.sharding.blocks import shard_params
+    from repro_torch.train.serve_step import decode
+    from repro_torch.train.train_step import init_train_state, make_train_step
+
+    mesh = make_test_mesh(*MESH_TRAIN, device=dev)
+    cases = [(a, False) for a in list_archs()] + [("h2o-danube-1.8b", True),
+                                                  ("qwen2-moe-a2.7b", True)]
+    with _sharding_profile("tp"):
+        for arch, comp in cases:
+            cfg = dataclasses.replace(reduced_config(get_config(arch)), dtype=torch.float32)
+            model = init_params(model_decls(cfg, fan_in=True),
+                                torch.Generator().manual_seed(SEED)).to(dev)
+            tcfg = TrainConfig(learning_rate=1e-3, warmup_steps=1, total_steps=6,
+                               remat="full", grad_compression=comp)
+            k_flat = 1 if cfg.is_moe else MESH_TRAIN[0]
+            flat_cfg = dataclasses.replace(tcfg, microbatches=k_flat)
+            batches = [synthetic_lm_batch(cfg, 4, 32, s, dev) for s in range(3)]
+            flat = _mesh_steps(init_train_state(copy.deepcopy(model), flat_cfg),
+                               make_train_step(cfg, flat_cfg), batches)
+            state = init_train_state(shard_params(model, cfg, mesh), tcfg)
+            check(all(b.device == dev for bl in state["params"].blocks.values()
+                      for b in bl.values()), f"[lm mesh] {arch}: a block is not on {dev}")
+            meshed = _mesh_steps(state, make_train_step(cfg, tcfg, mesh), batches)
+            e_loss, e_gn = _rel_errs(meshed, flat, "loss"), _rel_errs(meshed, flat, "grad_norm")
+            same = all(a[k] == b[k] for a, b in zip(meshed, flat) for k in ("loss", "grad_norm"))
+            extra = ""
+            if comp:
+                e_res = _rel_errs(meshed, flat, "residual_norm")
+                extra = f", residual_norm rel {e_res:.2e}"
+                check(e_res <= MESH_GNORM_RTOL, f"[lm mesh] {arch}: residual_norm rel {e_res:.3g}")
+            print(f"[lm mesh] {arch} reduced fp32{' compressed' if comp else ''}: (2, 2) tp mesh "
+                  f"of the card at microbatches 1 == unmeshed at {k_flat}, 3 steps: losses "
+                  f"{[round(m['loss'], 6) for m in meshed]}, rel {e_loss:.2e} (tolerance "
+                  f"{MESH_LOSS_RTOL:.0e}), grad_norm rel {e_gn:.2e} ({MESH_GNORM_RTOL:.0e})"
+                  f"{extra}; {'bit for bit' if same else 'not bit for bit'}; meshed step "
+                  f"{statistics.median(m['host_ms'] for m in meshed[1:]):.1f} ms against "
+                  f"{statistics.median(m['host_ms'] for m in flat[1:]):.1f} ms (host clock) "
+                  f"| {card}")
+            check(all(torch.isfinite(torch.tensor(m["loss"])) for m in meshed),
+                  f"[lm mesh] {arch}: non-finite loss")
+            check(e_loss <= MESH_LOSS_RTOL, f"[lm mesh] {arch}: loss rel {e_loss:.3g}")
+            check(e_gn <= MESH_GNORM_RTOL, f"[lm mesh] {arch}: grad_norm rel {e_gn:.3g}")
+
+    with _sharding_profile("serve_tp"):
+        cfg = dataclasses.replace(reduced_config(get_config("recurrentgemma-2b")),
+                                  dtype=torch.float32)
+        model = init_params(model_decls(cfg), torch.Generator().manual_seed(SEED)).to(dev)
+        smesh = make_test_mesh(*MESH_SERVE, device=dev)
+        store = shard_params(model, cfg, smesh)
+        c0, c1 = (tfm.init_decode_cache(4, cfg, 8, dev) for _ in range(2))
+        tok = torch.arange(4, dtype=torch.int32, device=dev)[:, None]
+        worst, equal = 0.0, True
+        with torch.no_grad():
+            for i in range(8):
+                l0, c0 = decode(model, tok, c0, i, cfg)
+                l1, c1 = decode(store, tok, c1, i, cfg, mesh=smesh)
+                worst = max(worst, float((l1 - l0).abs().max()))
+                equal = equal and torch.equal(l1, l0)
+                tok = l0.argmax(-1).to(torch.int32)[:, None]
+        print(f"[lm mesh] recurrentgemma-2b reduced fp32: serve_tp (1, 2) decode, 8 steps: max "
+              f"|dlogit| {worst:.3g} against the unmeshed decode ({'equal' if equal else 'not'} "
+              f"bit for bit) | {card}")
+        check(worst <= 1e-5, f"[lm mesh] serve_tp decode: logits differ by {worst:.3g}")
+
+
+def lm_mesh_full_width(dev, card: str) -> dict:
+    """[lm mesh] 2: h2o-danube-1.8b whole, bf16 with fp32 masters, 4 x 2,048,
+    remat full: 3 unmeshed steps at microbatches 2, freed, then 3 steps on
+    a (2, 2) "tp" mesh of the card at microbatches 1 from the same initial
+    state; each step's metrics, times and tokens/s both ways, their largest
+    relative differences, peak memory, and the state's bytes per grid
+    position against the dry-run's argument bytes for the same mesh and
+    shape."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import ShapeConfig, TrainConfig, get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.launch.specs import model_decls
+    from repro_torch.launch.train import synthetic_lm_batch
+    from repro_torch.models.base import init_params
+    from repro_torch.sharding.blocks import shard_params
+    from repro_torch.train.train_step import init_train_state, make_train_step
+
+    cfg = get_config("h2o-danube-1.8b")
+    tcfg = TrainConfig(learning_rate=3e-4, warmup_steps=1, total_steps=TRAIN_RUN_STEPS,
+                       microbatches=1, remat="full")
+    flat_cfg = dataclasses.replace(tcfg, microbatches=MESH_TRAIN[0])
+    batches = [synthetic_lm_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, s, dev) for s in range(3)]
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+
+    def fresh():
+        return init_params(model_decls(cfg), torch.Generator(device=dev).manual_seed(SEED))
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    state = init_train_state(fresh(), flat_cfg)
+    flat = _mesh_steps(state, make_train_step(cfg, flat_cfg), batches)
+    flat_peak = torch.cuda.max_memory_allocated()
+    del state
+    torch.cuda.empty_cache()
+
+    with _sharding_profile("tp"):
+        mesh = make_test_mesh(*MESH_TRAIN, device=dev)
+        torch.cuda.reset_peak_memory_stats()
+        model = fresh()
+        store = shard_params(model, cfg, mesh)
+        del model
+        state = init_train_state(store, tcfg)
+        per_pos = [sum(st.nbytes_at(pos) for st in (state["params"], state["opt"].m,
+                                                     state["opt"].v, state["opt"].master)) + 4
+                   for pos in store.positions]
+        args, _ = dryrun.cell_bytes(cfg, ShapeConfig("train", TRAIN_SEQ, TRAIN_BATCH, "train"),
+                                    make_test_mesh(*MESH_TRAIN, device="meta"), 1)
+        meshed = _mesh_steps(state, make_train_step(cfg, tcfg, mesh), batches)
+        mesh_peak = torch.cuda.max_memory_allocated()
+    del state, store
+    torch.cuda.empty_cache()
+
+    for i, (a, b) in enumerate(zip(meshed, flat)):
+        for label, m in (("unmeshed (microbatches 2)", b), ("(2, 2) tp mesh (microbatches 1)", a)):
+            print(f"[lm mesh] h2o-danube-1.8b bf16 step {i}, {label}: loss {m['loss']:.6f} "
+                  f"grad_norm {m['grad_norm']:.6f}; {m['host_ms']:.1f} ms host clock, "
+                  f"{m['dev_ms']:.1f} ms CUDA events, {tokens / m['host_ms'] * 1e3:,.0f} "
+                  f"tokens/s | {card}")
+    e_loss, e_gn = _rel_errs(meshed, flat, "loss"), _rel_errs(meshed, flat, "grad_norm")
+    same = all(a[k] == b[k] for a, b in zip(meshed, flat) for k in ("loss", "grad_norm"))
+    step_ms = statistics.median(m["host_ms"] for m in meshed[1:])
+    flat_ms = statistics.median(m["host_ms"] for m in flat[1:])
+    print(f"[lm mesh] h2o-danube-1.8b bf16 (fp32 masters) at {TRAIN_BATCH} x {TRAIN_SEQ}, remat "
+          f"full, 3 steps each from one initial state: the (2, 2) mesh against unmeshed, loss "
+          f"rel {e_loss:.2e} (tolerance {MESH_FULL_LOSS_RTOL:.0e}), grad_norm rel {e_gn:.2e} "
+          f"({MESH_FULL_GNORM_RTOL:.0e}), {'bit for bit' if same else 'not bit for bit'}; "
+          f"median of steps 1-2 {step_ms:.1f} ms meshed ({tokens / step_ms * 1e3:,.0f} tokens/s) "
+          f"against {flat_ms:.1f} ms unmeshed ({tokens / flat_ms * 1e3:,.0f} tokens/s); peak "
+          f"memory {mesh_peak / 2**30:.2f} GiB meshed, {flat_peak / 2**30:.2f} GiB unmeshed "
+          f"(max_memory_allocated) | {card}")
+    batch_bytes = args - per_pos[0]
+    print(f"[lm mesh] h2o-danube-1.8b train state on the (2, 2) mesh: {per_pos[0]:,} bytes a grid "
+          f"position ({per_pos[0] / 1e9:.2f} GB; the dry-run's argument bytes for this mesh and "
+          f"shape {args:,}, of which the batch {batch_bytes:,}), {sum(per_pos) / 1e9:.2f} GB over "
+          f"the {len(per_pos)} positions against {H2O_STATE_GB} GB whole | {card}")
+    check(len(set(per_pos)) == 1, f"[lm mesh] the positions hold different bytes: {per_pos}")
+    check(0 <= batch_bytes <= TRAIN_BATCH * TRAIN_SEQ * 4,
+          f"[lm mesh] state bytes {per_pos[0]} against the dry-run's {args}")
+    check(abs(sum(per_pos) / 1e9 - H2O_STATE_GB) < 0.01,
+          f"[lm mesh] state {sum(per_pos) / 1e9:.3f} GB, not {H2O_STATE_GB}")
+    check(all(torch.isfinite(torch.tensor(m["loss"])) for m in meshed), "[lm mesh] non-finite loss")
+    check(e_loss <= MESH_FULL_LOSS_RTOL, f"[lm mesh] full width: loss rel {e_loss:.3g}")
+    check(e_gn <= MESH_FULL_GNORM_RTOL, f"[lm mesh] full width: grad_norm rel {e_gn:.3g}")
+    return {"step_ms": step_ms, "flat_ms": flat_ms}
+
+
+def lm_mesh_generate(dev, card: str) -> None:
+    """[lm mesh] 3: h2o-danube-1.8b whole, bf16, ``generate`` (batch 4,
+    prompt 32, 16 new tokens, greedy) on a (1, 2) "serve_tp" mesh of the
+    card: the tokens of the unmeshed ``generate``; decode ms a step both
+    ways."""
+    import numpy as np
+    import torch
+
+    from repro_torch import generate
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.launch.specs import model_decls
+    from repro_torch.models.base import init_params
+    from repro_torch.sharding.blocks import shard_params
+
+    cfg = get_config("h2o-danube-1.8b")
+    b, plen, gen = 4, 32, 16
+    model = init_params(model_decls(cfg), torch.Generator(device=dev).manual_seed(SEED))
+    prompts = torch.from_numpy(np.random.default_rng(SEED + 42).integers(
+        0, cfg.vocab_size, (b, plen)).astype(np.int32)).to(dev)
+    with _sharding_profile("serve_tp"):
+        mesh = make_test_mesh(*MESH_SERVE, device=dev)
+        store = shard_params(model, cfg, mesh)
+        ms = {}
+        for label, run in (("unmeshed", lambda: generate(cfg, model, prompts, gen)),
+                           ("meshed", lambda: generate(cfg, store, prompts, gen, mesh=mesh))):
+            run()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            ms[label] = (run(), (time.perf_counter() - t) * 1e3 / (plen + gen))
+    check(torch.equal(ms["meshed"][0], ms["unmeshed"][0]),
+          "[lm mesh] meshed generate gave other tokens than the unmeshed one")
+    print(f"[lm mesh] h2o-danube-1.8b bf16 generate on a (1, 2) serve_tp mesh (batch {b}, prompt "
+          f"{plen}, {gen} new, greedy): tokens equal the unmeshed generate's; decode "
+          f"{ms['meshed'][1]:.2f} ms a step meshed against {ms['unmeshed'][1]:.2f} ms unmeshed "
+          f"(host clock over {plen + gen} steps) | {card}")
+    del model, store
+    torch.cuda.empty_cache()
+
+
+def lm_mesh_dryrun(card: str) -> None:
+    """[lm mesh] dryrun: h2o-danube-1.8b x train_4k on both production
+    meshes: argument bytes a device against the card's memory, and the
+    dominant roofline term (analytic, at the H100's ceilings)."""
+    import torch
+
+    from repro_torch.launch.dryrun import lower_cell
+
+    total = torch.cuda.get_device_properties(0).total_memory
+    with _sharding_profile("tp"):
+        for multi_pod in (False, True):
+            r = lower_cell("h2o-danube-1.8b", "train_4k", multi_pod)
+            t = r["roofline"]
+            print(f"[lm mesh] dryrun h2o-danube-1.8b x train_4k on {r['mesh']} ({r['chips']} "
+                  f"devices, microbatches {r['microbatches']}): argument bytes "
+                  f"{r['memory']['argument_bytes']:,} a device ({r['memory']['argument_bytes'] / 1e9:.3f} GB) "
+                  f"against {total / 1e9:.1f} GB on this card; dominant {t['dominant']} "
+                  f"(compute {t['compute_s']:.3e} s, memory {t['memory_s']:.3e} s, collective "
+                  f"{t['collective_s']:.3e} s; compile_s {r['compile_s']}) | {card}")
+            check(r["memory"]["argument_bytes"] < total, "[lm mesh] dryrun: the state does not fit")
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -2901,6 +3207,20 @@ def main() -> int:
     check(not any(train_launches.values()),
           f"the LM training path launched a TM kernel: {train_launches}")
     phase_s["6 lm train"] = time.perf_counter() - t_phase
+
+    # --- 7. the LM substrate over a mesh --------------------------------------
+    # Meshes of the card repeated; plain PyTorch: the counters stay at 0.
+    t_phase = time.perf_counter()
+    registry.reset_launches()
+    lm_mesh_reduced(dev, card)
+    lm_mesh_full_width(dev, card)
+    lm_mesh_generate(dev, card)
+    lm_mesh_dryrun(card)
+    mesh_lm_launches = registry.launch_counts()
+    print(f"[engine] launches during the [lm mesh] phase: {mesh_lm_launches}")
+    check(not any(mesh_lm_launches.values()),
+          f"the meshed LM path launched a TM kernel: {mesh_lm_launches}")
+    phase_s["7 lm mesh"] = time.perf_counter() - t_phase
     print(f"[env] phase seconds: {', '.join(f'{k} {v:.2f}' for k, v in phase_s.items())}")
     print(f"[env] {card} | build {build_s:.2f} s")
 

@@ -47,6 +47,7 @@ __all__ = [
     "lm_state_to_arrays",
     "model_from_arrays",
     "model_to_arrays",
+    "stacked_groups",
     "words_from_uint32",
     "words_to_uint32",
 ]
@@ -119,6 +120,19 @@ def _ref_index(cfg: ModelConfig, path):
     if i < n_full * lp:
         return ("layers", "cyc", str(i % lp), *rest), i // lp
     return ("layers", "tail", str(i - n_full * lp), *rest), None
+
+
+def stacked_groups(cfg: ModelConfig) -> list:
+    """The port's parameter names grouped by the reference's leaves: one
+    list per leaf of its tree, a stacked leaf's layers in their order along
+    its leading axis, an unstacked leaf alone.  Flattening a group's
+    tensors in order and joining them gives the reference's leaf
+    flattened."""
+    groups: dict = {}
+    for path, _ in _leaves(model_decls(cfg)):
+        keys, j = _ref_index(cfg, path)
+        groups.setdefault(keys, []).append((-1 if j is None else j, _name(path)))
+    return [[n for _, n in sorted(members)] for members in groups.values()]
 
 
 def _tensor_from_array(arr) -> torch.Tensor:

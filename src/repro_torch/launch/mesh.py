@@ -15,9 +15,10 @@ meshed code path on a one-card machine.  Shards that share a device run
 one after the other on it, so such a mesh shows the meshed paths right,
 not their scaling across cards.
 
-Nothing here touches the devices when the module is imported.  The LM's
-production meshes (``make_production_mesh``, ``required_devices``) are
-not ported: they belong to the LM substrate.
+The LM's production meshes (:func:`make_production_mesh`) are the
+reference's (16, 16) and (2, 16, 16) grids over the ``meta`` device by
+default: the dry-run lays out shapes on them and allocates nothing.
+Nothing here touches the devices when the module is imported.
 """
 
 from __future__ import annotations
@@ -30,7 +31,13 @@ import torch
 
 from repro_torch import resolve_device
 
-__all__ = ["DeviceMesh", "make_serve_device_mesh", "make_test_mesh"]
+__all__ = [
+    "DeviceMesh",
+    "make_production_mesh",
+    "make_serve_device_mesh",
+    "make_test_mesh",
+    "required_devices",
+]
 
 
 def _depth(grid) -> int:
@@ -139,6 +146,22 @@ class DeviceMesh:
             return g[:n] if level == k else tuple(cut(x, level + 1) for x in g)
 
         return DeviceMesh(cut(self.devices, 0), self.axis_names)
+
+
+def required_devices(multi_pod: bool = False) -> int:
+    return 512 if multi_pod else 256
+
+
+def make_production_mesh(*, multi_pod: bool = False, device=None) -> DeviceMesh:
+    """(16, 16) ``("data", "model")`` single pod; (2, 16, 16) ``("pod",
+    "data", "model")`` for two pods.  Every position holds ``device``
+    (``meta`` by default: shapes only)."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    grid = torch.device("meta") if device is None else resolve_device(device)
+    for n in reversed(shape):
+        grid = (grid,) * n
+    return DeviceMesh(grid, axes)
 
 
 def make_serve_device_mesh(data: int = 1, model: int = 1) -> DeviceMesh:

@@ -66,6 +66,7 @@ from repro_torch.models import transformer as tfm
 from repro_torch.models.base import init_params
 from repro_torch.serve.engine import ServingEngine
 from repro_torch.serve.paths import available_paths
+from repro_torch.sharding.blocks import shard_params
 from repro_torch.train.serve_step import decode, sample_tokens
 
 __all__ = ["generate", "parse_serve_mesh", "serve_lm", "serve_tm", "serve_tm_service"]
@@ -78,6 +79,7 @@ def generate(
     prompt_tokens: torch.Tensor,      # [B, P]
     gen_len: int,
     *,
+    mesh=None,
     max_seq: Optional[int] = None,
     temperature: float = 0.0,
     frontend_embeds: Optional[torch.Tensor] = None,
@@ -89,29 +91,37 @@ def generate(
     The prompt runs through the decode path token by token (teacher
     forcing), so the cache fills as continuous serving fills it; then each
     sampled token is decoded in turn.  ``frontend_embeds`` feed the
-    encoder of an encoder-decoder arch."""
+    encoder of an encoder-decoder arch.  With a ``mesh`` the parameters
+    are laid out on it once and every step runs over its data shards
+    (the logits come back to the prompt's device)."""
     b, plen = prompt_tokens.shape
     max_seq = max_seq or (plen + gen_len)
     dev = prompt_tokens.device
+    if mesh is not None:
+        params = shard_params(params, cfg, mesh)
     cross = None
     if cfg.is_encoder_decoder:
-        cross = ed.prepare_cross_cache(params, ed.encode(params, frontend_embeds, cfg), cfg)
+        cross = ed.prepare_cross_cache(params, ed.encode(params, frontend_embeds, cfg, mesh=mesh),
+                                       cfg)
         cache = ed.init_self_cache(b, cfg, max_seq, dev)
     else:
         cache = tfm.init_decode_cache(b, cfg, max_seq, dev)
     generator = torch.Generator(device=dev).manual_seed(seed)
 
+    def step(tokens, cache, i):
+        logits, cache = decode(params, tokens, cache, i, cfg, cross_cache=cross, mesh=mesh)
+        return logits.to(dev), cache
+
     logits = None
     for i in range(plen):
-        logits, cache = decode(params, prompt_tokens[:, i : i + 1], cache, i, cfg,
-                               cross_cache=cross)
+        logits, cache = step(prompt_tokens[:, i : i + 1], cache, i)
 
     out = []
     done = torch.zeros((b,), dtype=torch.bool, device=dev)
     for i in range(plen, plen + gen_len):
         tok, done = sample_tokens(generator, logits, temperature=temperature, done=done)
         out.append(tok)
-        logits, cache = decode(params, tok[:, None], cache, i, cfg, cross_cache=cross)
+        logits, cache = step(tok[:, None], cache, i)
     return torch.stack(out, dim=1)
 
 

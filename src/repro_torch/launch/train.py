@@ -13,8 +13,10 @@ LM archs: the model drawn from a CPU generator seeded with the run's seed
 token stream, a checkpoint of the whole train state in the reference's
 layout every ``checkpoint_every`` steps and at the end, and a straggler
 verdict per step.  A restarted run resumes from the newest checkpoint,
-written by either package.  Sharding over a mesh is not here yet: the
-run takes one device.
+written by either package.  ``run_training`` takes a ``mesh``, as the
+reference's does: the state is laid out on it and the step runs over its
+data shards (``train.train_step``); the command line, like the
+reference's, trains on one device.
 
 ConvCoTM archs: the dataset is the arch's (MNIST, FMNIST or KMNIST in IDX
 form under ``$REPRO_DATA_DIR``), or the synthetic glyphs when those files
@@ -51,8 +53,14 @@ from repro_torch.data import PipelineState, get_dataset
 from repro_torch.distributed.fault_tolerance import StragglerPolicy
 from repro_torch.launch.specs import abstract_model, model_decls
 from repro_torch.models.base import init_params, param_count
+from repro_torch.sharding.blocks import BlockStore
 from repro_torch.train.tm_engine import TrainerEngine
-from repro_torch.train.train_step import init_train_state, make_train_step
+from repro_torch.train.train_step import (
+    gather_train_state,
+    init_train_state,
+    make_train_step,
+    shard_train_state,
+)
 
 __all__ = ["run_tm_training", "run_training", "state_template", "synthetic_lm_batch"]
 
@@ -110,8 +118,11 @@ def _host_peak_gib() -> float:
 
 
 def _save(ckpt: Checkpointer, state, cfg, step: int) -> None:
-    """Hand ``ckpt`` one fresh host copy of the state (no second copy)."""
+    """Hand ``ckpt`` one fresh host copy of the state (no second copy; a
+    meshed state is gathered whole first)."""
     t0 = time.time()
+    if isinstance(state["params"], BlockStore):
+        state = gather_train_state(state)
     ckpt.save(lm_state_to_arrays(state, cfg), step, fresh=True)
     print(f"checkpoint step {step}: host copy {time.time() - t0:.2f}s, "
           f"host peak {_host_peak_gib():.2f} GiB")
@@ -120,6 +131,7 @@ def _save(ckpt: Checkpointer, state, cfg, step: int) -> None:
 def run_training(
     cfg,
     tcfg: TrainConfig,
+    mesh=None,
     *,
     device=None,
     batch: int,
@@ -131,11 +143,15 @@ def run_training(
 ) -> Dict[str, float]:
     """Train ``cfg`` up to ``steps`` steps in all on ``device`` (the card
     unless ``"cpu"`` is named), resuming from ``ckpt_dir`` when it holds a
-    checkpoint.  Returns the last step's metrics as floats and
-    ``first_loss``, the loss of the first step this run took."""
+    checkpoint.  With a ``mesh`` the state is laid out on it (the batches
+    are made on ``device``, the mesh's first device by default).  Returns
+    the last step's metrics as floats and ``first_loss``, the loss of the
+    first step this run took."""
+    if mesh is not None and device is None:
+        device = mesh.flat[0]
     device = resolve_device(device)
     batch_fn = batch_fn or (lambda step: synthetic_lm_batch(cfg, batch, seq, step, device))
-    step_fn = make_train_step(cfg, tcfg)
+    step_fn = make_train_step(cfg, tcfg, mesh)
 
     start = 0
     ckpt = Checkpointer(ckpt_dir) if ckpt_dir else None
@@ -154,6 +170,8 @@ def run_training(
         saved = None
         params = init_params(model_decls(cfg), torch.Generator().manual_seed(tcfg.seed), device)
         state = init_train_state(params, tcfg)
+    if mesh is not None:
+        state = shard_train_state(state, cfg, mesh)
 
     policy = StragglerPolicy()
     metrics: Dict[str, Any] = {}

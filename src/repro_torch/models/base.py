@@ -9,11 +9,11 @@ turn a declaration tree into
     ``nn.Parameter``s carry the declarations' names, shapes and dtypes,
     drawn by :func:`init_params` or left on the meta device by
     :func:`abstract_params` (the counterpart of ``ShapeDtypeStruct``);
+  * the spec of each parameter on a mesh (:func:`pspec_tree`);
   * counts of parameters and bytes (:func:`param_count`,
     :func:`param_bytes`).
 
-The logical ``axes`` are kept as plain data for the sharding half of the
-LM substrate.  Apply functions are plain functions ``f(p, x, cfg, ...)``
+Apply functions are plain functions ``f(p, x, cfg, ...)``
 that index a tree as the reference indexes its dicts: ``p["wq"]``.
 """
 
@@ -26,6 +26,9 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 from torch import nn
 
+from repro_torch.sharding.partition import axes_of
+from repro_torch.sharding.partition import spec as logical_spec
+
 __all__ = [
     "ParamDecl",
     "ParamTree",
@@ -33,6 +36,7 @@ __all__ = [
     "init_params",
     "param_bytes",
     "param_count",
+    "pspec_tree",
 ]
 
 
@@ -134,6 +138,31 @@ def init_params(decls: Dict, generator: torch.Generator, device=None) -> ParamTr
 def abstract_params(decls: Dict) -> ParamTree:
     """The tree on the meta device: shapes and dtypes, no memory."""
     return ParamTree(decls, "meta")
+
+
+def _map_decls(fn, tree):
+    if isinstance(tree, ParamDecl):
+        return fn(tree)
+    if isinstance(tree, list):
+        return [_map_decls(fn, d) for d in tree]
+    return {k: _map_decls(fn, v) for k, v in tree.items()}
+
+
+def pspec_tree(decls: Dict, mesh) -> Dict:
+    """The spec of each parameter on ``mesh`` (the tree of ``decls``).
+
+    A layer's spec is the reference's stacked spec without its leading
+    ``None``.  Dims whose size does not divide over the product of their
+    mesh axes are left unsharded (e.g. seamless's 256,206 vocab on a
+    16-way tensor axis), as in the reference."""
+    def one(d: ParamDecl):
+        fixed = []
+        for dim, axes in zip(d.shape, logical_spec(d.axes, mesh)):
+            ways = math.prod(mesh.shape[a] for a in axes_of(axes))
+            fixed.append(axes if dim % ways == 0 else None)
+        return tuple(fixed)
+
+    return _map_decls(one, decls)
 
 
 def param_count(decls: Dict) -> int:

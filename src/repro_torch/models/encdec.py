@@ -6,7 +6,8 @@ precomputed frame embeddings [B, S_enc, d] to the encoder.  The decoder is
 a causal transformer with cross-attention; decode uses a self-attention
 cache plus a cross-attention K/V cache computed once from the encoder's
 output.  Layers are ``nn.ModuleList``s in layer order; caches are
-per-layer lists.  The reference stacks each of ``enc`` and ``dec`` whole,
+per-layer lists.  With a ``mesh`` each function runs over the batch's
+data shards (``sharding/blocks.py``), each shard on its own.  The reference stacks each of ``enc`` and ``dec`` whole,
 and its layers draw as its stacks draw (``transformer._cycle_decls``).
 
 The parameter tree: ``{embed, enc: [layer, ...], enc_norm, dec: [layer,
@@ -31,7 +32,8 @@ from repro_torch.models.layers import (
     rmsnorm_decls,
     wide,
 )
-from repro_torch.models.transformer import _cycle_decls, remat_call
+from repro_torch.models.transformer import _cycle_decls, join_cache, remat_call, split_cache
+from repro_torch.sharding.blocks import join_rows, shard_views, split_rows
 
 __all__ = [
     "encdec_decls",
@@ -85,10 +87,24 @@ def _positions(b: int, s: int, device) -> torch.Tensor:
     return torch.arange(s, dtype=torch.int32, device=device).expand(b, s)
 
 
-def encode(params, frontend_embeds: torch.Tensor, cfg: ModelConfig, *,
+def _over_shards(fn, params, cfg: ModelConfig, mesh, *batch: torch.Tensor):
+    """``fn(view, *rows)`` on each data shard of ``mesh`` (the encoder-
+    decoder has no cross-row coupling, so each shard runs alone); returns
+    the shards' results."""
+    views, shards = shard_views(params, cfg, mesh, batch[0].shape[0])
+    rows = [split_rows(x, shards) for x in batch]
+    return [fn(v, *r) for v, *r in zip(views, *rows)], shards
+
+
+def encode(params, frontend_embeds: torch.Tensor, cfg: ModelConfig, *, mesh=None,
            remat: bool = True) -> torch.Tensor:
     """Bidirectional encoder over stub frame embeddings [B, S_enc, d];
-    ``remat`` recomputes each layer in the backward."""
+    ``remat`` recomputes each layer in the backward.  With a ``mesh``, over
+    its data shards, joined on its first device."""
+    if mesh is not None:
+        outs, shards = _over_shards(lambda v, f: encode(v, f, cfg, remat=remat),
+                                    params, cfg, mesh, frontend_embeds)
+        return join_rows(outs, shards[0].device)
     x = frontend_embeds.to(cfg.dtype)
     b, s, _ = x.shape
     positions = _positions(b, s, x.device)
@@ -106,10 +122,15 @@ def encode(params, frontend_embeds: torch.Tensor, cfg: ModelConfig, *,
 
 def encdec_forward(
     params, frontend_embeds: torch.Tensor, dec_tokens: torch.Tensor, cfg: ModelConfig, *,
-    remat: bool = True,
+    mesh=None, remat: bool = True,
 ) -> torch.Tensor:
     """Returns decoder hidden states [B, S_dec, d]; ``remat`` recomputes
-    each encoder and decoder layer in the backward."""
+    each encoder and decoder layer in the backward.  With a ``mesh``, over
+    its data shards, joined on its first device."""
+    if mesh is not None:
+        outs, shards = _over_shards(lambda v, f, t: encdec_forward(v, f, t, cfg, remat=remat),
+                                    params, cfg, mesh, frontend_embeds, dec_tokens)
+        return join_rows(outs, shards[0].device)
     enc_out = encode(params, frontend_embeds, cfg, remat=remat)
     x = embed_lookup(params["embed"], dec_tokens)
     b, s, _ = x.shape
@@ -130,9 +151,14 @@ def encdec_forward(
 
 def encdec_loss(
     params, frontend_embeds: torch.Tensor, dec_tokens: torch.Tensor, cfg: ModelConfig, *,
-    remat: bool = True,
+    mesh=None, remat: bool = True,
 ) -> torch.Tensor:
-    """Mean next-token cross entropy of the decoder, float32 (unchunked)."""
+    """Mean next-token cross entropy of the decoder, float32 (unchunked).
+    With a ``mesh``, the mean of its data shards' losses."""
+    if mesh is not None:
+        losses, shards = _over_shards(lambda v, f, t: encdec_loss(v, f, t, cfg, remat=remat),
+                                      params, cfg, mesh, frontend_embeds, dec_tokens)
+        return sum(loss.to(shards[0].device) for loss in losses) / len(losses)
     hidden = encdec_forward(params, frontend_embeds, dec_tokens, cfg, remat=remat)
     head = params["embed"]["tok"].T if cfg.tie_embeddings else params["embed"]["head"]
     logits = wide(hidden[:, :-1] @ head)
@@ -170,9 +196,20 @@ def encdec_decode_step(
     cross_cache: List[Dict],               # per layer {k, v}: [B, KV, S_enc, hd]
     pos: int,
     cfg: ModelConfig,
+    *,
+    mesh=None,
 ) -> Tuple[torch.Tensor, List[Dict]]:
     """One decode step -> (logits [B, vocab] float32, self cache).  The
-    cross-attention has no mask and no soft-cap."""
+    cross-attention has no mask and no soft-cap.  With a ``mesh``, over
+    its data shards, each on its rows of both caches; logits and self
+    cache come back joined on its first device."""
+    if mesh is not None:
+        views, shards = shard_views(params, cfg, mesh, tokens.shape[0])
+        outs = [encdec_decode_step(v, t, sc, xc, pos, cfg) for v, t, sc, xc in zip(
+            views, split_rows(tokens, shards), split_cache(self_cache, shards),
+            split_cache(cross_cache, shards))]
+        home = shards[0].device
+        return join_rows([o[0] for o in outs], home), join_cache([o[1] for o in outs], home)
     x = embed_lookup(params["embed"], tokens)
     h_heads, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     b = x.shape[0]

@@ -2,13 +2,14 @@
 
 Top-k routing, Switch-style capacity-bounded dispatch through one-hot
 einsums, the always-on shared expert (Qwen2-MoE) and the load-balancing
-auxiliary loss.  The expert layout hint (``_expert_axes``) is kept as data
-for the sharding half of the LM substrate.
+auxiliary loss.  ``_expert_axes`` gives the experts' logical axes.
+:func:`moe_apply_shards` is the same function over a batch split into
+row shards (a meshed step's data shards).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, List, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -16,7 +17,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.base import ParamDecl
 
-__all__ = ["moe_decls", "moe_apply"]
+__all__ = ["moe_decls", "moe_apply", "moe_apply_shards"]
 
 TENSOR_AXIS_SIZE = 16  # production mesh "model" axis; only affects layout
 
@@ -50,27 +51,18 @@ def moe_decls(cfg: ModelConfig) -> Dict:
     return decls
 
 
-def moe_apply(p, x: torch.Tensor, cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Returns (y [B, S, d], aux_loss scalar)."""
-    b, s, d = x.shape
+def _moe_groups(p, xf: torch.Tensor, cfg: ModelConfig):
+    """The routed and shared experts over token groups ``xf`` [G, Tg, d]:
+    returns (y [G, Tg, d], the top-k one-hots [G, Tg, k, E] float32, the
+    router probabilities [G, Tg, E] float32)."""
+    g, tg, d = xf.shape
     e, k = cfg.n_experts, cfg.n_experts_per_token
-    t = b * s
-    tg = min(cfg.router_group_size, t)
-    if t % tg:
-        tg = t
-    g = t // tg
-    xf = x.reshape(g, tg, d)
 
     logits = (xf.float() @ p["router"]).float()                          # [G,Tg,E]
     probs = torch.softmax(logits, dim=-1)
     gate_vals, idx = torch.topk(probs, k, dim=-1)                         # [G,Tg,k]
     gate_vals = gate_vals / torch.clamp(gate_vals.sum(dim=-1, keepdim=True), min=1e-9)
-
-    # Load-balancing aux loss (Switch): E * mean_e(frac_tokens_e * mean_prob_e).
     sel_onehot = F.one_hot(idx, e).float()                                # [G,Tg,k,E]
-    frac = sel_onehot.sum(dim=2).mean(dim=(0, 1))                         # [E]
-    mean_p = probs.mean(dim=(0, 1))
-    aux = e * torch.sum(frac / k * mean_p)
 
     cap = max(4, int(tg * k / e * cfg.capacity_factor))
     # Position of each (token, k) assignment within its expert, per group.
@@ -86,18 +78,91 @@ def moe_apply(p, x: torch.Tensor, cfg: ModelConfig) -> Tuple[torch.Tensor, torch
     dispatch = pos_oh.sum(dim=2)
     combine = torch.einsum("gsk,gske,gskec->gsec", gate_vals, sel_onehot, pos_oh)
 
-    xe = torch.einsum("gsec,gsd->egcd", dispatch.to(x.dtype), xf)        # [E,G,C,d]
+    xe = torch.einsum("gsec,gsd->egcd", dispatch.to(xf.dtype), xf)       # [E,G,C,d]
     xe = xe.reshape(e, g * cap, d)
     h = torch.einsum("etd,edf->etf", xe, p["w_gate"])
     u = torch.einsum("etd,edf->etf", xe, p["w_up"])
     ye = torch.einsum("etf,efd->etd", F.silu(h) * u, p["w_down"])
     ye = ye.reshape(e, g, cap, d)
-    y = torch.einsum("gsec,egcd->gsd", combine.to(x.dtype), ye)
+    y = torch.einsum("gsec,egcd->gsd", combine.to(xf.dtype), ye)
 
     if cfg.n_shared_experts:
         sh = F.silu(xf @ p["shared_gate"]) * (xf @ p["shared_up"])
         sh = sh @ p["shared_down"]
         mix = torch.sigmoid(xf.float() @ p["shared_mix"])
-        y = y + (mix.to(x.dtype) * sh)
+        y = y + (mix.to(xf.dtype) * sh)
+    return y, sel_onehot, probs
 
+
+def _group_size(cfg: ModelConfig, t: int) -> int:
+    tg = min(cfg.router_group_size, t)
+    return t if t % tg else tg
+
+
+def moe_apply(p, x: torch.Tensor, cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Returns (y [B, S, d], aux_loss scalar)."""
+    b, s, d = x.shape
+    e, k = cfg.n_experts, cfg.n_experts_per_token
+    t = b * s
+    tg = _group_size(cfg, t)
+    y, sel_onehot, probs = _moe_groups(p, x.reshape(t // tg, tg, d), cfg)
+    # Load-balancing aux loss (Switch): E * mean_e(frac_tokens_e * mean_prob_e).
+    frac = sel_onehot.sum(dim=2).mean(dim=(0, 1))                         # [E]
+    mean_p = probs.mean(dim=(0, 1))
+    aux = e * torch.sum(frac / k * mean_p)
     return y.reshape(b, s, d), aux
+
+
+def moe_apply_shards(ps: Sequence, xs: Sequence[torch.Tensor], cfg: ModelConfig
+                     ) -> Tuple[List[torch.Tensor], torch.Tensor]:
+    """:func:`moe_apply` of the batch ``xs`` split into row shards (each
+    [B_i, S, d] on its device; ``ps[i]`` the MoE parameters as shard ``i``
+    reads them): the same function of the whole batch.
+
+    The tokens are grouped as the whole batch groups them, ``Tg`` of the
+    joined tokens in order.  Each group runs on the shard holding its first
+    token; a group that spans shards takes its other tokens from the shards
+    that hold them, and its outputs go back to them.  The balance loss is
+    the product of the whole batch's means: each group's top-k counts and
+    router probabilities are summed, over all shards, before the product.
+    Returns (each shard's y, the aux loss on the first shard's device)."""
+    s, d = xs[0].shape[1], xs[0].shape[2]
+    e, k = cfg.n_experts, cfg.n_experts_per_token
+    flat = [x.reshape(-1, d) for x in xs]
+    starts = [0]
+    for f in flat:
+        starts.append(starts[-1] + f.shape[0])
+    t = starts[-1]
+    tg = _group_size(cfg, t)
+
+    def pieces(lo: int, hi: int):
+        """(shard, local start, local stop) covering tokens [lo, hi)."""
+        for i, f in enumerate(flat):
+            a, b = max(lo, starts[i]), min(hi, starts[i + 1])
+            if a < b:
+                yield i, a - starts[i], b - starts[i]
+
+    outs = [[] for _ in flat]               # per shard: (local start, y rows)
+    home = xs[0].device
+    counts = torch.zeros(e, dtype=torch.float32, device=home)
+    psum = torch.zeros(e, dtype=torch.float32, device=home)
+    owner_groups: Dict[int, List[int]] = {}
+    for g in range(t // tg):
+        owner = next(pieces(g * tg, g * tg + 1))[0]
+        owner_groups.setdefault(owner, []).append(g)
+    for owner, groups in owner_groups.items():
+        lo, hi = groups[0] * tg, (groups[-1] + 1) * tg
+        dev = xs[owner].device
+        xg = torch.cat([flat[i][a:b].to(dev) for i, a, b in pieces(lo, hi)])
+        y, sel_onehot, probs = _moe_groups(ps[owner], xg.reshape(len(groups), tg, d), cfg)
+        counts = counts + sel_onehot.sum(dim=(0, 1, 2)).to(home)
+        psum = psum + probs.sum(dim=(0, 1)).to(home)
+        y = y.reshape(-1, d)
+        for i, a, b in pieces(lo, hi):
+            off = starts[i] + a - lo
+            outs[i].append((a, y[off:off + (b - a)].to(xs[i].device)))
+    frac, mean_p = counts / t, psum / t
+    aux = e * torch.sum(frac / k * mean_p)
+    ys = [torch.cat([r for _, r in sorted(o, key=lambda q: q[0])]).reshape(x.shape)
+          for o, x in zip(outs, xs)]
+    return ys, aux

@@ -12,7 +12,10 @@ full cycles of the pattern under one ``lax.scan`` and runs the remainder
 weights across.  With ``remat`` each full cycle runs under
 ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint`` of its scan
 body) and the tail without.  Decode caches are per-layer lists on an
-explicit device.
+explicit device.  With a ``mesh`` (``forward``, ``lm_loss``,
+``decode_step``) the same functions run over the batch's data shards in
+lockstep, each shard reading the parameters from their blocks
+(``sharding/blocks.py``).
 
 The parameter tree: ``{embed, layers: [block, ...], final_norm}``.
 """
@@ -20,8 +23,9 @@ The parameter tree: ``{embed, layers: [block, ...], final_norm}``.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -43,6 +47,7 @@ from repro_torch.models.layers import (
     softcap,
     wide,
 )
+from repro_torch.sharding.blocks import join_rows, shard_views, split_rows
 
 __all__ = [
     "model_decls",
@@ -129,25 +134,33 @@ def _attn_window(cfg: ModelConfig) -> Optional[int]:
     return cfg.sliding_window or cfg.local_window
 
 
+def _moe_input(p, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor):
+    """An MoE block up to its experts: (x after attention, the experts'
+    normed input)."""
+    h = rmsnorm(p["attn_norm"], x, cfg.norm_eps)
+    x = x + attn.attention_apply(p["attn"], h, cfg, positions, window=_attn_window(cfg))
+    return x, rmsnorm(p["mlp_norm"], x, cfg.norm_eps)
+
+
 def _block_apply(
     kind: str, p, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Returns (x, aux_loss or None)."""
     aux = None
-    if kind == "attn":
+    if kind == "attn" and cfg.is_moe:
+        x, h = _moe_input(p, x, cfg, positions)
+        y, aux = moe_mod.moe_apply(p["moe"], h, cfg)
+        x = x + y
+    elif kind == "attn":
         h = rmsnorm(p["attn_norm"], x, cfg.norm_eps)
         a = attn.attention_apply(p["attn"], h, cfg, positions, window=_attn_window(cfg))
-        if cfg.use_parallel_block and not cfg.is_moe:
+        if cfg.use_parallel_block:
             # PaLM-style parallel attention+MLP: both branches read one norm.
             x = x + a + mlp(p["mlp"], h)
         else:
             x = x + a
             h = rmsnorm(p["mlp_norm"], x, cfg.norm_eps)
-            if cfg.is_moe:
-                y, aux = moe_mod.moe_apply(p["moe"], h, cfg)
-                x = x + y
-            else:
-                x = x + mlp(p["mlp"], h)
+            x = x + mlp(p["mlp"], h)
     elif kind == "rglru":
         x = rglru_mod.rglru_apply(p["rglru"], x, cfg)
         h = rmsnorm(p["mlp_norm"], x, cfg.norm_eps)
@@ -170,11 +183,73 @@ def remat_call(remat: bool, fn, *args):
     return fn(*args)
 
 
+def _embed(params, tokens: Optional[torch.Tensor], frontend_embeds: Optional[torch.Tensor],
+           cfg: ModelConfig) -> torch.Tensor:
+    parts = []
+    if frontend_embeds is not None:
+        parts.append(frontend_embeds.to(cfg.dtype))
+    if tokens is not None:
+        parts.append(embed_lookup(params["embed"], tokens))
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
+
+
+def _default_positions(x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    b, s, _ = x.shape
+    positions = torch.arange(s, dtype=torch.int32, device=x.device).expand(b, s)
+    if cfg.mrope_sections is not None:
+        positions = positions.expand(3, b, s)
+    return positions
+
+
+def _forward_shards(params: Sequence, xs: List[torch.Tensor], positions: Sequence,
+                    cfg: ModelConfig, remat: bool):
+    """The layers and the final norm over a batch split into row shards
+    (one entry per shard: its parameters, its embedded rows, its
+    positions), the shards in lockstep layer by layer.  Each layer runs on
+    each shard alone, but for an MoE layer over several shards, whose
+    routing groups and balance loss are those of the whole batch
+    (``moe.moe_apply_shards``).  With ``remat`` each full cycle of the
+    pattern, over all shards, is recomputed in the backward.  Returns (the
+    shards' hidden states, the aux loss on the first shard's device)."""
+
+    def run(first: int, last: int, aux, *xs):
+        xs = list(xs)
+        for i in range(first, last):
+            kind = cfg.pattern_for_layer(i)
+            ps = [p["layers"][i] for p in params]
+            if len(xs) > 1 and kind == "attn" and cfg.is_moe:
+                halves = [_moe_input(p, x, cfg, pos) for p, x, pos in zip(ps, xs, positions)]
+                ys, a = moe_mod.moe_apply_shards([p["moe"] for p in ps],
+                                                 [h for _, h in halves], cfg)
+                xs = [x + y for (x, _), y in zip(halves, ys)]
+                aux = aux + a
+                continue
+            for j, p in enumerate(ps):
+                xs[j], a = _block_apply(kind, p, xs[j], cfg, positions[j])
+                if a is not None:
+                    aux = aux + a
+        return (aux, *xs)
+
+    pattern, n_full, _ = layer_split(cfg)
+    lp = len(pattern)
+    aux = torch.zeros((), dtype=torch.float32, device=xs[0].device)
+    for c in range(n_full):
+        aux, *xs = remat_call(remat, functools.partial(run, c * lp, (c + 1) * lp), aux, *xs)
+    aux, *xs = run(n_full * lp, cfg.n_layers, aux, *xs)
+    return [rmsnorm(p["final_norm"], x, cfg.norm_eps) for p, x in zip(params, xs)], aux
+
+
+def _split_positions(positions, shards):
+    """Positions [B, S] (or [3, B, S] for M-RoPE) split with the batch."""
+    return split_rows(positions, shards, dim=positions.dim() - 2)
+
+
 def forward(
     params,
     tokens: Optional[torch.Tensor],
     cfg: ModelConfig,
     *,
+    mesh=None,
     positions: Optional[torch.Tensor] = None,
     frontend_embeds: Optional[torch.Tensor] = None,
     remat: bool = True,
@@ -183,54 +258,32 @@ def forward(
 
     ``frontend_embeds`` [B, S_f, d] are prepended to the token embeddings
     (the stub modality frontends of the audio/VLM archs).  ``remat``
-    recomputes each full cycle of the pattern in the backward."""
-    parts = []
-    if frontend_embeds is not None:
-        parts.append(frontend_embeds.to(cfg.dtype))
-    if tokens is not None:
-        parts.append(embed_lookup(params["embed"], tokens))
-    x = parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
-    b, s, _ = x.shape
-    if positions is None:
-        positions = torch.arange(s, dtype=torch.int32, device=x.device).expand(b, s)
-        if cfg.mrope_sections is not None:
-            positions = positions.expand(3, b, s)
-
-    layers = params["layers"]
-
-    def run(x, aux, first: int, last: int):
-        for i in range(first, last):
-            x, a = _block_apply(cfg.pattern_for_layer(i), layers[i], x, cfg, positions)
-            if a is not None:
-                aux = aux + a
-        return x, aux
-
-    pattern, n_full, _ = layer_split(cfg)
-    lp = len(pattern)
-    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
-    for c in range(n_full):
-        x, aux_total = remat_call(remat, run, x, aux_total, c * lp, (c + 1) * lp)
-    x, aux_total = run(x, aux_total, n_full * lp, cfg.n_layers)
-    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    return x, aux_total
+    recomputes each full cycle of the pattern in the backward.  With a
+    ``mesh`` the same function runs over the batch's data shards
+    (``sharding/blocks.py``: ``params`` a model, laid out on the mesh, or a
+    ``BlockStore``); the hidden states come back joined on the mesh's
+    first device."""
+    if mesh is None:
+        x = _embed(params, tokens, frontend_embeds, cfg)
+        pos = _default_positions(x, cfg) if positions is None else positions
+        xs, aux = _forward_shards([params], [x], [pos], cfg, remat)
+        return xs[0], aux
+    lead = tokens if tokens is not None else frontend_embeds
+    views, shards = shard_views(params, cfg, mesh, lead.shape[0])
+    xs = [_embed(v, t, f, cfg) for v, t, f in zip(
+        views, _rows(tokens, shards), _rows(frontend_embeds, shards))]
+    pos = ([_default_positions(x, cfg) for x in xs] if positions is None
+           else _split_positions(positions, shards))
+    xs, aux = _forward_shards(views, xs, pos, cfg, remat)
+    return join_rows(xs, shards[0].device), aux
 
 
-def lm_loss(
-    params,
-    tokens: torch.Tensor,
-    cfg: ModelConfig,
-    *,
-    loss_chunk: int = 1024,
-    frontend_embeds: Optional[torch.Tensor] = None,
-    remat: bool = True,
-) -> torch.Tensor:
-    """Next-token cross entropy over the token region, float32.
+def _rows(x: Optional[torch.Tensor], shards) -> List[Optional[torch.Tensor]]:
+    return [None] * len(shards) if x is None else split_rows(x, shards)
 
-    The logits are taken in sequence chunks of ``loss_chunk`` (the whole
-    ``S - 1`` when it does not divide), each chunk's body recomputed in
-    the backward under ``remat``, so at most one ``[B, chunk, vocab]``
-    float32 block is alive.  Adds ``0.01`` times the MoE balance loss."""
-    hidden, aux = forward(params, tokens, cfg, frontend_embeds=frontend_embeds, remat=remat)
+
+def _token_loss(params, hidden: torch.Tensor, aux: torch.Tensor, tokens: torch.Tensor,
+                cfg: ModelConfig, loss_chunk: int, remat: bool) -> torch.Tensor:
     # Align: predict token t+1 from hidden t over the *token* region only.
     off = hidden.shape[1] - tokens.shape[1]
     inputs = hidden[:, off:-1]
@@ -251,6 +304,54 @@ def lm_loss(
         total = total + remat_call(remat, body, inputs[:, c0 : c0 + chunk],
                                    targets[:, c0 : c0 + chunk])
     return total / (b * sm1) + 0.01 * aux
+
+
+def lm_shard_losses(
+    params: Sequence,
+    tokens: Sequence[torch.Tensor],
+    cfg: ModelConfig,
+    *,
+    loss_chunk: int = 1024,
+    frontend_embeds: Optional[Sequence] = None,
+    remat: bool = True,
+) -> List[torch.Tensor]:
+    """:func:`lm_loss` of a batch split into row shards, one loss per shard
+    (each argument a list with one entry per shard, on its device): shard
+    ``i``'s next-token loss plus 0.01 times the balance loss of the whole
+    batch, so the shards' mean is :func:`lm_loss` of the whole batch.  The
+    meshed train step differentiates each shard's loss on its own."""
+    fronts = [None] * len(tokens) if frontend_embeds is None else frontend_embeds
+    xs = [_embed(p, t, f, cfg) for p, t, f in zip(params, tokens, fronts)]
+    hs, aux = _forward_shards(params, xs, [_default_positions(x, cfg) for x in xs], cfg, remat)
+    return [_token_loss(p, h, aux.to(h.device), t, cfg, loss_chunk, remat)
+            for p, h, t in zip(params, hs, tokens)]
+
+
+def lm_loss(
+    params,
+    tokens: torch.Tensor,
+    cfg: ModelConfig,
+    *,
+    mesh=None,
+    loss_chunk: int = 1024,
+    frontend_embeds: Optional[torch.Tensor] = None,
+    remat: bool = True,
+) -> torch.Tensor:
+    """Next-token cross entropy over the token region, float32.
+
+    The logits are taken in sequence chunks of ``loss_chunk`` (the whole
+    ``S - 1`` when it does not divide), each chunk's body recomputed in
+    the backward under ``remat``, so at most one ``[B, chunk, vocab]``
+    float32 block is alive.  Adds ``0.01`` times the MoE balance loss.
+    With a ``mesh``, the mean of the data shards' losses
+    (:func:`lm_shard_losses`) on the mesh's first device."""
+    if mesh is None:
+        return lm_shard_losses([params], [tokens], cfg, loss_chunk=loss_chunk,
+                               frontend_embeds=[frontend_embeds], remat=remat)[0]
+    views, shards = shard_views(params, cfg, mesh, tokens.shape[0])
+    losses = lm_shard_losses(views, split_rows(tokens, shards), cfg, loss_chunk=loss_chunk,
+                             frontend_embeds=_rows(frontend_embeds, shards), remat=remat)
+    return sum(loss.to(shards[0].device) for loss in losses) / len(losses)
 
 
 # ---------------------------------------------------------------------------
@@ -276,20 +377,26 @@ def init_decode_cache(batch: int, cfg: ModelConfig, max_seq: int, device=None) -
             for i in range(cfg.n_layers)]
 
 
+def _decode_attention(p, x: torch.Tensor, cache, pos: int, cfg: ModelConfig):
+    """A decode block's attention half: (x after attention, the MLP's
+    normed input, the new cache)."""
+    h = rmsnorm(p["attn_norm"], x, cfg.norm_eps)
+    y, nk, nv = attn.decode_attention(
+        p["attn"], h, cache["k"], cache["v"], pos, cfg, window=_attn_window(cfg),
+    )
+    x = x + y
+    return x, rmsnorm(p["mlp_norm"], x, cfg.norm_eps), {"k": nk, "v": nv}
+
+
 def _block_decode(kind: str, p, x: torch.Tensor, cache, pos: int, cfg: ModelConfig):
     if kind == "attn":
-        h = rmsnorm(p["attn_norm"], x, cfg.norm_eps)
-        y, nk, nv = attn.decode_attention(
-            p["attn"], h, cache["k"], cache["v"], pos, cfg, window=_attn_window(cfg),
-        )
-        x = x + y
-        h = rmsnorm(p["mlp_norm"], x, cfg.norm_eps)
+        x, h, new = _decode_attention(p, x, cache, pos, cfg)
         if cfg.is_moe:
             y, _ = moe_mod.moe_apply(p["moe"], h, cfg)
             x = x + y
         else:
             x = x + mlp(p["mlp"], h)
-        return x, {"k": nk, "v": nv}
+        return x, new
     if kind == "rglru":
         x, st = rglru_mod.rglru_decode(p["rglru"], x, cache, cfg)
         h = rmsnorm(p["mlp_norm"], x, cfg.norm_eps)
@@ -301,20 +408,70 @@ def _block_decode(kind: str, p, x: torch.Tensor, cache, pos: int, cfg: ModelConf
     raise ValueError(kind)
 
 
+def _decode_shards(params: Sequence, tokens: Sequence, caches: Sequence, pos: int,
+                   cfg: ModelConfig):
+    """One decode step over row shards in lockstep (as :func:`_forward_shards`):
+    returns each shard's logits and new cache."""
+    xs = [embed_lookup(p["embed"], t) for p, t in zip(params, tokens)]
+    new: List[List[Dict]] = [[] for _ in xs]
+    for i in range(cfg.n_layers):
+        kind = cfg.pattern_for_layer(i)
+        ps = [p["layers"][i] for p in params]
+        if len(xs) > 1 and kind == "attn" and cfg.is_moe:
+            halves = [_decode_attention(p, x, c[i], pos, cfg)
+                      for p, x, c in zip(ps, xs, caches)]
+            ys, _ = moe_mod.moe_apply_shards([p["moe"] for p in ps],
+                                             [h for _, h, _ in halves], cfg)
+            for j, ((x, _, c), y) in enumerate(zip(halves, ys)):
+                xs[j] = x + y
+                new[j].append(c)
+            continue
+        for j, p in enumerate(ps):
+            xs[j], c = _block_decode(kind, p, xs[j], caches[j][i], pos, cfg)
+            new[j].append(c)
+    logits = []
+    for p, x in zip(params, xs):
+        x = rmsnorm(p["final_norm"], x, cfg.norm_eps)
+        logits.append(softcap(lm_logits(p["embed"], x[:, 0], cfg).float(), cfg.logit_softcap))
+    return logits, new
+
+
+def split_cache(cache: List[Dict], shards) -> List[List[Dict]]:
+    """A per-layer cache's batch rows, per shard (views where the shard's
+    device is the cache's)."""
+    per = [[{} for _ in cache] for _ in shards]
+    for i, layer in enumerate(cache):
+        for k, v in layer.items():
+            for j, part in enumerate(split_rows(v, shards)):
+                per[j][i][k] = part
+    return per
+
+
+def join_cache(per: Sequence[List[Dict]], device) -> List[Dict]:
+    """The shards' caches joined along the batch on ``device``."""
+    return [{k: join_rows([p[i][k] for p in per], device) for k in layer}
+            for i, layer in enumerate(per[0])]
+
+
 def decode_step(
     params,
     tokens: torch.Tensor,         # [B, 1] current token ids
     cache: List[Dict],
     pos: int,                     # current position
     cfg: ModelConfig,
+    *,
+    mesh=None,
 ) -> Tuple[torch.Tensor, List[Dict]]:
     """One serve step: returns (logits [B, vocab] float32, new cache).
-    Attention caches are written in place; recurrent states are new."""
-    x = embed_lookup(params["embed"], tokens)
-    new_cache = []
-    for i, p in enumerate(params["layers"]):
-        x, c = _block_decode(cfg.pattern_for_layer(i), p, x, cache[i], pos, cfg)
-        new_cache.append(c)
-    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    logits = lm_logits(params["embed"], x[:, 0], cfg)
-    return softcap(logits.float(), cfg.logit_softcap), new_cache
+    Attention caches are written in place; recurrent states are new.  With
+    a ``mesh`` the step runs over the batch's data shards, each on its
+    shard of the cache; logits and cache come back joined on the mesh's
+    first device (the cache as it was when the batch is not split)."""
+    if mesh is None:
+        logits, new = _decode_shards([params], [tokens], [cache], pos, cfg)
+        return logits[0], new[0]
+    views, shards = shard_views(params, cfg, mesh, tokens.shape[0])
+    logits, new = _decode_shards(views, split_rows(tokens, shards),
+                                 split_cache(cache, shards), pos, cfg)
+    home = shards[0].device
+    return join_rows(logits, home), join_cache(new, home)

@@ -11,9 +11,8 @@ Two halves are here:
     model: weights read once, KV cache and saved activations);
   * the ConvCoTM eval paths' ``tm_serve_costs`` and their path sets.
 
-``collective_bytes_estimate`` waits for the sharding half of the LM
-substrate, with ``roofline_terms`` and the HLO parsers of ``analysis``.
-All LM numbers are global per step (divide by chips for per-chip terms);
+``collective_bytes_estimate`` gives the per-chip wire bytes of a step on
+a mesh, by mechanism.  All LM numbers are global per step (divide by chips for per-chip terms);
 matmul FLOPs are 2*m*n*k; a train step is 3x the forward.
 """
 
@@ -26,6 +25,7 @@ from repro_torch.configs.base import ModelConfig, ShapeConfig
 __all__ = [
     "TM_FUSED_PATHS",
     "TM_SPARSE_PATHS",
+    "collective_bytes_estimate",
     "flops_estimate",
     "hbm_bytes_estimate",
     "tm_serve_costs",
@@ -229,6 +229,95 @@ def hbm_bytes_estimate(
         2.0 * b * cfg.n_kv_heads * kv_len * cfg.head_dim * 2 * n_attn / chips
     )
     return pb * (cfg.active_param_count() / max(cfg.param_count(), 1)) + kv_bytes
+
+
+# ---------------------------------------------------------------------------
+# Collective traffic (per chip, wire bytes)
+# ---------------------------------------------------------------------------
+
+def _ar_per_layer(cfg: ModelConfig, parallel_block: bool) -> float:
+    """Tensor-parallel all-reduces per layer (forward), by block kind."""
+    per_kind = {"attn": 1.0 if parallel_block else 2.0,
+                "rglru": 2.0, "mlstm": 1.0, "slstm": 2.0}
+    total = 0.0
+    for i in range(cfg.n_layers):
+        total += per_kind[cfg.pattern_for_layer(i)]
+    if cfg.is_encoder_decoder:
+        total += 2.0 * cfg.n_encoder_layers + cfg.n_layers  # enc + cross-attn
+    return total
+
+
+def collective_bytes_estimate(
+    cfg: ModelConfig,
+    shape: ShapeConfig,
+    *,
+    dp: int,
+    tp: int,
+    pods: int = 1,
+    microbatches: int = 1,
+    profile: str = "tp",
+    parallel_block: bool = False,
+    gather_hoisted: bool = False,
+    pod_int8: bool = False,
+) -> Dict[str, float]:
+    """Per-chip wire bytes per step, by mechanism.
+
+    * tp - activation all-reduces (ring wire 2x of b_dev*s*d bf16), counted
+      per layer from the block mix; x3 for train (fwd + 2 bwd dgrads).
+      ``parallel_block`` merges attn+mlp into one all-reduce.
+    * fsdp - ZeRO param all-gathers (bf16) per microbatch fwd + bwd, and
+      fp32 grad reduce-scatter per microbatch.  ``gather_hoisted`` models
+      one forward gather per step and a backward regather per microbatch.
+      Profiles: 'tp' gathers params/tp per chip over the data axis; 'dp'
+      gathers full params per chip (no TP); 'serve_tp' gathers nothing
+      (decode-resident weights).
+    * pod - inter-pod fp32 gradient all-reduce of each chip's shard; /4
+      with int8 + error-feedback compression.
+    * ep - MoE expert-parallel all-to-all (dispatch + combine).
+    """
+    b, s = shape.global_batch, shape.seq_len
+    d = cfg.d_model
+    params = cfg.param_count()
+    out: Dict[str, float] = {"fsdp": 0.0, "tp": 0.0, "pod": 0.0, "ep": 0.0}
+    k = microbatches
+    tp_eff = 1 if profile == "dp" else tp
+    b_dev = max(b // (dp * pods), 1)
+    tokens_dev = b_dev * (s if shape.kind != "decode" else 1)
+
+    # --- fsdp param gathers + grad reduce-scatter ---
+    if profile == "serve_tp":
+        gathered = 0.0
+    elif profile == "dp":
+        gathered = 2.0 * params                       # full params, bf16
+    else:
+        gathered = 2.0 * params / tp                  # data-axis shard only
+    if shape.kind == "train":
+        n_gather = (1 + k) if gather_hoisted else (2 * k)
+        rs = (2.0 * gathered) * k                     # fp32 grads, ring ~1x
+        out["fsdp"] = gathered * n_gather + rs
+    elif gathered:
+        out["fsdp"] = gathered                        # one gather per call
+
+    # --- tensor-parallel activation all-reduces ---
+    if tp_eff > 1:
+        n_ar_fwd = _ar_per_layer(cfg, parallel_block)
+        mult = 3.0 if shape.kind == "train" else 1.0
+        per_ar = tokens_dev * d * 2.0 * 2.0           # bf16, ring wire 2x
+        out["tp"] = per_ar * n_ar_fwd * mult
+
+    # --- inter-pod gradient sync ---
+    if pods > 1 and shape.kind == "train":
+        pod_bytes = 2.0 * 4.0 * params / (dp * tp_eff)
+        out["pod"] = pod_bytes / (4.0 if pod_int8 else 1.0)
+
+    # --- expert-parallel all-to-all ---
+    if cfg.is_moe and cfg.n_experts % tp == 0 and tp > 1 and profile != "dp":
+        cap = tokens_dev * cfg.n_experts_per_token * cfg.capacity_factor
+        mult = 3.0 if shape.kind == "train" else 1.0
+        out["ep"] = 2.0 * cap * d * 2.0 * mult
+
+    out["total"] = sum(out.values())
+    return out
 
 
 # ---------------------------------------------------------------------------

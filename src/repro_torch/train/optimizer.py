@@ -23,7 +23,8 @@ import torch
 
 from repro_torch.configs.base import TrainConfig
 
-__all__ = ["OptState", "adamw_update", "global_norm", "init_opt_state", "lr_schedule"]
+__all__ = ["OptState", "adamw_leaf", "adamw_scalars", "adamw_update", "global_norm",
+           "init_opt_state", "lr_schedule"]
 
 
 @dataclasses.dataclass
@@ -73,6 +74,34 @@ def global_norm(tree) -> torch.Tensor:
     return torch.sqrt(sum(torch.sum(torch.square(leaf.to(torch.float32))) for leaf in leaves))
 
 
+def adamw_scalars(step: torch.Tensor, gnorm: torch.Tensor, tcfg: TrainConfig):
+    """The step's scalars from its number and the gradient's norm: (clip
+    scale, learning rate, the two bias corrections), float32 on the
+    step's device."""
+    scale = torch.clamp(tcfg.grad_clip / (gnorm + 1e-9), max=1.0)
+    lr = lr_schedule(step, tcfg)
+    stepf = step.to(torch.float32)
+    bc1 = 1.0 - torch.pow(tcfg.beta1, stepf)
+    bc2 = 1.0 - torch.pow(tcfg.beta2, stepf)
+    return scale, lr, bc1, bc2
+
+
+@torch.no_grad()
+def adamw_leaf(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor, v: torch.Tensor,
+               mw: torch.Tensor, scalars, tcfg: TrainConfig) -> None:
+    """One tensor's AdamW update in place (parameter, moments, master),
+    elementwise, so a block of a tensor updates as the tensor would."""
+    scale, lr, bc1, bc2 = scalars
+    b1, b2, eps, wd = tcfg.beta1, tcfg.beta2, tcfg.eps, tcfg.weight_decay
+    g = g.to(torch.float32) * scale
+    m.mul_(b1).add_((1 - b1) * g)
+    v.mul_(b2).add_((1 - b2) * g * g)
+    mhat = m / bc1
+    vhat = v / bc2
+    mw.sub_(lr * (mhat / (torch.sqrt(vhat) + eps) + wd * mw))
+    p.copy_(mw)
+
+
 @torch.no_grad()
 def adamw_update(params, grads: Mapping[str, torch.Tensor], opt: OptState,
                  tcfg: TrainConfig) -> Tuple[object, OptState, Dict[str, torch.Tensor]]:
@@ -82,20 +111,8 @@ def adamw_update(params, grads: Mapping[str, torch.Tensor], opt: OptState,
     place and returns ``(params, opt with the next step, {grad_norm, lr})``."""
     step = opt.step + 1
     gnorm = global_norm(grads)
-    scale = torch.clamp(tcfg.grad_clip / (gnorm + 1e-9), max=1.0)
-    lr = lr_schedule(step, tcfg)
-    b1, b2, eps, wd = tcfg.beta1, tcfg.beta2, tcfg.eps, tcfg.weight_decay
-    stepf = step.to(torch.float32)
-    bc1 = 1.0 - torch.pow(b1, stepf)
-    bc2 = 1.0 - torch.pow(b2, stepf)
+    scalars = adamw_scalars(step, gnorm, tcfg)
     for name, p in _named(params):
-        g = grads[name].to(torch.float32) * scale
-        m, v, mw = opt.m[name], opt.v[name], opt.master[name]
-        m.mul_(b1).add_((1 - b1) * g)
-        v.mul_(b2).add_((1 - b2) * g * g)
-        mhat = m / bc1
-        vhat = v / bc2
-        mw.sub_(lr * (mhat / (torch.sqrt(vhat) + eps) + wd * mw))
-        p.copy_(mw)
+        adamw_leaf(p, grads[name], opt.m[name], opt.v[name], opt.master[name], scalars, tcfg)
     opt = dataclasses.replace(opt, step=step)
-    return params, opt, {"grad_norm": gnorm, "lr": lr}
+    return params, opt, {"grad_norm": gnorm, "lr": scalars[1]}

@@ -8,8 +8,9 @@ emits pad tokens, the saturation early exit the ASIC's CSRF applies to
 clause evaluation, applied to batched decoding.  ``make_tm_serve_fn``:
 the ConvCoTM classify step closed over a frozen servable.
 
-Greedy decoding matches the reference token for token (both argmaxes
-take the first maximum).  Temperature sampling draws Gumbel noise from a
+``prefill``, ``decode`` and ``make_serve_fns`` take a ``mesh``, as the
+reference's do.  Greedy decoding matches the reference token for token
+(both argmaxes take the first maximum).  Temperature sampling draws Gumbel noise from a
 ``torch.Generator``, so its tokens are not ``jax.random.categorical``'s.
 """
 
@@ -35,12 +36,14 @@ __all__ = [
 
 
 @torch.no_grad()
-def prefill(params, batch: Dict, cfg: ModelConfig) -> torch.Tensor:
-    """Returns last-position logits [B, vocab] (float32)."""
+def prefill(params, batch: Dict, cfg: ModelConfig, *, mesh=None) -> torch.Tensor:
+    """Returns last-position logits [B, vocab] (float32).  With a ``mesh``
+    the forward runs over its data shards, the logits on its first device."""
     if cfg.is_encoder_decoder:
-        hidden = ed.encdec_forward(params, batch["frontend_embeds"], batch["dec_tokens"], cfg)
+        hidden = ed.encdec_forward(params, batch["frontend_embeds"], batch["dec_tokens"], cfg,
+                                   mesh=mesh)
     else:
-        hidden, _ = tfm.forward(params, batch.get("tokens"), cfg,
+        hidden, _ = tfm.forward(params, batch.get("tokens"), cfg, mesh=mesh,
                                 frontend_embeds=batch.get("frontend_embeds"))
     logits = lm_logits(params["embed"], hidden[:, -1], cfg).float()
     return softcap(logits, cfg.logit_softcap)
@@ -55,11 +58,13 @@ def decode(
     cfg: ModelConfig,
     *,
     cross_cache: Optional[List[Dict]] = None,
+    mesh=None,
 ) -> Tuple[torch.Tensor, List[Dict]]:
-    """One decode step -> (logits [B, vocab], new cache)."""
+    """One decode step -> (logits [B, vocab], new cache); with a ``mesh``,
+    over its data shards."""
     if cfg.is_encoder_decoder:
-        return ed.encdec_decode_step(params, tokens, cache, cross_cache, pos, cfg)
-    return tfm.decode_step(params, tokens, cache, pos, cfg)
+        return ed.encdec_decode_step(params, tokens, cache, cross_cache, pos, cfg, mesh=mesh)
+    return tfm.decode_step(params, tokens, cache, pos, cfg, mesh=mesh)
 
 
 @torch.no_grad()
@@ -108,13 +113,13 @@ def make_tm_serve_fn(servable, path: Optional[str] = None):
     return functools.partial(classify_step, servable, path_name=name)
 
 
-def make_serve_fns(cfg: ModelConfig):
-    """(prefill_fn, decode_fn) closed over ``cfg``."""
+def make_serve_fns(cfg: ModelConfig, mesh=None):
+    """(prefill_fn, decode_fn) closed over ``cfg`` and ``mesh``."""
 
     def prefill_fn(params, batch):
-        return prefill(params, batch, cfg)
+        return prefill(params, batch, cfg, mesh=mesh)
 
     def decode_fn(params, tokens, cache, pos, cross_cache=None):
-        return decode(params, tokens, cache, pos, cfg, cross_cache=cross_cache)
+        return decode(params, tokens, cache, pos, cfg, cross_cache=cross_cache, mesh=mesh)
 
     return prefill_fn, decode_fn
