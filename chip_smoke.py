@@ -160,20 +160,31 @@ this file and builds the CUDA kernels from ``src/repro_torch/csrc``).
      against the uninterrupted run (1e-5);
   7. the LM substrate over a mesh (``[lm mesh]`` lines), on meshes of the
      card repeated, the six kernels' counters held at 0: every reduced
-     arch in fp32, 3 train steps at 4 x 32 on a (2, 2) "tp" mesh at
+     arch in fp32, 3 train steps at 4 x 32 on a (2, 2) "tp" mesh, its
+     layers split over ``model`` (xLSTM on its 3-layer stack), at
      microbatches 1 against the unmeshed step at the matching count (2;
      1 for the MoE archs, whose routing groups and balance loss are the
      whole microbatch's), losses 1e-6 and grad_norm 1e-5 relative, and
-     whether bit for bit; again compressed for h2o-danube and qwen2-moe;
-     a "serve_tp" (1, 2) decode of reduced recurrentgemma (8 steps, logits
-     equal); h2o-danube-1.8b whole, bf16 with fp32 masters, 4 x 2,048,
+     whether bit for bit, with the leaves each gathered across ``model``
+     and a check that every position read its own blocks; again
+     compressed for h2o-danube and qwen2-moe, in float64; phi3.5-moe at 16 experts,
+     sharded over ``model``; every arch under "dp", bit for bit without MoE;
+     a "serve_tp" (1, 2) decode of reduced recurrentgemma on a cache laid
+     out by ``cache_shardings`` (8 steps, logits within 1e-5);
+     h2o-danube-1.8b whole, bf16 with fp32 masters, 4 x 2,048,
      remat full: 3 unmeshed steps at microbatches 2, freed, then 3 on the
-     (2, 2) mesh at microbatches 1 from the same initial state (each
-     step's loss, grad_norm, ms on both clocks and tokens/s, the largest
-     relative differences held at 1e-3 and 1e-2, peak memory, the state's
-     bytes a grid position against ``launch.dryrun.cell_bytes`` and the
-     25.64 GB whole); its bf16 ``generate`` on a (1, 2) "serve_tp" mesh
-     (the unmeshed tokens, decode ms a step); and the dry-run of
+     (2, 2) "tp" mesh at microbatches 1 from the same initial state (each
+     step's loss, grad_norm, ms on both clocks and tokens/s, the relative
+     differences beside the unmeshed step's own shift when one weight
+     moves one bf16 ulp, peak memory, the state's bytes a grid position
+     against ``launch.dryrun.cell_bytes`` and the 25.64 GB whole, no leaf
+     gathered across ``model``, every position's work, a
+     ``torch.profiler`` split of one more meshed step); the same 3 steps
+     in float32, step 0 (the same weights) held at 1e-3 in loss and 1e-2
+     in grad_norm; its ``generate`` on a (1, 2) "serve_tp" mesh with the
+     cache split by ``seq``, in bf16 (decode ms a step, the tokens
+     compared, the cache bytes a position against the dry-run's) and in
+     float32 (the unmeshed tokens, held); and the dry-run of
      h2o-danube-1.8b x train_4k on both production meshes (argument bytes
      a device against the card's memory, the dominant roofline term);
      then one ``{"kernels": [...]}`` line.
@@ -187,6 +198,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -375,6 +387,46 @@ def print_top_device(label: str, on_card, n: int, unit: str) -> None:
         if self_dev_us(e):
             print(f"[profile] {label}: device {self_dev_us(e) / n:9.2f} us/{unit} "
                   f"x{e.count // n:<3d} {e.key[:80]}")
+
+
+def _profile_step(label: str, step_fn, state, batch, card: str):
+    """One more step under ``torch.profiler`` (``_profile_once``).  Returns
+    the state."""
+    out = {}
+
+    def run():
+        out["state"], _ = step_fn(state, batch)
+
+    _profile_once(label, run, card)
+    return out["state"]
+
+
+def _profile_once(label: str, run, card: str) -> None:
+    """``run()`` once under ``torch.profiler``: wall and device-busy time,
+    device operations, the top device rows and host rows."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t) * 1e6
+    rows = prof.key_averages()
+    on_card = device_rows(rows)
+    busy = sum(self_dev_us(e) for e in on_card)
+    if busy:
+        print(f"[profile] {label}: wall {wall_us / 1e3:.1f} ms, device busy "
+              f"{busy / 1e3:.1f} ms ({100 * busy / wall_us:.1f}% of wall), idle "
+              f"{100 * (1 - busy / wall_us):.1f}%; {sum(e.count for e in on_card)} device "
+              f"operations a step | {card}")
+        print_top_device(label, on_card, 1, "step")
+        for e in sorted(rows, key=lambda e: e.self_cpu_time_total, reverse=True)[:8]:
+            print(f"[profile] {label}: host {e.self_cpu_time_total / 1e3:9.2f} ms/step "
+                  f"x{e.count:<6d} {e.key[:80]}")
+    else:
+        print(f"[profile] {label}: the profiler captured no device time (not measured)")
 
 
 def profile_classify(engine, arch: str, imgs, reps: int, label: str) -> None:
@@ -2164,7 +2216,6 @@ def lm_train_run(dev, card: str) -> dict:
     and a profile of one more step.  Returns the median step time."""
     import numpy as np
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.configs import TrainConfig, get_config
     from repro_torch.launch.specs import model_decls
@@ -2211,26 +2262,7 @@ def lm_train_run(dev, card: str) -> dict:
           f"[lm train] the loss did not fall: first {losses[0]}, last three {losses[-3:]}")
 
     # Where a step's time goes: one more step under the profiler.
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t = time.perf_counter()
-        state, m = step_fn(state, batches[TRAIN_RUN_STEPS])
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t) * 1e6
-    rows = prof.key_averages()
-    on_card = device_rows(rows)
-    busy = sum(self_dev_us(e) for e in on_card)
-    if busy:
-        print(f"[profile] lm train step: wall {wall_us / 1e3:.1f} ms, device busy "
-              f"{busy / 1e3:.1f} ms ({100 * busy / wall_us:.1f}% of wall), idle "
-              f"{100 * (1 - busy / wall_us):.1f}%; {sum(e.count for e in on_card)} device "
-              f"operations a step | {card}")
-        print_top_device("lm train step", on_card, 1, "step")
-        for e in sorted(rows, key=lambda e: e.self_cpu_time_total, reverse=True)[:8]:
-            print(f"[profile] lm train step: host {e.self_cpu_time_total / 1e3:9.2f} ms/step "
-                  f"x{e.count:<6d} {e.key[:80]}")
-    else:
-        print("[profile] lm train step: the profiler captured no device time (not measured)")
+    state = _profile_step("lm train step", step_fn, state, batches[TRAIN_RUN_STEPS], card)
     del state, model, batches
     torch.cuda.empty_cache()
     return {"cfg": cfg, "step_ms": step_ms}
@@ -2293,6 +2325,15 @@ def lm_train_resume(dev, card: str) -> None:
 #: bf16 (at least these; printed as measured).
 MESH_LOSS_RTOL, MESH_GNORM_RTOL = 1e-6, 1e-5
 MESH_FULL_LOSS_RTOL, MESH_FULL_GNORM_RTOL = 1e-3, 1e-2
+#: Under a profile that splits over ``model`` the layers sum partial
+#: products in another float order than the unmeshed products.  Where
+#: rounding grows past a bound above (xLSTM's 17 layers, the compressed
+#: residual, h2o-danube-1.8b on the reference's draws, whose gradient is
+#: decided by rounding), the split is held instead within WITNESS_K times
+#: the largest shift of the unmeshed run itself over WITNESS_DRAWS draws of
+#: its weights each moved one ulp, up or down at random (``_nudged``; the
+#: CPU tests hold the same, ``tests/test_torch_lm_mesh.py``).
+WITNESS_DRAWS, WITNESS_K = 3, 2.0
 #: The (data, model) grids of the phase, every position the card: the
 #: train mesh under the "tp" profile, the decode mesh under "serve_tp".
 MESH_TRAIN, MESH_SERVE = (2, 2), (1, 2)
@@ -2336,14 +2377,71 @@ def _rel_errs(a: list, b: list, key: str) -> float:
     return max(abs(x[key] - y[key]) / abs(y[key]) for x, y in zip(a, b))
 
 
+def _nudged(model, seed: int):
+    """``model`` with every floating leaf moved one ulp, up or down at random
+    (from ``seed``), in place; returns it."""
+    import torch
+
+    gen = torch.Generator(device=next(model.parameters()).device).manual_seed(seed)
+    with torch.no_grad():
+        for p in model.parameters():
+            up = torch.randint(0, 2, p.shape, generator=gen, device=p.device).bool()
+            p.copy_(torch.nextafter(p, torch.where(up, torch.inf, -torch.inf).to(p.dtype)))
+    return model
+
+
+def _held(label: str, errs: dict, tols: dict, draw) -> str:
+    """Each of ``errs`` (name -> the meshed run's relative error against the
+    unmeshed run) within its bound in ``tols``, or, past it, within
+    WITNESS_K times the largest error of WITNESS_DRAWS unmeshed runs on
+    ``_nudged`` weights (``draw(seed)`` gives their errors, keyed alike;
+    drawn only when a bound is passed).  Returns the readings."""
+    past = [k for k, e in errs.items() if e > tols[k]]
+    if not past:
+        return "within the bounds"
+    draws = [draw(seed) for seed in range(WITNESS_DRAWS)]
+    out = []
+    for k in past:
+        wit = max(d[k] for d in draws)
+        out.append(f"{k} {errs[k]:.2e} past {tols[k]:.0e}, the unmeshed run's own one-ulp "
+                   f"shifts {[f'{d[k]:.2e}' for d in draws]}")
+        check(errs[k] <= WITNESS_K * wit,
+              f"{label}: {k} rel {errs[k]:.3g} past {tols[k]:.0e} and past {WITNESS_K} x "
+              f"the one-ulp witness {wit:.3g}")
+    return "; ".join(out) + f" (held at {WITNESS_K:g} x the largest)"
+
+
+def _gathered_line(arch: str, store) -> str:
+    """The leaves a step gathered across ``model``, with their reasons."""
+    if not store.gathered:
+        return f"[lm mesh] {arch}: 0 leaves gathered across model"
+    by_reason: dict = {}
+    for name, reason in store.gathered.items():
+        by_reason.setdefault(reason, []).append(name)
+    return (f"[lm mesh] {arch}: {len(store.gathered)} leaves gathered across model: "
+            + "; ".join(f"{', '.join(names)} ({reason})" for reason, names in by_reason.items()))
+
+
 def lm_mesh_reduced(dev, card: str) -> None:
     """[lm mesh] 1: every arch reduced, fp32, on weights of each layer's own
-    fan-in: 3 train steps at 4 x 32 on a (2, 2) "tp" mesh of the card at
+    fan-in: 3 train steps at 4 x 32 on a (2, 2) mesh of the card at
     microbatches 1 against the unmeshed step on the card at the matching
-    count (2, which adds the same per-shard sums; 1 for the MoE archs, whose
-    routing groups and balance loss are those of the whole microbatch);
-    again with compression for h2o-danube and qwen2-moe; then a "serve_tp"
-    (1, 2) decode of reduced recurrentgemma, 8 steps, logits equal."""
+    count (2, which adds the same per-shard sums; 1 for the MoE archs,
+    whose routing groups and balance loss are those of the whole
+    microbatch).  Under "tp", where the layers split over ``model``: every
+    arch, and again compressed for h2o-danube and qwen2-moe, held at the
+    bounds or, past them, at the one-ulp witness (``_held``: xLSTM's 17
+    layers grow the split's float order past them, as they grow any
+    rounding; a gradient that it moves across an int8 rounding boundary
+    moves the compressed residual by a quantum); beside them at the bounds
+    alone xLSTM on its 3-layer stack, the compressed pair in float64, and
+    phi3.5-moe at 16 experts (sharded over ``model``); each with the leaves
+    it gathered across ``model`` and a check that every position read its
+    own blocks.  Under
+    "dp", where nothing splits, every arch whole, bit for bit but for the
+    MoE archs (the whole microbatch's routing, summed in float32).  Then a
+    "serve_tp" (1, 2) decode of reduced recurrentgemma on a cache laid out
+    by ``cache_shardings``, 8 steps, logits within 1e-5."""
     import copy
     import dataclasses
 
@@ -2360,11 +2458,19 @@ def lm_mesh_reduced(dev, card: str) -> None:
     from repro_torch.train.train_step import init_train_state, make_train_step
 
     mesh = make_test_mesh(*MESH_TRAIN, device=dev)
-    cases = [(a, False) for a in list_archs()] + [("h2o-danube-1.8b", True),
-                                                  ("qwen2-moe-a2.7b", True)]
-    with _sharding_profile("tp"):
-        for arch, comp in cases:
-            cfg = dataclasses.replace(reduced_config(get_config(arch)), dtype=torch.float32)
+    f32, f64 = torch.float32, torch.float64
+    # (profile, arch, compressed, config changes, dtype, held at the bounds alone)
+    cases = ([("tp", a, False, {}, f32, False) for a in list_archs()]
+             + [("tp", "h2o-danube-1.8b", True, {}, f32, False),
+                ("tp", "qwen2-moe-a2.7b", True, {}, f32, False),
+                ("tp", "xlstm-350m", False, XLSTM_SHALLOW, f32, True),
+                ("tp", "h2o-danube-1.8b", True, {}, f64, True),
+                ("tp", "qwen2-moe-a2.7b", True, {}, f64, True),
+                ("tp", "phi3.5-moe-42b-a6.6b", False, {"n_experts": 16}, f32, True)]
+             + [("dp", a, False, {}, f32, True) for a in list_archs()])
+    for prof, arch, comp, changes, dtype, strict in cases:
+        with _sharding_profile(prof):
+            cfg = dataclasses.replace(reduced_config(get_config(arch)), dtype=dtype, **changes)
             model = init_params(model_decls(cfg, fan_in=True),
                                 torch.Generator().manual_seed(SEED)).to(dev)
             tcfg = TrainConfig(learning_rate=1e-3, warmup_steps=1, total_steps=6,
@@ -2375,28 +2481,55 @@ def lm_mesh_reduced(dev, card: str) -> None:
             flat = _mesh_steps(init_train_state(copy.deepcopy(model), flat_cfg),
                                make_train_step(cfg, flat_cfg), batches)
             state = init_train_state(shard_params(model, cfg, mesh), tcfg)
-            check(all(b.device == dev for bl in state["params"].blocks.values()
-                      for b in bl.values()), f"[lm mesh] {arch}: a block is not on {dev}")
+            store = state["params"]
+            check(all(b.device == dev for bl in store.blocks.values() for b in bl.values()),
+                  f"[lm mesh] {arch}: a block is not on {dev}")
             meshed = _mesh_steps(state, make_train_step(cfg, tcfg, mesh), batches)
-            e_loss, e_gn = _rel_errs(meshed, flat, "loss"), _rel_errs(meshed, flat, "grad_norm")
-            same = all(a[k] == b[k] for a, b in zip(meshed, flat) for k in ("loss", "grad_norm"))
-            extra = ""
-            if comp:
-                e_res = _rel_errs(meshed, flat, "residual_norm")
-                extra = f", residual_norm rel {e_res:.2e}"
-                check(e_res <= MESH_GNORM_RTOL, f"[lm mesh] {arch}: residual_norm rel {e_res:.3g}")
-            print(f"[lm mesh] {arch} reduced fp32{' compressed' if comp else ''}: (2, 2) tp mesh "
-                  f"of the card at microbatches 1 == unmeshed at {k_flat}, 3 steps: losses "
-                  f"{[round(m['loss'], 6) for m in meshed]}, rel {e_loss:.2e} (tolerance "
-                  f"{MESH_LOSS_RTOL:.0e}), grad_norm rel {e_gn:.2e} ({MESH_GNORM_RTOL:.0e})"
-                  f"{extra}; {'bit for bit' if same else 'not bit for bit'}; meshed step "
-                  f"{statistics.median(m['host_ms'] for m in meshed[1:]):.1f} ms against "
-                  f"{statistics.median(m['host_ms'] for m in flat[1:]):.1f} ms (host clock) "
+        tols = {"loss": MESH_LOSS_RTOL, "grad_norm": MESH_GNORM_RTOL,
+                "residual_norm": MESH_GNORM_RTOL}
+        errs = {k: _rel_errs(meshed, flat, k) for k in tols if k in flat[0]}
+        e_loss, e_gn = errs["loss"], errs["grad_norm"]
+        same = all(a[k] == b[k] for a, b in zip(meshed, flat) for k in ("loss", "grad_norm"))
+        extra = f", residual_norm rel {errs['residual_norm']:.2e}" if comp else ""
+        label = (f"{arch} reduced {'fp32' if dtype == f32 else 'float64'}"
+                 f"{' compressed' if comp else ''}"
+                 f"{''.join(f' {k}={v}' for k, v in changes.items() if k == 'n_experts')}"
+                 f"{' (3-layer stack)' if changes is XLSTM_SHALLOW else ''}")
+        print(f"[lm mesh] {label}: (2, 2) {prof} mesh "
+              f"of the card at microbatches 1 == unmeshed at {k_flat}, 3 steps: losses "
+              f"{[round(m['loss'], 6) for m in meshed]}, rel {e_loss:.2e} (tolerance "
+              f"{MESH_LOSS_RTOL:.0e}), grad_norm rel {e_gn:.2e} ({MESH_GNORM_RTOL:.0e})"
+              f"{extra}; {'bit for bit' if same else 'not bit for bit'}; meshed step "
+              f"{statistics.median(m['host_ms'] for m in meshed[1:]):.1f} ms against "
+              f"{statistics.median(m['host_ms'] for m in flat[1:]):.1f} ms (host clock) "
+              f"| {card}")
+        check(all(torch.isfinite(torch.tensor(m["loss"])) for m in meshed),
+              f"[lm mesh] {arch}: non-finite loss")
+        if strict:
+            for k, e in errs.items():
+                check(e <= tols[k], f"[lm mesh] {label}: {k} rel {e:.3g}")
+        else:
+            def draw(seed):
+                runs = _mesh_steps(init_train_state(_nudged(copy.deepcopy(model), seed),
+                                                    flat_cfg),
+                                   make_train_step(cfg, flat_cfg), batches)
+                return {k: _rel_errs(runs, flat, k) for k in errs}
+
+            print(f"[lm mesh] {label} under tp: {_held(f'[lm mesh] {label}', errs, tols, draw)} "
                   f"| {card}")
-            check(all(torch.isfinite(torch.tensor(m["loss"])) for m in meshed),
-                  f"[lm mesh] {arch}: non-finite loss")
-            check(e_loss <= MESH_LOSS_RTOL, f"[lm mesh] {arch}: loss rel {e_loss:.3g}")
-            check(e_gn <= MESH_GNORM_RTOL, f"[lm mesh] {arch}: grad_norm rel {e_gn:.3g}")
+        if prof == "dp":      # nothing splits; without MoE the unmeshed sums, bit for bit
+            check(not store.local_reads and not store.gathered,
+                  f"[lm mesh] {arch}: under dp a layer split over model")
+            check(same or cfg.is_moe,
+                  f"[lm mesh] {arch}: under dp the meshed step is not the unmeshed one bit "
+                  f"for bit")
+            continue
+        print(_gathered_line(label, store) + f"; positions that read their own blocks "
+              f"{sorted(store.local_reads)} | {card}")
+        check(set(store.local_reads) == set(store.positions),
+              f"[lm mesh] {arch}: positions without work {set(store.positions) - set(store.local_reads)}")
+        if arch == "h2o-danube-1.8b" or changes.get("n_experts") == 16:
+            check(not store.gathered, f"[lm mesh] {arch}: gathered {store.gathered}")
 
     with _sharding_profile("serve_tp"):
         cfg = dataclasses.replace(reduced_config(get_config("recurrentgemma-2b")),
@@ -2404,7 +2537,8 @@ def lm_mesh_reduced(dev, card: str) -> None:
         model = init_params(model_decls(cfg), torch.Generator().manual_seed(SEED)).to(dev)
         smesh = make_test_mesh(*MESH_SERVE, device=dev)
         store = shard_params(model, cfg, smesh)
-        c0, c1 = (tfm.init_decode_cache(4, cfg, 8, dev) for _ in range(2))
+        c0 = tfm.init_decode_cache(4, cfg, 8, dev)
+        c1 = tfm.init_decode_cache(4, cfg, 8, dev, mesh=smesh)
         tok = torch.arange(4, dtype=torch.int32, device=dev)[:, None]
         worst, equal = 0.0, True
         with torch.no_grad():
@@ -2414,25 +2548,51 @@ def lm_mesh_reduced(dev, card: str) -> None:
                 worst = max(worst, float((l1 - l0).abs().max()))
                 equal = equal and torch.equal(l1, l0)
                 tok = l0.argmax(-1).to(torch.int32)[:, None]
-        print(f"[lm mesh] recurrentgemma-2b reduced fp32: serve_tp (1, 2) decode, 8 steps: max "
-              f"|dlogit| {worst:.3g} against the unmeshed decode ({'equal' if equal else 'not'} "
+        print(f"[lm mesh] recurrentgemma-2b reduced fp32: serve_tp (1, 2) decode, 8 steps, the "
+              f"cache laid out by cache_shardings (k/v {c1.specs['2.k']}, h {c1.specs['0.h']}): "
+              f"max |dlogit| {worst:.3g} against the unmeshed decode ({'equal' if equal else 'not'} "
               f"bit for bit) | {card}")
+        print(_gathered_line("recurrentgemma-2b serve_tp decode", store) + f" | {card}")
         check(worst <= 1e-5, f"[lm mesh] serve_tp decode: logits differ by {worst:.3g}")
+        check(set(store.local_reads) == set(store.positions),
+              "[lm mesh] serve_tp decode: a position read none of its blocks")
 
 
-def lm_mesh_full_width(dev, card: str) -> dict:
-    """[lm mesh] 2: h2o-danube-1.8b whole, bf16 with fp32 masters, 4 x 2,048,
-    remat full: 3 unmeshed steps at microbatches 2, freed, then 3 steps on
-    a (2, 2) "tp" mesh of the card at microbatches 1 from the same initial
-    state; each step's metrics, times and tokens/s both ways, their largest
-    relative differences, peak memory, and the state's bytes per grid
-    position against the dry-run's argument bytes for the same mesh and
-    shape."""
-    import dataclasses
-
+def _full_width_flat(cfg, dev, batches, fan_in: bool, nudge=None) -> list:
+    """3 unmeshed steps of h2o-danube-1.8b whole (``cfg``'s dtype, fp32
+    masters, remat full, microbatches 2) from fresh weights (with
+    ``nudge``, ``_nudged`` by that seed); each step's metrics."""
     import torch
 
-    from repro_torch.configs import ShapeConfig, TrainConfig, get_config
+    from repro_torch.configs import TrainConfig
+    from repro_torch.launch.specs import model_decls
+    from repro_torch.models.base import init_params
+    from repro_torch.train.train_step import init_train_state, make_train_step
+
+    tcfg = TrainConfig(learning_rate=3e-4, warmup_steps=1, total_steps=TRAIN_RUN_STEPS,
+                       microbatches=MESH_TRAIN[0], remat="full")
+    model = init_params(model_decls(cfg, fan_in=fan_in),
+                        torch.Generator(device=dev).manual_seed(SEED))
+    if nudge is not None:
+        _nudged(model, nudge)
+    out = _mesh_steps(init_train_state(model, tcfg), make_train_step(cfg, tcfg), batches)
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def _full_width_steps(cfg, dev, card: str, profile: bool, fan_in: bool = False) -> dict:
+    """3 unmeshed steps of h2o-danube-1.8b whole (``_full_width_flat``, on
+    the reference's draws or with ``fan_in`` on weights of each layer's own
+    fan-in), freed, then 3 steps on a (2, 2) "tp" mesh of the card at
+    microbatches 1 from the same initial state (with ``profile``, and one
+    more meshed step under the profiler).  Returns both runs' metrics, the
+    batches, peak memory, the state's bytes a position, the dry-run's
+    argument bytes, and the store's record of gathered leaves and
+    own-block reads."""
+    import torch
+
+    from repro_torch.configs import ShapeConfig, TrainConfig
     from repro_torch.launch import dryrun
     from repro_torch.launch.mesh import make_test_mesh
     from repro_torch.launch.specs import model_decls
@@ -2441,113 +2601,309 @@ def lm_mesh_full_width(dev, card: str) -> dict:
     from repro_torch.sharding.blocks import shard_params
     from repro_torch.train.train_step import init_train_state, make_train_step
 
-    cfg = get_config("h2o-danube-1.8b")
     tcfg = TrainConfig(learning_rate=3e-4, warmup_steps=1, total_steps=TRAIN_RUN_STEPS,
                        microbatches=1, remat="full")
-    flat_cfg = dataclasses.replace(tcfg, microbatches=MESH_TRAIN[0])
-    batches = [synthetic_lm_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, s, dev) for s in range(3)]
-    tokens = TRAIN_BATCH * TRAIN_SEQ
-
-    def fresh():
-        return init_params(model_decls(cfg), torch.Generator(device=dev).manual_seed(SEED))
-
+    batches = [synthetic_lm_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, s, dev) for s in range(4)]
+    out: dict = {"batches": batches[:3]}
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    state = init_train_state(fresh(), flat_cfg)
-    flat = _mesh_steps(state, make_train_step(cfg, flat_cfg), batches)
-    flat_peak = torch.cuda.max_memory_allocated()
-    del state
-    torch.cuda.empty_cache()
-
+    out["flat"] = _full_width_flat(cfg, dev, batches[:3], fan_in)
+    out["flat_peak"] = torch.cuda.max_memory_allocated()
     with _sharding_profile("tp"):
         mesh = make_test_mesh(*MESH_TRAIN, device=dev)
         torch.cuda.reset_peak_memory_stats()
-        model = fresh()
+        model = init_params(model_decls(cfg, fan_in=fan_in),
+                            torch.Generator(device=dev).manual_seed(SEED))
         store = shard_params(model, cfg, mesh)
         del model
         state = init_train_state(store, tcfg)
-        per_pos = [sum(st.nbytes_at(pos) for st in (state["params"], state["opt"].m,
-                                                     state["opt"].v, state["opt"].master)) + 4
-                   for pos in store.positions]
-        args, _ = dryrun.cell_bytes(cfg, ShapeConfig("train", TRAIN_SEQ, TRAIN_BATCH, "train"),
-                                    make_test_mesh(*MESH_TRAIN, device="meta"), 1)
-        meshed = _mesh_steps(state, make_train_step(cfg, tcfg, mesh), batches)
-        mesh_peak = torch.cuda.max_memory_allocated()
+        out["per_pos"] = [sum(st.nbytes_at(pos) for st in (state["params"], state["opt"].m,
+                                                            state["opt"].v, state["opt"].master))
+                          + 4 for pos in store.positions]
+        out["args"], _ = dryrun.cell_bytes(cfg, ShapeConfig("train", TRAIN_SEQ, TRAIN_BATCH,
+                                                            "train"),
+                                           make_test_mesh(*MESH_TRAIN, device="meta"), 1)
+        step_fn = make_train_step(cfg, tcfg, mesh)
+        out["meshed"] = _mesh_steps(state, step_fn, batches[:3])
+        out["mesh_peak"] = torch.cuda.max_memory_allocated()
+        out["reads"], out["positions"] = dict(store.local_reads), list(store.positions)
+        out["gathered"] = dict(store.gathered)
+        out["gathered_line"] = _gathered_line("h2o-danube-1.8b (2, 2) tp", store)
+        if profile:
+            state = _profile_step("lm mesh step (2, 2) tp", step_fn, state, batches[3], card)
     del state, store
     torch.cuda.empty_cache()
+    return out
 
+
+def _full_width_held(name: str, cfg, run: dict, dev, fan_in: bool) -> str:
+    """The meshed run of ``_full_width_steps`` against the unmeshed one over
+    its 3 steps: loss and grad_norm (largest relative differences) at the
+    MESH_FULL bounds or, past them, at the one-ulp witness of ``_held``.
+    Returns the readings."""
+    errs = {k: _rel_errs(run["meshed"], run["flat"], k) for k in ("loss", "grad_norm")}
+    tols = {"loss": MESH_FULL_LOSS_RTOL, "grad_norm": MESH_FULL_GNORM_RTOL}
+    label = f"[lm mesh] h2o-danube-1.8b {name}"
+
+    def draw(seed):
+        again = _full_width_flat(cfg, dev, run["batches"], fan_in, nudge=seed)
+        return {k: _rel_errs(again, run["flat"], k) for k in errs}
+
+    held = _held(label, errs, tols, draw)
+    first = {k: _rel_errs(run["meshed"][:1], run["flat"][:1], k) for k in errs}
+    check(all(math.isfinite(m["loss"]) for m in run["meshed"]), f"{label}: non-finite loss")
+    return (f"loss rel {errs['loss']:.2e} (step 0 {first['loss']:.2e}; bound "
+            f"{MESH_FULL_LOSS_RTOL:.0e}), grad_norm rel {errs['grad_norm']:.2e} (step 0 "
+            f"{first['grad_norm']:.2e}; bound {MESH_FULL_GNORM_RTOL:.0e}): {held}")
+
+
+def lm_mesh_full_width(dev, card: str) -> dict:
+    """[lm mesh] 2: h2o-danube-1.8b whole on a (2, 2) "tp" mesh of the card,
+    its attention split by heads, its MLP by hidden units, its head and
+    loss by vocab entries (``_full_width_steps``), against the unmeshed
+    step, 3 steps each.  In bf16 with fp32 masters on the reference's
+    draws: each step's metrics, times and tokens/s both ways, peak memory,
+    the state's bytes per grid position against the dry-run's, the leaves
+    gathered across ``model`` (none: 32 and 8 heads, an ``ff`` of 6,912 and
+    a vocab of 32,000 all divide 2), every position's work, a profile of
+    one more meshed step; loss and grad_norm at the MESH_FULL bounds or,
+    past them, at the one-ulp witness (these draws' bf16 gradient is
+    decided by rounding: one weight moved one ulp moved grad_norm 1.46e-2
+    on the card).  Again in bf16 on weights of each layer's own fan-in
+    (well conditioned), and in float32 on the reference's draws, each the
+    same way (Adam's first update moves each weight by about ``lr`` times
+    the sign of its gradient, and a gradient within rounding of zero may
+    take either sign, so steps 1-2 part further than step 0)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+
+    cfg = get_config("h2o-danube-1.8b")
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    bf = _full_width_steps(cfg, dev, card, profile=True)
+    meshed, flat = bf["meshed"], bf["flat"]
     for i, (a, b) in enumerate(zip(meshed, flat)):
         for label, m in (("unmeshed (microbatches 2)", b), ("(2, 2) tp mesh (microbatches 1)", a)):
             print(f"[lm mesh] h2o-danube-1.8b bf16 step {i}, {label}: loss {m['loss']:.6f} "
                   f"grad_norm {m['grad_norm']:.6f}; {m['host_ms']:.1f} ms host clock, "
                   f"{m['dev_ms']:.1f} ms CUDA events, {tokens / m['host_ms'] * 1e3:,.0f} "
                   f"tokens/s | {card}")
-    e_loss, e_gn = _rel_errs(meshed, flat, "loss"), _rel_errs(meshed, flat, "grad_norm")
-    same = all(a[k] == b[k] for a, b in zip(meshed, flat) for k in ("loss", "grad_norm"))
+    held = _full_width_held("bf16", cfg, bf, dev, fan_in=False)
     step_ms = statistics.median(m["host_ms"] for m in meshed[1:])
     flat_ms = statistics.median(m["host_ms"] for m in flat[1:])
     print(f"[lm mesh] h2o-danube-1.8b bf16 (fp32 masters) at {TRAIN_BATCH} x {TRAIN_SEQ}, remat "
-          f"full, 3 steps each from one initial state: the (2, 2) mesh against unmeshed, loss "
-          f"rel {e_loss:.2e} (tolerance {MESH_FULL_LOSS_RTOL:.0e}), grad_norm rel {e_gn:.2e} "
-          f"({MESH_FULL_GNORM_RTOL:.0e}), {'bit for bit' if same else 'not bit for bit'}; "
-          f"median of steps 1-2 {step_ms:.1f} ms meshed ({tokens / step_ms * 1e3:,.0f} tokens/s) "
-          f"against {flat_ms:.1f} ms unmeshed ({tokens / flat_ms * 1e3:,.0f} tokens/s); peak "
-          f"memory {mesh_peak / 2**30:.2f} GiB meshed, {flat_peak / 2**30:.2f} GiB unmeshed "
-          f"(max_memory_allocated) | {card}")
+          f"full, the reference's draws, 3 steps each from one initial state: the (2, 2) tp mesh "
+          f"against unmeshed, {held}; median of steps 1-2 {step_ms:.1f} ms meshed "
+          f"({statistics.median(m['dev_ms'] for m in meshed[1:]):.1f} ms CUDA events, "
+          f"{tokens / step_ms * 1e3:,.0f} tokens/s) against {flat_ms:.1f} ms unmeshed "
+          f"({statistics.median(m['dev_ms'] for m in flat[1:]):.1f} ms CUDA events, "
+          f"{tokens / flat_ms * 1e3:,.0f} tokens/s); peak memory "
+          f"{bf['mesh_peak'] / 2**30:.2f} GiB meshed, {bf['flat_peak'] / 2**30:.2f} GiB "
+          f"unmeshed (max_memory_allocated) | {card}")
+    per_pos, args = bf["per_pos"], bf["args"]
     batch_bytes = args - per_pos[0]
     print(f"[lm mesh] h2o-danube-1.8b train state on the (2, 2) mesh: {per_pos[0]:,} bytes a grid "
           f"position ({per_pos[0] / 1e9:.2f} GB; the dry-run's argument bytes for this mesh and "
           f"shape {args:,}, of which the batch {batch_bytes:,}), {sum(per_pos) / 1e9:.2f} GB over "
           f"the {len(per_pos)} positions against {H2O_STATE_GB} GB whole | {card}")
+    print(f"{bf['gathered_line']}; own-block reads a position over the 3 steps {bf['reads']} "
+          f"| {card}")
+    check(not bf["gathered"], f"[lm mesh] h2o-danube-1.8b gathered across model: {bf['gathered']}")
+    check(set(bf["reads"]) == set(bf["positions"]),
+          f"[lm mesh] h2o-danube-1.8b: positions without work: {bf['reads']}")
     check(len(set(per_pos)) == 1, f"[lm mesh] the positions hold different bytes: {per_pos}")
     check(0 <= batch_bytes <= TRAIN_BATCH * TRAIN_SEQ * 4,
           f"[lm mesh] state bytes {per_pos[0]} against the dry-run's {args}")
     check(abs(sum(per_pos) / 1e9 - H2O_STATE_GB) < 0.01,
           f"[lm mesh] state {sum(per_pos) / 1e9:.3f} GB, not {H2O_STATE_GB}")
-    check(all(torch.isfinite(torch.tensor(m["loss"])) for m in meshed), "[lm mesh] non-finite loss")
-    check(e_loss <= MESH_FULL_LOSS_RTOL, f"[lm mesh] full width: loss rel {e_loss:.3g}")
-    check(e_gn <= MESH_FULL_GNORM_RTOL, f"[lm mesh] full width: grad_norm rel {e_gn:.3g}")
+    del bf
+
+    fi = _full_width_steps(cfg, dev, card, profile=False, fan_in=True)
+    held = _full_width_held("bf16 fan-in", cfg, fi, dev, fan_in=True)
+    print(f"[lm mesh] h2o-danube-1.8b bf16 (fp32 masters) at {TRAIN_BATCH} x {TRAIN_SEQ}, weights "
+          f"of each layer's own fan-in, 3 steps each: the (2, 2) tp mesh against unmeshed, "
+          f"losses {[round(m['loss'], 6) for m in fi['meshed']]} against "
+          f"{[round(m['loss'], 6) for m in fi['flat']]}, {held}; median step "
+          f"{statistics.median(m['host_ms'] for m in fi['meshed'][1:]):.1f} ms meshed against "
+          f"{statistics.median(m['host_ms'] for m in fi['flat'][1:]):.1f} ms; "
+          f"{len(fi['gathered'])} leaves gathered | {card}")
+    check(not fi["gathered"] and set(fi["reads"]) == set(fi["positions"]),
+          "[lm mesh] h2o-danube-1.8b fan-in: a leaf gathered or a position idle")
+    del fi
+
+    f32cfg = dataclasses.replace(cfg, dtype=torch.float32)
+    f32 = _full_width_steps(f32cfg, dev, card, profile=False)
+    held = _full_width_held("float32", f32cfg, f32, dev, fan_in=False)
+    print(f"[lm mesh] h2o-danube-1.8b float32 at {TRAIN_BATCH} x {TRAIN_SEQ}, the reference's "
+          f"draws, 3 steps each: the (2, 2) tp mesh against unmeshed, losses "
+          f"{[round(m['loss'], 6) for m in f32['meshed']]}, grad_norms "
+          f"{[round(m['grad_norm'], 4) for m in f32['meshed']]} against "
+          f"{[round(m['grad_norm'], 4) for m in f32['flat']]}; {held}; median step "
+          f"{statistics.median(m['host_ms'] for m in f32['meshed'][1:]):.1f} ms meshed against "
+          f"{statistics.median(m['host_ms'] for m in f32['flat'][1:]):.1f} ms; "
+          f"peak {f32['mesh_peak'] / 2**30:.2f} and {f32['flat_peak'] / 2**30:.2f} GiB; "
+          f"{len(f32['gathered'])} leaves gathered | {card}")
+    check(not f32["gathered"] and set(f32["reads"]) == set(f32["positions"]),
+          "[lm mesh] h2o-danube-1.8b float32: a leaf gathered or a position idle")
     return {"step_ms": step_ms, "flat_ms": flat_ms}
 
 
+def _first_differences(a, b) -> list:
+    """Per row, the first step where two token arrays differ (None: equal)."""
+    return [next((j for j in range(a.shape[1]) if a[i, j] != b[i, j]), None)
+            for i in range(a.shape[0])]
+
+
+def _decode_logits(params, cfg, tokens, dev, mesh=None):
+    """The logits of each decode step [T, B, V] fed ``tokens`` [B, T] one
+    position at a time (the cache laid out on ``mesh`` where one is given),
+    and a callable that runs one more decode step on that cache."""
+    import torch
+
+    from repro_torch.models import transformer as tfm
+    from repro_torch.train.serve_step import decode
+
+    b, t = tokens.shape
+    cache = tfm.init_decode_cache(b, cfg, t + 2 - t % 2, dev, mesh=mesh)   # even: split by seq
+    out = []
+    with torch.no_grad():
+        for i in range(t):
+            logits, cache = decode(params, tokens[:, i:i + 1], cache, i, cfg, mesh=mesh)
+            out.append(logits.float())
+
+    def one_more():
+        with torch.no_grad():
+            decode(params, tokens[:, -1:], cache, t, cfg, mesh=mesh)
+
+    return torch.stack(out), one_more
+
+
+def _hold_bf16_tokens(cfg, model, store, mesh, prompts, got, want, dev, card: str,
+                      profile: bool) -> str:
+    """bf16 decode on the (1, 2) serve_tp mesh, fed the unmeshed generate's
+    tokens: its logits at every step within the one-ulp witness (WITNESS_K
+    times the largest shift of the unmeshed decode on ``_nudged`` weights),
+    and its greedy token the unmeshed one wherever the unmeshed logits' top
+    two are more than twice that apart; the free-running tokens where they
+    first part.  With ``profile``, one more decode step both ways under
+    the profiler.  Returns the readings."""
+    import copy
+
+    import torch
+
+    seq = torch.cat([prompts, want], 1)
+    plen = prompts.shape[1]
+    base, flat_step = _decode_logits(model, cfg, seq, dev)
+    split, mesh_step = _decode_logits(store, cfg, seq, dev, mesh=mesh)
+    if profile:
+        _profile_once("lm mesh decode step (1, 2) serve_tp, bf16 batch 4", mesh_step, card)
+        _profile_once("lm decode step unmeshed, bf16 batch 4", flat_step, card)
+    shift = torch.zeros(base.shape[:2], device=dev)
+    draws = []
+    for seed in range(WITNESS_DRAWS):
+        nudged = _nudged(copy.deepcopy(model), seed)
+        d = (_decode_logits(nudged, cfg, seq, dev)[0] - base).abs().amax(-1)
+        shift, _ = torch.stack([shift, d]).max(0)
+        draws.append(float(d.max()))
+        del nudged
+    err = (split - base).abs().amax(-1)                          # [T, B]
+    check(bool((err <= WITNESS_K * shift).all()),
+          f"[lm mesh] bf16 serve_tp decode: logits {float(err.max()):.3g} apart, past "
+          f"{WITNESS_K} x the one-ulp witness at a step")
+    top2 = base[plen - 1:-1].topk(2, -1).values                   # the generated steps
+    margin = top2[..., 0] - top2[..., 1]
+    decided = margin > 2 * WITNESS_K * shift[plen - 1:-1]
+    agree = split[plen - 1:-1].argmax(-1) == want.T
+    check(bool(agree[decided].all()),
+          "[lm mesh] bf16 serve_tp decode: another greedy token where the unmeshed one is "
+          "decided past rounding")
+    firsts = _first_differences(got, want)
+    at = [(r, i) for r, i in enumerate(firsts) if i is not None]
+    parts = [f"row {r} step {i}: top-2 margin {float(margin[i, r]):.3g} against the witness "
+             f"{float(shift[plen - 1 + i, r]):.3g}" for r, i in at]
+    return (f"fed the unmeshed tokens, logits at most {float(err.max()):.3g} apart (the unmeshed "
+            f"decode's own one-ulp shifts {[f'{x:.3g}' for x in draws]}); greedy tokens equal at "
+            f"{int(agree[decided].sum())} of {int(decided.sum())} steps decided past "
+            f"{2 * WITNESS_K:g} x the witness ({int(agree.sum())} of {agree.numel()} in all); "
+            f"free-running, " + ("the tokens equal" if not at else
+                                 "rows part at " + "; ".join(parts)))
+
+
 def lm_mesh_generate(dev, card: str) -> None:
-    """[lm mesh] 3: h2o-danube-1.8b whole, bf16, ``generate`` (batch 4,
-    prompt 32, 16 new tokens, greedy) on a (1, 2) "serve_tp" mesh of the
-    card: the tokens of the unmeshed ``generate``; decode ms a step both
-    ways."""
+    """[lm mesh] 3: h2o-danube-1.8b whole, ``generate`` (batch 4, prompt 32,
+    16 new tokens, greedy) on a (1, 2) "serve_tp" mesh of the card, weights
+    read in place (split by heads, hidden units and vocab entries) and the
+    cache laid out by ``cache_shardings`` (``k``/``v`` split by ``seq``):
+    decode ms a step both ways, the tokens, and the cache bytes each
+    position holds against the dry-run's for this mesh and shape.  In
+    float32 the tokens of the unmeshed ``generate``, held.  In bf16 the
+    reference's draws' logits hold exact ties (a 1-ulp gap or none at many
+    steps), which any float order but the unmeshed one's may break the
+    other way: held by ``_hold_bf16_tokens`` (with a profile of one decode
+    step both ways), and again on weights of each layer's own fan-in,
+    where rounding decides fewer tokens."""
+    import dataclasses
+
     import numpy as np
     import torch
 
     from repro_torch import generate
-    from repro_torch.configs import get_config
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.launch import dryrun
     from repro_torch.launch.mesh import make_test_mesh
-    from repro_torch.launch.specs import model_decls
+    from repro_torch.launch.specs import cache_shardings, cache_specs, model_decls
+    from repro_torch.models import transformer as tfm
     from repro_torch.models.base import init_params
     from repro_torch.sharding.blocks import shard_params
 
-    cfg = get_config("h2o-danube-1.8b")
     b, plen, gen = 4, 32, 16
-    model = init_params(model_decls(cfg), torch.Generator(device=dev).manual_seed(SEED))
-    prompts = torch.from_numpy(np.random.default_rng(SEED + 42).integers(
-        0, cfg.vocab_size, (b, plen)).astype(np.int32)).to(dev)
-    with _sharding_profile("serve_tp"):
-        mesh = make_test_mesh(*MESH_SERVE, device=dev)
-        store = shard_params(model, cfg, mesh)
-        ms = {}
-        for label, run in (("unmeshed", lambda: generate(cfg, model, prompts, gen)),
-                           ("meshed", lambda: generate(cfg, store, prompts, gen, mesh=mesh))):
-            run()
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            ms[label] = (run(), (time.perf_counter() - t) * 1e3 / (plen + gen))
-    check(torch.equal(ms["meshed"][0], ms["unmeshed"][0]),
-          "[lm mesh] meshed generate gave other tokens than the unmeshed one")
-    print(f"[lm mesh] h2o-danube-1.8b bf16 generate on a (1, 2) serve_tp mesh (batch {b}, prompt "
-          f"{plen}, {gen} new, greedy): tokens equal the unmeshed generate's; decode "
-          f"{ms['meshed'][1]:.2f} ms a step meshed against {ms['unmeshed'][1]:.2f} ms unmeshed "
-          f"(host clock over {plen + gen} steps) | {card}")
-    del model, store
-    torch.cuda.empty_cache()
+    for dtype, fan_in in ((torch.bfloat16, False), (torch.bfloat16, True), (torch.float32, False)):
+        cfg = dataclasses.replace(get_config("h2o-danube-1.8b"), dtype=dtype)
+        name = ("bf16" if dtype == torch.bfloat16 else "float32") + (" fan-in" if fan_in else "")
+        model = init_params(model_decls(cfg, fan_in=fan_in),
+                            torch.Generator(device=dev).manual_seed(SEED))
+        prompts = torch.from_numpy(np.random.default_rng(SEED + 42).integers(
+            0, cfg.vocab_size, (b, plen)).astype(np.int32)).to(dev)
+        with _sharding_profile("serve_tp"):
+            mesh = make_test_mesh(*MESH_SERVE, device=dev)
+            store = shard_params(model, cfg, mesh)
+            ms = {}
+            for label, run in (("unmeshed", lambda: generate(cfg, model, prompts, gen)),
+                               ("meshed", lambda: generate(cfg, store, prompts, gen, mesh=mesh))):
+                run()
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                ms[label] = (run(), (time.perf_counter() - t) * 1e3 / (plen + gen))
+            cache = tfm.init_decode_cache(b, cfg, plen + gen, dev, mesh=mesh)
+            shape = ShapeConfig("decode", plen + gen, b, "decode")
+            want = dryrun.shard_bytes(cache_specs(cfg, shape), cache_shardings(cfg, shape, mesh))
+            held = [cache.nbytes_at(p) for p in cache.positions]
+            seq = cache.specs["0.k"]
+            same = torch.equal(ms["meshed"][0], ms["unmeshed"][0])
+            if dtype == torch.float32:
+                tokens = "equal the unmeshed generate's" if same else "differ (held equal)"
+            else:
+                tokens = _hold_bf16_tokens(cfg, model, store, mesh, prompts, ms["meshed"][0],
+                                           ms["unmeshed"][0], dev, card, profile=not fan_in)
+        print(f"[lm mesh] h2o-danube-1.8b {name} generate on a (1, 2) serve_tp mesh (batch {b}, "
+              f"prompt {plen}, {gen} new, greedy): tokens {tokens}; "
+              f"decode {ms['meshed'][1]:.2f} ms a step meshed against {ms['unmeshed'][1]:.2f} ms "
+              f"unmeshed (host clock over {plen + gen} steps) | {card}")
+        print(f"[lm mesh] h2o-danube-1.8b {name} decode cache on the (1, 2) serve_tp mesh (k/v "
+              f"spec {seq}): {held} bytes a position against the dry-run's {want:,} for this "
+              f"mesh and shape; " + _gathered_line("generate", store)[len("[lm mesh] "):]
+              + f" | {card}")
+        check(held == [want] * len(held),
+              f"[lm mesh] cache bytes {held} against the dry-run's {want}")
+        check(seq[2] == "model", f"[lm mesh] the cache is not split by seq: {seq}")
+        check(not store.gathered and set(store.local_reads) == set(store.positions),
+              f"[lm mesh] generate: gathered {store.gathered}, reads {dict(store.local_reads)}")
+        if dtype == torch.float32:
+            check(same, "[lm mesh] meshed float32 generate gave other tokens than the unmeshed one")
+        del model, store, cache
+        torch.cuda.empty_cache()
 
 
 def lm_mesh_dryrun(card: str) -> None:

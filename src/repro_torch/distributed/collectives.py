@@ -17,6 +17,15 @@ returns one replicated array).
 ``quantize_int8`` / ``dequantize_int8`` / ``compressed_grad_sync``: per-block
 int8 quantization with error feedback, float32 IEEE operations in the
 reference's order (round half to even), bit for bit the reference's.
+
+The model-axis operators of a tensor-parallel step (Megatron's *f* and
+*g*), over the positions of one data shard along ``model``, each
+position's tensor on its own device: :func:`copy_to_model` (identity
+forward, sum backward), :func:`reduce_from_model` (sum forward, identity
+backward) and :func:`gather_from_model` (concatenation forward, slice
+backward).  Every sum is taken in position order, in float32 (float64
+for float64 tensors), and rounded once to the tensors' dtype, so bf16
+partials add no second rounding.
 """
 
 from __future__ import annotations
@@ -30,10 +39,14 @@ from repro_torch.launch.mesh import DeviceMesh
 __all__ = [
     "BLOCK",
     "compressed_grad_sync",
+    "copy_to_model",
     "dequantize_int8",
+    "gather_from_model",
+    "partial_product",
     "int8_psum_shard_map",
     "psum_tree",
     "quantize_int8",
+    "reduce_from_model",
     "tree_psum_batch",
 ]
 
@@ -202,3 +215,120 @@ def int8_psum_shard_map(x, mesh: DeviceMesh, axis: str = "pod") -> torch.Tensor:
           for (q, s), sm in zip(quant, s_maxes)]
     tot = psum_tree(q2)[0]
     return dequantize_int8(tot, s_maxes[0], parts[0].shape, parts[0].dtype)
+
+
+# ---------------------------------------------------------------------------
+# The model-axis operators
+# ---------------------------------------------------------------------------
+
+def _fixed_sum(parts: Sequence[torch.Tensor], home: torch.device, dtype) -> torch.Tensor:
+    """``parts`` summed on ``home`` in their order, in float32 (float64 for
+    float64 parts), rounded once to ``dtype``."""
+    wide = torch.float64 if parts[0].dtype == torch.float64 else torch.float32
+    acc = parts[0].to(device=home, dtype=wide)
+    for p in parts[1:]:
+        acc = acc + p.to(device=home, dtype=wide)
+    return acc.to(dtype)
+
+
+def _on(x: torch.Tensor, dev: torch.device) -> torch.Tensor:
+    """``x`` on ``dev``: an alias on its own device, else a copy."""
+    return x.view_as(x) if x.device == dev else x.to(dev)
+
+
+class _CopyToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, devices):
+        ctx.home, ctx.dtype = x.device, x.dtype
+        return tuple(_on(x, d) for d in devices)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return _fixed_sum(grads, ctx.home, ctx.dtype), None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, home, dtype, *parts):
+        ctx.parts = [(p.device, p.dtype) for p in parts]
+        return _fixed_sum(parts, home, dtype)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return (None, None, *(grad.to(device=d, dtype=t) for d, t in ctx.parts))
+
+
+class _GatherFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, dim, devices, *parts):
+        ctx.dim = dim
+        ctx.parts = [(p.device, p.dtype, p.shape[dim]) for p in parts]
+        return tuple(torch.cat([p.to(d) for p in parts], dim) for d in devices)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        out, start = [], 0
+        for dev, dtype, n in ctx.parts:
+            out.append(_fixed_sum([g.narrow(ctx.dim, start, n) for g in grads], dev, dtype))
+            start += n
+        return (None, None, *out)
+
+
+class _PartialProduct(torch.autograd.Function):
+    """``x @ w`` of bf16 or fp16 CUDA tensors with a float32 result (cuBLAS's
+    float32 accumulator, not rounded); the backward is that of ``x @ w``
+    on the gradient in the inputs' dtype."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        y = torch.mm(x.reshape(-1, x.shape[-1]), w, out_dtype=torch.float32)
+        return y.reshape(*x.shape[:-1], w.shape[-1])
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, w = ctx.saved_tensors
+        g = grad.to(x.dtype)
+        dx = g @ w.T if ctx.needs_input_grad[0] else None
+        dw = (x.reshape(-1, x.shape[-1]).T @ g.reshape(-1, g.shape[-1])
+              if ctx.needs_input_grad[1] else None)
+        return dx, dw
+
+
+def partial_product(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` (``w`` a matrix) as one model position's partial of a
+    row-parallel product, for :func:`reduce_from_model`: accumulated and
+    returned in float32 when the operands are bf16 or fp16, so the sum over
+    the positions rounds once, where the unmeshed product rounds; ``x @ w``
+    as it is otherwise."""
+    if x.dtype not in (torch.bfloat16, torch.float16):
+        return x @ w
+    if x.is_cuda:
+        return _PartialProduct.apply(x, w)
+    return x.float() @ w.float()
+
+
+def copy_to_model(x: torch.Tensor, devices: Sequence[torch.device]) -> List[torch.Tensor]:
+    """``x`` on each model position's device (*f*): the same values forward;
+    backward, the positions' gradients summed in position order, in
+    float32, rounded once to ``x``'s dtype.  A position on ``x``'s device
+    reads ``x`` itself."""
+    return list(_CopyToModel.apply(x, [torch.device(d) for d in devices]))
+
+
+def reduce_from_model(parts: Sequence[torch.Tensor], home, dtype=None) -> torch.Tensor:
+    """The sum of the model positions' partial results on ``home`` (*g*): in
+    position order, in float32, rounded once to ``dtype`` (the parts'
+    dtype by default); backward, the gradient goes to every part, in its
+    dtype."""
+    dtype = parts[0].dtype if dtype is None else dtype
+    return _ReduceFromModel.apply(torch.device(home), dtype, *parts)
+
+
+def gather_from_model(parts: Sequence[torch.Tensor], dim: int,
+                      devices: Sequence[torch.device]) -> List[torch.Tensor]:
+    """The model positions' blocks joined along ``dim``, in position order,
+    on each of ``devices`` (an all-gather; one device gathers to it alone).
+    Backward, each block takes its slice of every output's gradient,
+    summed over the outputs in their order, in float32."""
+    return list(_GatherFromModel.apply(dim, [torch.device(d) for d in devices], *parts))

@@ -92,8 +92,9 @@ def generate(
     forcing), so the cache fills as continuous serving fills it; then each
     sampled token is decoded in turn.  ``frontend_embeds`` feed the
     encoder of an encoder-decoder arch.  With a ``mesh`` the parameters
-    are laid out on it once and every step runs over its data shards
-    (the logits come back to the prompt's device)."""
+    and the caches are laid out on it once (the caches as the reference's
+    ``cache_shardings`` lay them out) and every step runs over its data
+    shards (the logits come back to the prompt's device)."""
     b, plen = prompt_tokens.shape
     max_seq = max_seq or (plen + gen_len)
     dev = prompt_tokens.device
@@ -102,10 +103,10 @@ def generate(
     cross = None
     if cfg.is_encoder_decoder:
         cross = ed.prepare_cross_cache(params, ed.encode(params, frontend_embeds, cfg, mesh=mesh),
-                                       cfg)
-        cache = ed.init_self_cache(b, cfg, max_seq, dev)
+                                       cfg, mesh=mesh)
+        cache = ed.init_self_cache(b, cfg, max_seq, dev, mesh=mesh)
     else:
-        cache = tfm.init_decode_cache(b, cfg, max_seq, dev)
+        cache = tfm.init_decode_cache(b, cfg, max_seq, dev, mesh=mesh)
     generator = torch.Generator(device=dev).manual_seed(seed)
 
     def step(tokens, cache, i):

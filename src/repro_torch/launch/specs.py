@@ -39,11 +39,13 @@ __all__ = [
     "abstract_train_state",
     "batch_shardings",
     "batch_specs",
+    "cache_leaf_axes",
     "cache_shardings",
     "cache_specs",
     "microbatches_for",
     "model_decls",
     "opt_state_like",
+    "param_logical_axes",
     "param_shardings",
     "state_shardings",
 ]
@@ -67,17 +69,28 @@ def abstract_model(cfg: ModelConfig) -> ParamTree:
     return abstract_params(model_decls(cfg))
 
 
+def _by_name(cfg: ModelConfig, tree) -> Dict[str, Any]:
+    """The leaves of a tree shaped as ``model_decls(cfg)``, keyed by their
+    ``named_parameters()`` names."""
+    out = {}
+    for name, _ in abstract_model(cfg).named_parameters():
+        node = tree
+        for k in name.split("."):
+            node = node[int(k)] if isinstance(node, list) else node[k]
+        out[name] = node
+    return out
+
+
 def param_shardings(cfg: ModelConfig, mesh) -> Dict[str, NamedSharding]:
     """Each parameter's sharding on ``mesh`` (``pspec_tree``), keyed by its
     ``named_parameters()`` name."""
-    specs = pspec_tree(model_decls(cfg), mesh)
-    out = {}
-    for name, _ in abstract_model(cfg).named_parameters():
-        node = specs
-        for k in name.split("."):
-            node = node[int(k)] if isinstance(node, list) else node[k]
-        out[name] = NamedSharding(mesh, node)
-    return out
+    return {n: NamedSharding(mesh, s)
+            for n, s in _by_name(cfg, pspec_tree(model_decls(cfg), mesh)).items()}
+
+
+def param_logical_axes(cfg: ModelConfig) -> Dict[str, Tuple]:
+    """Each parameter's declared logical axes, keyed by its name."""
+    return {n: d.axes for n, d in _by_name(cfg, model_decls(cfg)).items()}
 
 
 # ---------------------------------------------------------------------------
@@ -178,6 +191,11 @@ _CACHE_AXES = {
     "slstm": {"c": ("batch", "tensor"), "n": ("batch", "tensor"),
               "h": ("batch", "tensor"), "m": ("batch", "tensor")},
 }
+
+
+def cache_leaf_axes(kind: str, leaf: str) -> Tuple:
+    """The logical axes of one leaf of a ``kind`` layer's decode cache."""
+    return _CACHE_AXES[kind][leaf]
 
 
 def cache_specs(cfg: ModelConfig, shape: ShapeConfig) -> Any:

@@ -11,6 +11,18 @@ reference's ``preferred_element_type=float32``); the softmax weights are
 cast to the values' dtype before the second product.  Written in plain
 PyTorch in the reference's order of operations, not through a library
 attention kernel.
+
+Split over ``model`` (``sharding/blocks.py:model_group``): each position
+computes ``n_heads / M`` query heads and its kv heads (those of its own
+block where ``n_kv_heads`` divides ``M``; else it reads ``wk``/``wv`` whole
+and takes the kv heads its query heads use), and its rows of ``wo``; the
+partial outputs are summed over ``model``.  Heads that do not split whole
+run on the data shard's first position, the leaves read whole and
+recorded.  A decode cache laid out by ``seq`` (:class:`ModelBlocks`) is
+attended split: the new key and value go to the position holding slot
+``pos % S_cache``, each position scores every head against its own slots,
+and the partial softmaxes are combined over ``model`` (maxima, sums,
+weighted values) in position order.
 """
 
 from __future__ import annotations
@@ -20,14 +32,23 @@ from typing import Dict, List, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.collectives import (
+    copy_to_model,
+    gather_from_model,
+    partial_product,
+    reduce_from_model,
+)
 from repro_torch.models.base import ParamDecl
 from repro_torch.models.layers import mrope, rope, wide
+from repro_torch.sharding.blocks import ModelBlocks, ModelGroup, model_group
 
 __all__ = [
     "attention_decls",
     "attention_apply",
     "cache_len",
     "chunked_attention",
+    "cross_decode_attention",
+    "cross_kv",
     "decode_attention",
     "init_kv_cache",
 ]
@@ -117,6 +138,59 @@ def chunked_attention(
     return out.reshape(b, h, sq, hd)
 
 
+def _heads_group(p, cfg: ModelConfig) -> Optional[ModelGroup]:
+    """The model group an attention splits over: ``wq``/``wo`` split into
+    whole query heads and kv heads that either divide over ``model`` or
+    are fewer than its positions and divide them.  Else None, the leaves
+    recorded as read whole."""
+    group = model_group(p, "wq", "wo")
+    if group is None:
+        return None
+    m, h, kv = group.size, cfg.n_heads, cfg.n_kv_heads
+    if h % m or (kv % m and m % kv):
+        for key in ("wq", "wk", "wv", "wo"):
+            p.note_gathered(key, f"{h} query and {kv} kv heads do not split over model {m}")
+        return None
+    return group
+
+
+def _kv_blocks(p, group: ModelGroup, cfg: ModelConfig, key: str) -> List[torch.Tensor]:
+    """Each position's columns of ``wk`` or ``wv``: its own block where
+    ``n_kv_heads`` divides over ``model``; else the leaf read whole (and
+    recorded) and the one kv head its query heads use."""
+    m, h, kv, hd = group.size, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    if kv % m == 0:
+        return group.local(key)
+    ws = group.whole(key, f"n_kv_heads {kv} does not divide over model {m}")
+    g = h // kv
+    return [w[:, (i * (h // m) // g) * hd:(i * (h // m) // g + 1) * hd] for i, w in enumerate(ws)]
+
+
+def _attend(x, src, wq, wk, wv, cfg: ModelConfig, positions, *, causal, window, use_rope,
+            cross, chunk) -> torch.Tensor:
+    """Attention of the heads of ``wq`` (their kv heads those of ``wk``,
+    ``wv``): [B, S, heads * hd], before the out projection."""
+    hd = cfg.head_dim
+    h, kv = wq.shape[1] // hd, wk.shape[1] // hd
+    q = _split_heads(x @ wq, h, hd)
+    k = _split_heads(src @ wk, kv, hd)
+    vv = _split_heads(src @ wv, kv, hd)
+    if use_rope and not cross:
+        if cfg.mrope_sections is not None:
+            q = mrope(q, positions, cfg.rope_theta, cfg.mrope_sections)
+            k = mrope(k, positions, cfg.rope_theta, cfg.mrope_sections)
+        else:
+            q = rope(q, positions, cfg.rope_theta)
+            k = rope(k, positions, cfg.rope_theta)
+    out = chunked_attention(
+        q.transpose(1, 2), k.transpose(1, 2), vv.transpose(1, 2),
+        causal=causal and not cross,
+        window=window,
+        chunk=chunk,
+    )
+    return out.transpose(1, 2).reshape(x.shape[0], x.shape[1], h * hd)
+
+
 def attention_apply(
     p,
     x: torch.Tensor,                     # [B, S, D]
@@ -130,26 +204,20 @@ def attention_apply(
     chunk: int = 512,
 ) -> torch.Tensor:
     """Train/prefill attention (no cache)."""
-    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = _split_heads(x @ p["wq"], h, hd)
-    src = x if kv_source is None else kv_source
-    k = _split_heads(src @ p["wk"], kv, hd)
-    vv = _split_heads(src @ p["wv"], kv, hd)
-    if use_rope and kv_source is None:
-        if cfg.mrope_sections is not None:
-            q = mrope(q, positions, cfg.rope_theta, cfg.mrope_sections)
-            k = mrope(k, positions, cfg.rope_theta, cfg.mrope_sections)
-        else:
-            q = rope(q, positions, cfg.rope_theta)
-            k = rope(k, positions, cfg.rope_theta)
-    out = chunked_attention(
-        q.transpose(1, 2), k.transpose(1, 2), vv.transpose(1, 2),
-        causal=causal and kv_source is None,
-        window=window,
-        chunk=chunk,
-    )
-    out = out.transpose(1, 2).reshape(x.shape[0], x.shape[1], h * hd)
-    return out @ p["wo"]
+    kw = dict(causal=causal, window=window, use_rope=use_rope, cross=kv_source is not None,
+              chunk=chunk)
+    group = _heads_group(p, cfg)
+    if group is None:
+        src = x if kv_source is None else kv_source
+        return _attend(x, src, p["wq"], p["wk"], p["wv"], cfg, positions, **kw) @ p["wo"]
+    devs = group.devices
+    xs = copy_to_model(x, devs)
+    srcs = xs if kv_source is None else copy_to_model(kv_source, devs)
+    parts = [partial_product(_attend(xm, sm, q.local("wq"), wk, wv, cfg,
+                                     positions.to(q.device), **kw), q.local("wo"))
+             for q, xm, sm, wk, wv in zip(group.views, xs, srcs, _kv_blocks(p, group, cfg, "wk"),
+                                          _kv_blocks(p, group, cfg, "wv"))]
+    return reduce_from_model(parts, x.device, x.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -174,11 +242,123 @@ def init_kv_cache(batch: int, cfg: ModelConfig, max_seq: int, n_layers: int, dev
             for _ in range(n_layers)]
 
 
+def _project_heads(p, group: Optional[ModelGroup], x: torch.Tensor, cfg: ModelConfig,
+                  keys=("wq", "wk", "wv")):
+    """``x`` [B, S, D] through each of ``keys`` as heads [B, S, n, hd]
+    (``n_heads`` for ``wq``, ``n_kv_heads`` otherwise), joined on ``x``'s
+    device: computed by each position's heads and gathered where the
+    attention is split."""
+    kv, hd = cfg.n_kv_heads, cfg.head_dim
+    xs = None if group is None else copy_to_model(x, group.devices)
+    outs = []
+    for k in keys:
+        if group is None:
+            outs.append(x @ p[k])
+        elif k != "wq" and kv % group.size:
+            outs.append(x @ p.whole(k, f"n_kv_heads {kv} does not divide over model "
+                                       f"{group.size}"))
+        else:
+            outs.append(gather_from_model([xm @ w for xm, w in zip(xs, group.local(k))],
+                                          -1, [x.device])[0])
+    return tuple(_split_heads(o, cfg.n_heads if k == "wq" else kv, hd)
+                 for o, k in zip(outs, keys))
+
+
+def _out_proj(p, group: Optional[ModelGroup], out: torch.Tensor) -> torch.Tensor:
+    """``out`` [B, 1, H * hd] through ``wo``: row-parallel where split."""
+    if group is None:
+        return out @ p["wo"]
+    n = out.shape[-1] // group.size
+    parts = [partial_product(om[..., i * n:(i + 1) * n], w) for i, (om, w) in
+             enumerate(zip(copy_to_model(out, group.devices), group.local("wo")))]
+    return reduce_from_model(parts, out.device, out.dtype)
+
+
+def _split_softmax(qg: torch.Tensor, ks: List[torch.Tensor], vs: List[torch.Tensor],
+                   biases: List[torch.Tensor]) -> torch.Tensor:
+    """Attention of ``qg`` [B, KV, G, 1, hd] over slots held in blocks (each
+    ``ks[i]``/``vs[i]`` [B, KV, S_i, hd] with its additive bias [1, S_i], on
+    its own device), on ``qg``'s device in the values' dtype.  One block is
+    :func:`_sdpa`.  Over several, the blocks' maxima and sums of
+    exponentials are combined in order first; each block's normalised
+    weights, cast to the values' dtype as :func:`_sdpa` casts them, weight
+    its values in float32, and the partial outputs are summed in order and
+    rounded once.  A block whose slots are all masked adds zeros."""
+    if len(ks) == 1:
+        return _sdpa(qg.to(ks[0].device), ks[0], vs[0], biases[0]).to(qg.device)
+    home, scale = qg.device, qg.shape[-1] ** -0.5
+    scores = [torch.einsum("bkgqh,bksh->bkgqs", wide(qg.to(k.device)), wide(k)) * scale
+              + bias[None, None, None] for k, bias in zip(ks, biases)]
+    mx = scores[0].amax(-1, keepdim=True)
+    for sc in scores[1:]:
+        mx = torch.maximum(mx, sc.amax(-1, keepdim=True).to(home))
+    es = [torch.exp(sc - mx.to(sc.device)) for sc in scores]
+    total = reduce_from_model([e.sum(-1, keepdim=True) for e in es], home)
+    parts = [torch.einsum("bkgqs,bksh->bkgqh", wide((e / total.to(e.device)).to(v.dtype)),
+                          wide(v)) for e, v in zip(es, vs)]
+    return reduce_from_model(parts, home, dtype=vs[0].dtype)
+
+
+def _holders(cache: ModelBlocks) -> List[Tuple[int, int]]:
+    """(position, first slot) of each block of a cache's slots: every
+    position along ``seq`` when split, else the first position's whole
+    copy."""
+    n = cache.blocks[0].shape[2]
+    if cache.dim is None:
+        return [(0, 0)]
+    return [(i, i * n) for i in range(len(cache.blocks))]
+
+
+def _decode_blocks(p, x, cache_k: ModelBlocks, cache_v: ModelBlocks, pos: int,
+                   cfg: ModelConfig, window, positions_3d):
+    """:func:`decode_attention` on a cache held by the positions along
+    ``model`` (split by ``seq``, or a whole copy on each)."""
+    b, h, kv, hd = x.shape[0], cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    group = _heads_group(p, cfg)
+    q, k, v = _project_heads(p, group, x, cfg)
+    q, k = _rope_decode(q, k, pos, cfg, positions_3d)
+    n = cache_k.blocks[0].shape[2]
+    s_cache = n * len(cache_k.blocks) if cache_k.dim is not None else n
+    slot = pos % s_cache
+    writers = ([(slot // n, slot % n)] if cache_k.dim is not None
+               else [(i, slot) for i in range(len(cache_k.blocks))])
+    for i, at in writers:
+        for c, new in ((cache_k.blocks[i], k), (cache_v.blocks[i], v)):
+            c[:, :, at] = new[:, 0].to(device=c.device, dtype=c.dtype)
+    base = pos - slot
+    biases = []
+    for i, first in _holders(cache_k):
+        slots = first + torch.arange(n, device=cache_k.blocks[i].device)
+        abs_pos = torch.where(slots <= slot, base + slots, base - s_cache + slots)
+        ok = (abs_pos >= 0) & (abs_pos <= pos)
+        if window is not None:
+            ok &= pos - abs_pos < window
+        biases.append(_bias(ok)[None, :])
+    held = [i for i, _ in _holders(cache_k)]
+    qg = q.transpose(1, 2).reshape(b, kv, h // kv, 1, hd)
+    out = _split_softmax(qg, [cache_k.blocks[i] for i in held],
+                         [cache_v.blocks[i] for i in held], biases)
+    out = out.reshape(b, h, 1, hd).transpose(1, 2).reshape(b, 1, h * hd)
+    return _out_proj(p, group, out), cache_k, cache_v
+
+
+def _rope_decode(q, k, pos: int, cfg: ModelConfig, positions_3d):
+    b, dev = q.shape[0], q.device
+    if cfg.mrope_sections is not None:
+        p3 = positions_3d
+        if p3 is None:
+            p3 = torch.full((3, b, 1), pos, dtype=torch.int32, device=dev)
+        return (mrope(q, p3, cfg.rope_theta, cfg.mrope_sections),
+                mrope(k, p3, cfg.rope_theta, cfg.mrope_sections))
+    posb = torch.full((b, 1), pos, dtype=torch.int32, device=dev)
+    return rope(q, posb, cfg.rope_theta), rope(k, posb, cfg.rope_theta)
+
+
 def decode_attention(
     p,
     x: torch.Tensor,                     # [B, 1, D] current token activations
-    cache_k: torch.Tensor,               # [B, KV, S_cache, hd]
-    cache_v: torch.Tensor,
+    cache_k,                             # [B, KV, S_cache, hd], or its ModelBlocks
+    cache_v,
     pos: int,                            # current position
     cfg: ModelConfig,
     *,
@@ -190,25 +370,17 @@ def decode_attention(
     The new key and value are written into the caches in place, at slot
     ``pos % S_cache`` (a ring for windowed caches, ``pos`` itself for full
     ones).  Masking rebuilds each slot's absolute position from the write
-    position, so both layouts share one code path."""
+    position, so both layouts share one code path.  A cache held in blocks
+    along ``model`` (:class:`ModelBlocks`) is attended split."""
+    if isinstance(cache_k, ModelBlocks):
+        return _decode_blocks(p, x, cache_k, cache_v, pos, cfg, window, positions_3d)
     b = x.shape[0]
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     s_cache = cache_k.shape[2]
     dev = x.device
 
-    q = _split_heads(x @ p["wq"], h, hd)              # [B, 1, H, hd]
-    k = _split_heads(x @ p["wk"], kv, hd)
-    v = _split_heads(x @ p["wv"], kv, hd)
-    if cfg.mrope_sections is not None:
-        p3 = positions_3d
-        if p3 is None:
-            p3 = torch.full((3, b, 1), pos, dtype=torch.int32, device=dev)
-        q = mrope(q, p3, cfg.rope_theta, cfg.mrope_sections)
-        k = mrope(k, p3, cfg.rope_theta, cfg.mrope_sections)
-    else:
-        posb = torch.full((b, 1), pos, dtype=torch.int32, device=dev)
-        q = rope(q, posb, cfg.rope_theta)
-        k = rope(k, posb, cfg.rope_theta)
+    q, k, v = _project_heads(p, None, x, cfg)
+    q, k = _rope_decode(q, k, pos, cfg, positions_3d)
 
     slot = pos % s_cache
     cache_k[:, :, slot] = k[:, 0].to(cache_k.dtype)
@@ -228,3 +400,30 @@ def decode_attention(
     out = _sdpa(qg, cache_k, cache_v, bias[None, :])
     out = out.reshape(b, kv * g, 1, hd).transpose(1, 2).reshape(b, 1, h * hd)
     return out @ p["wo"], cache_k, cache_v
+
+
+def cross_decode_attention(p, x: torch.Tensor, cache_k, cache_v, cfg: ModelConfig
+                           ) -> torch.Tensor:
+    """The decode token's cross-attention over the encoder's K/V cache (no
+    mask, no rotation): [B, 1, D].  A cache held in blocks along ``model``
+    is attended split, as :func:`decode_attention`'s."""
+    b, h, kv, hd = x.shape[0], cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    group = _heads_group(p, cfg) if isinstance(cache_k, ModelBlocks) else None
+    (q,) = _project_heads(p, group, x, cfg, keys=("wq",))
+    qg = q.transpose(1, 2).reshape(b, kv, h // kv, 1, hd)
+    if isinstance(cache_k, ModelBlocks):
+        held = [i for i, _ in _holders(cache_k)]
+        ks, vs = [cache_k.blocks[i] for i in held], [cache_v.blocks[i] for i in held]
+    else:
+        ks, vs = [cache_k], [cache_v]
+    biases = [torch.zeros((1, k.shape[2]), dtype=torch.float32, device=k.device) for k in ks]
+    o = _split_softmax(qg, ks, vs, biases)
+    o = o.reshape(b, h, 1, hd).transpose(1, 2).reshape(b, 1, h * hd)
+    return _out_proj(p, group, o)
+
+
+def cross_kv(p, enc_out: torch.Tensor, cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The cross-attention's K/V [B, KV, S_enc, hd] of the encoder output,
+    on its device (each position's kv heads, gathered, where split)."""
+    k, v = _project_heads(p, _heads_group(p, cfg), enc_out, cfg, keys=("wk", "wv"))
+    return k.transpose(1, 2), v.transpose(1, 2)

@@ -7,8 +7,11 @@ a causal transformer with cross-attention; decode uses a self-attention
 cache plus a cross-attention K/V cache computed once from the encoder's
 output.  Layers are ``nn.ModuleList``s in layer order; caches are
 per-layer lists.  With a ``mesh`` each function runs over the batch's
-data shards (``sharding/blocks.py``), each shard on its own.  The reference stacks each of ``enc`` and ``dec`` whole,
-and its layers draw as its stacks draw (``transformer._cycle_decls``).
+data shards (``sharding/blocks.py``), each shard on its own, its split
+layers over ``model`` as the decoder-only blocks' (the loss
+vocab-parallel; the self and cross caches laid out by ``seq``).  The
+reference stacks each of ``enc`` and ``dec`` whole, and its layers draw as
+its stacks draw (``transformer._cycle_decls``).
 
 The parameter tree: ``{embed, enc: [layer, ...], enc_norm, dec: [layer,
 ...], dec_norm}``.
@@ -30,10 +33,10 @@ from repro_torch.models.layers import (
     mlp_decls,
     rmsnorm,
     rmsnorm_decls,
-    wide,
+    token_xent,
 )
-from repro_torch.models.transformer import _cycle_decls, join_cache, remat_call, split_cache
-from repro_torch.sharding.blocks import join_rows, shard_views, split_rows
+from repro_torch.models.transformer import _cycle_decls, meshed_decode, remat_call
+from repro_torch.sharding.blocks import join_rows, lay_out_cache, shard_views, split_rows
 
 __all__ = [
     "encdec_decls",
@@ -160,60 +163,35 @@ def encdec_loss(
                                       params, cfg, mesh, frontend_embeds, dec_tokens)
         return sum(loss.to(shards[0].device) for loss in losses) / len(losses)
     hidden = encdec_forward(params, frontend_embeds, dec_tokens, cfg, remat=remat)
-    head = params["embed"]["tok"].T if cfg.tie_embeddings else params["embed"]["head"]
-    logits = wide(hidden[:, :-1] @ head)
-    tgt = logits.gather(-1, dec_tokens[:, 1:].long()[..., None])[..., 0]
-    return torch.mean(torch.logsumexp(logits, dim=-1) - tgt)
+    return torch.mean(token_xent(params["embed"], hidden[:, :-1], dec_tokens[:, 1:].long(),
+                                 cfg, None))
 
 
 # ---------------------------------------------------------------------------
 # Decode
 # ---------------------------------------------------------------------------
 
-def prepare_cross_cache(params, enc_out: torch.Tensor, cfg: ModelConfig
-                        ) -> List[Dict[str, torch.Tensor]]:
+def prepare_cross_cache(params, enc_out: torch.Tensor, cfg: ModelConfig, *, mesh=None):
     """Per-layer cross-attention K/V [B, KV, S_enc, hd] of the encoder output
-    (the reference stacks them into [L, B, KV, S_enc, hd])."""
-    kv, hd = cfg.n_kv_heads, cfg.head_dim
-    b, s, _ = enc_out.shape
+    (the reference stacks them into [L, B, KV, S_enc, hd]); with a ``mesh``,
+    laid out on it by ``seq``, as the self cache."""
     out = []
     for lp in params["dec"]:
-        k = (enc_out @ lp["cross_attn"]["wk"]).reshape(b, s, kv, hd)
-        v = (enc_out @ lp["cross_attn"]["wv"]).reshape(b, s, kv, hd)
-        out.append({"k": k.transpose(1, 2), "v": v.transpose(1, 2)})
-    return out
+        k, v = attn.cross_kv(lp["cross_attn"], enc_out, cfg)
+        out.append({"k": k, "v": v})
+    return out if mesh is None else lay_out_cache(out, ["attn"] * len(out), mesh)
 
 
-def init_self_cache(batch: int, cfg: ModelConfig, max_seq: int, device=None
-                    ) -> List[Dict[str, torch.Tensor]]:
-    return attn.init_kv_cache(batch, cfg, max_seq, cfg.n_layers, device)
+def init_self_cache(batch: int, cfg: ModelConfig, max_seq: int, device=None, *, mesh=None):
+    """The decoder's self-attention caches; with a ``mesh``, laid out on it
+    by ``seq`` (made on ``device``, the mesh's first by default)."""
+    device = mesh.flat[0] if device is None and mesh is not None else device
+    cache = attn.init_kv_cache(batch, cfg, max_seq, cfg.n_layers, device)
+    return cache if mesh is None else lay_out_cache(cache, ["attn"] * cfg.n_layers, mesh)
 
 
-def encdec_decode_step(
-    params,
-    tokens: torch.Tensor,                  # [B, 1]
-    self_cache: List[Dict],                # per layer {k, v}: [B, KV, S_cache, hd]
-    cross_cache: List[Dict],               # per layer {k, v}: [B, KV, S_enc, hd]
-    pos: int,
-    cfg: ModelConfig,
-    *,
-    mesh=None,
-) -> Tuple[torch.Tensor, List[Dict]]:
-    """One decode step -> (logits [B, vocab] float32, self cache).  The
-    cross-attention has no mask and no soft-cap.  With a ``mesh``, over
-    its data shards, each on its rows of both caches; logits and self
-    cache come back joined on its first device."""
-    if mesh is not None:
-        views, shards = shard_views(params, cfg, mesh, tokens.shape[0])
-        outs = [encdec_decode_step(v, t, sc, xc, pos, cfg) for v, t, sc, xc in zip(
-            views, split_rows(tokens, shards), split_cache(self_cache, shards),
-            split_cache(cross_cache, shards))]
-        home = shards[0].device
-        return join_rows([o[0] for o in outs], home), join_cache([o[1] for o in outs], home)
+def _decode_one(params, tokens, self_cache, cross_cache, pos: int, cfg: ModelConfig):
     x = embed_lookup(params["embed"], tokens)
-    h_heads, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    b = x.shape[0]
-    g = h_heads // kvh
     new_self = []
     for lp, sc, xc in zip(params["dec"], self_cache, cross_cache):
         h = rmsnorm(lp["self_norm"], x, cfg.norm_eps)
@@ -222,14 +200,36 @@ def encdec_decode_step(
         new_self.append({"k": nk, "v": nv})
         # Cross attention against the fixed encoder K/V.
         h = rmsnorm(lp["cross_norm"], x, cfg.norm_eps)
-        q = (h @ lp["cross_attn"]["wq"]).reshape(b, 1, h_heads, hd)
-        qg = q.transpose(1, 2).reshape(b, kvh, g, 1, hd)
-        bias = torch.zeros((1, xc["k"].shape[2]), dtype=torch.float32, device=x.device)
-        o = attn._sdpa(qg, xc["k"], xc["v"], bias)
-        o = o.reshape(b, h_heads, 1, hd).transpose(1, 2).reshape(b, 1, h_heads * hd)
-        x = x + o @ lp["cross_attn"]["wo"]
+        x = x + attn.cross_decode_attention(lp["cross_attn"], h, xc["k"], xc["v"], cfg)
         h = rmsnorm(lp["mlp_norm"], x, cfg.norm_eps)
         x = x + mlp(lp["mlp"], h)
     x = rmsnorm(params["dec_norm"], x, cfg.norm_eps)
-    logits = lm_logits(params["embed"], x[:, 0], cfg).float()
-    return logits, new_self
+    return lm_logits(params["embed"], x[:, 0], cfg).float(), new_self
+
+
+def encdec_decode_step(
+    params,
+    tokens: torch.Tensor,                  # [B, 1]
+    self_cache,                            # per layer {k, v}: [B, KV, S_cache, hd]
+    cross_cache,                           # per layer {k, v}: [B, KV, S_enc, hd]
+    pos: int,
+    cfg: ModelConfig,
+    *,
+    mesh=None,
+) -> Tuple[torch.Tensor, List[Dict]]:
+    """One decode step -> (logits [B, vocab] float32, self cache).  The
+    cross-attention has no mask and no soft-cap.  With a ``mesh``, over
+    its data shards, each on its blocks of both caches (laid out on the
+    mesh, or whole: then laid out for the step, the self cache returned
+    whole); the logits come back joined on its first device."""
+    if mesh is None:
+        return _decode_one(params, tokens, self_cache, cross_cache, pos, cfg)
+
+    def run(views, toks, per):
+        outs = [_decode_one(v, t, sc, xc, pos, cfg) for v, t, (sc, xc) in zip(views, toks, per)]
+        return [o[0] for o in outs], [[o[1], xc] for o, (_, xc) in zip(outs, per)]
+
+    kinds = ["attn"] * cfg.n_layers
+    logits, (self_cache, _) = meshed_decode(run, params, tokens, [self_cache, cross_cache],
+                                            [kinds, kinds], cfg, mesh)
+    return logits, self_cache

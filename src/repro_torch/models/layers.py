@@ -1,10 +1,17 @@
 """Shared layers: the port's copy of ``repro/models/layers.py``.
 
 RMSNorm, logit soft-capping, RoPE (GPT-NeoX half rotation) and Qwen2-VL's
-M-RoPE, the gated MLP (SwiGLU / GeGLU), the token embedding and the LM
-head.  Casts sit where the reference has them: norms, rotations and
-soft-capping compute in float32 (:func:`wide`: float64 stays float64) and
-return the input's dtype.
+M-RoPE, the gated MLP (SwiGLU / GeGLU), the token embedding, the LM head
+and its cross entropy.  Casts sit where the reference has them: norms,
+rotations and soft-capping compute in float32 (:func:`wide`: float64
+stays float64) and return the input's dtype.
+
+On a mesh whose ``model`` axis splits a layer's ``tensor`` dims
+(``sharding/blocks.py:model_group``), the layer runs on every position of
+its data shard, each on its own block: the MLP column-parallel in
+``w_gate``/``w_up`` and row-parallel in ``w_down``, the embedding, head and
+cross entropy vocab-parallel; the positions' results are combined by the
+model-axis operators (``distributed/collectives.py``).
 """
 
 from __future__ import annotations
@@ -16,7 +23,14 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.collectives import (
+    copy_to_model,
+    gather_from_model,
+    partial_product,
+    reduce_from_model,
+)
 from repro_torch.models.base import ParamDecl
+from repro_torch.sharding.blocks import model_group
 
 __all__ = [
     "rmsnorm_decls",
@@ -29,6 +43,7 @@ __all__ = [
     "embed_lookup",
     "lm_logits",
     "softcap",
+    "token_xent",
     "wide",
 ]
 
@@ -143,10 +158,16 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
 
 
 def mlp(p, x: torch.Tensor, activation: str = "silu") -> torch.Tensor:
-    g = x @ p["w_gate"]
-    u = x @ p["w_up"]
     act = F.silu if activation == "silu" else gelu
-    return (act(g) * u) @ p["w_down"]
+    group = model_group(p, "w_gate", "w_up", "w_down")
+    if group is None:
+        g = x @ p["w_gate"]
+        u = x @ p["w_up"]
+        return (act(g) * u) @ p["w_down"]
+    parts = [partial_product(act(xm @ q.local("w_gate")) * (xm @ q.local("w_up")),
+                             q.local("w_down"))
+             for q, xm in zip(group.views, copy_to_model(x, group.devices))]
+    return reduce_from_model(parts, x.device, x.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -167,11 +188,69 @@ def embed_decls(cfg: ModelConfig) -> Dict:
     return d
 
 
+def _vocab_range(tokens: torch.Tensor, m: int, n: int):
+    """(the ids local to position ``m``'s ``n`` vocab entries, clamped into
+    range; where the ids are its own)."""
+    t = tokens.long() - m * n
+    ok = (t >= 0) & (t < n)
+    return t.clamp(0, n - 1), ok
+
+
 def embed_lookup(p, tokens: torch.Tensor) -> torch.Tensor:
-    return F.embedding(tokens, p["tok"])
+    group = model_group(p, "tok")
+    if group is None:
+        return F.embedding(tokens, p["tok"])
+    # Vocab-parallel: each position looks up the ids in its range, zeros
+    # elsewhere; the sum has one nonzero term per row, so it is exact.
+    parts = []
+    for m, q in enumerate(group.views):
+        tok = q.local("tok")
+        t, ok = _vocab_range(tokens.to(q.device), m, tok.shape[0])
+        parts.append(torch.where(ok[..., None], F.embedding(t, tok), 0))
+    return reduce_from_model(parts, tokens.device)
+
+
+def _head_blocks(p, cfg: ModelConfig, group) -> list:
+    """Each position's columns of the LM head ([d, V / M])."""
+    if cfg.tie_embeddings:
+        return [t.T for t in group.local("tok")]
+    return group.local("head")
 
 
 def lm_logits(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    if cfg.tie_embeddings:
-        return x @ p["tok"].T
-    return x @ p["head"]
+    group = model_group(p, "tok" if cfg.tie_embeddings else "head")
+    if group is None:
+        if cfg.tie_embeddings:
+            return x @ p["tok"].T
+        return x @ p["head"]
+    parts = [xm @ w for xm, w in zip(copy_to_model(x, group.devices),
+                                     _head_blocks(p, cfg, group))]
+    return gather_from_model(parts, -1, [x.device])[0]
+
+
+def token_xent(p, h: torch.Tensor, targets: torch.Tensor, cfg: ModelConfig,
+               cap: Optional[float]) -> torch.Tensor:
+    """Each position's cross entropy ``logsumexp(logits) - logits[target]``
+    (float32; float64 for float64 activations), the logits ``softcap(h @
+    head, cap)``.  Vocab-parallel where the head's vocab is split: each
+    position takes its columns' logits, the shards' maxima and sums of
+    exponentials are combined, and the target's logit comes from the
+    position that holds it."""
+    group = model_group(p, "tok" if cfg.tie_embeddings else "head")
+    if group is None:
+        head = p["tok"].T if cfg.tie_embeddings else p["head"]
+        logits = softcap(wide(h @ head), cap)
+        tgt = logits.gather(-1, targets[..., None])[..., 0]
+        return torch.logsumexp(logits, dim=-1) - tgt
+    home = h.device
+    logits = [softcap(wide(hm @ w), cap) for hm, w in zip(copy_to_model(h, group.devices),
+                                                          _head_blocks(p, cfg, group))]
+    mx = logits[0].detach().amax(-1)
+    for lg in logits[1:]:
+        mx = torch.maximum(mx, lg.detach().amax(-1).to(home))
+    sums, tgts = [], []
+    for m, lg in enumerate(logits):
+        sums.append(torch.exp(lg - mx.to(lg.device)[..., None]).sum(-1))
+        t, ok = _vocab_range(targets.to(lg.device), m, lg.shape[-1])
+        tgts.append(torch.where(ok, lg.gather(-1, t[..., None])[..., 0], 0))
+    return torch.log(reduce_from_model(sums, home)) + mx - reduce_from_model(tgts, home)

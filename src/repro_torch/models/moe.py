@@ -5,6 +5,15 @@ einsums, the always-on shared expert (Qwen2-MoE) and the load-balancing
 auxiliary loss.  ``_expert_axes`` gives the experts' logical axes.
 :func:`moe_apply_shards` is the same function over a batch split into
 row shards (a meshed step's data shards).
+
+Over ``model`` the experts take the reference's two layouts: sharded
+(``n_experts % 16 == 0``: each position runs its ``E / M`` experts on their
+dispatched slots, which reach it by ``.to``, the all-to-all the
+reference's dispatch einsum lowers to) or whole and split by ``ff``; the
+shared expert is split by its ``ff``.  Each position combines its own
+experts' outputs and the partials are summed over ``model``.  Routing,
+capacity and the balance loss run once, on the data shard's first
+position.
 """
 
 from __future__ import annotations
@@ -15,7 +24,13 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.collectives import (
+    copy_to_model,
+    partial_product,
+    reduce_from_model,
+)
 from repro_torch.models.base import ParamDecl
+from repro_torch.sharding.blocks import model_group
 
 __all__ = ["moe_decls", "moe_apply", "moe_apply_shards"]
 
@@ -80,18 +95,50 @@ def _moe_groups(p, xf: torch.Tensor, cfg: ModelConfig):
 
     xe = torch.einsum("gsec,gsd->egcd", dispatch.to(xf.dtype), xf)       # [E,G,C,d]
     xe = xe.reshape(e, g * cap, d)
-    h = torch.einsum("etd,edf->etf", xe, p["w_gate"])
-    u = torch.einsum("etd,edf->etf", xe, p["w_up"])
-    ye = torch.einsum("etf,efd->etd", F.silu(h) * u, p["w_down"])
-    ye = ye.reshape(e, g, cap, d)
-    y = torch.einsum("gsec,egcd->gsd", combine.to(xf.dtype), ye)
+    y = _routed(p, xe, combine.to(xf.dtype), g, cap)
 
     if cfg.n_shared_experts:
-        sh = F.silu(xf @ p["shared_gate"]) * (xf @ p["shared_up"])
-        sh = sh @ p["shared_down"]
         mix = torch.sigmoid(xf.float() @ p["shared_mix"])
-        y = y + (mix.to(xf.dtype) * sh)
+        y = y + (mix.to(xf.dtype) * _shared(p, xf))
     return y, sel_onehot, probs
+
+
+def _experts(xe, w_gate, w_up, w_down, combine, g: int, cap: int) -> torch.Tensor:
+    """Experts' SwiGLU over their slots ``xe`` [E, G*C, d], combined into
+    the tokens [G, Tg, d]."""
+    h = torch.einsum("etd,edf->etf", xe, w_gate)
+    u = torch.einsum("etd,edf->etf", xe, w_up)
+    ye = torch.einsum("etf,efd->etd", F.silu(h) * u, w_down)
+    ye = ye.reshape(xe.shape[0], g, cap, xe.shape[-1])
+    return torch.einsum("gsec,egcd->gsd", combine, ye)
+
+
+def _routed(p, xe, combine, g: int, cap: int) -> torch.Tensor:
+    group = model_group(p, "w_gate", "w_up", "w_down")
+    if group is None:
+        return _experts(xe, p["w_gate"], p["w_up"], p["w_down"], combine, g, cap)
+    home = xe.device
+    if p.model_dims("w_gate") == (0,):      # experts sharded over model
+        n = xe.shape[0] // group.size
+        pieces = [(xe[i * n:(i + 1) * n].to(dev), combine[:, :, i * n:(i + 1) * n].to(dev))
+                  for i, dev in enumerate(group.devices)]
+    else:                                                   # each expert split by ff
+        pieces = list(zip(copy_to_model(xe, group.devices),
+                          copy_to_model(combine, group.devices)))
+    parts = [_experts(x_m, q.local("w_gate"), q.local("w_up"), q.local("w_down"), c_m, g, cap)
+             for q, (x_m, c_m) in zip(group.views, pieces)]
+    return reduce_from_model(parts, home)
+
+
+def _shared(p, xf) -> torch.Tensor:
+    group = model_group(p, "shared_gate", "shared_up", "shared_down")
+    if group is None:
+        sh = F.silu(xf @ p["shared_gate"]) * (xf @ p["shared_up"])
+        return sh @ p["shared_down"]
+    parts = [partial_product(F.silu(x_m @ q.local("shared_gate")) * (x_m @ q.local("shared_up")),
+                             q.local("shared_down"))
+             for q, x_m in zip(group.views, copy_to_model(xf, group.devices))]
+    return reduce_from_model(parts, xf.device, xf.dtype)
 
 
 def _group_size(cfg: ModelConfig, t: int) -> int:

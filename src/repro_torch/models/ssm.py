@@ -17,18 +17,40 @@ block-diagonal recurrence; sequential over time.
 Block layout follows the paper: mLSTM blocks are pre-up-projection
 (proj_factor x) with a gated residual; sLSTM blocks post-project with a
 gated FFN when ``d_ff`` is set.  All state math is float32.
+
+Split over ``model``: the mLSTM by heads (``w_up`` column-parallel, its
+output gathered over ``model`` as the input of each position's columns of
+``wq``/``wk``/``wv`` and gates; each position scans its heads; the
+output norm reads the gathered heads; ``w_down`` row-parallel).  Its decode
+state is replicated, per the reference's cache layout: each position
+updates its heads and the new state is gathered to every position.  The
+sLSTM by units: ``w_in``'s columns are ``[z, i, f, o]`` blocks that do not
+align with a split of the units, so each position reads it whole and takes
+its units' columns; the recurrence reads every unit's ``h``, gathered over
+``model`` at each step.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, List, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.collectives import (
+    copy_to_model,
+    gather_from_model,
+    partial_product,
+    reduce_from_model,
+)
 from repro_torch.models.base import ParamDecl
 from repro_torch.models.layers import mlp, mlp_decls, rmsnorm, rmsnorm_decls
+from repro_torch.sharding.blocks import ModelBlocks, model_group
+
+_MLSTM_SPLIT = ("w_up", "w_gate", "wq", "wk", "wv", "w_down")
+_W_IN_REASON = ("its columns are [z, i, f, o] blocks that do not align with a split of the "
+                "sLSTM's units")
 
 __all__ = [
     "mlstm_decls",
@@ -70,8 +92,10 @@ def mlstm_decls(cfg: ModelConfig) -> Dict:
     }
 
 
-def mlstm_init_state(batch: int, cfg: ModelConfig, device=None) -> Dict[str, torch.Tensor]:
+def mlstm_init_state(batch: int, cfg: ModelConfig, device=None, heads=None
+                     ) -> Dict[str, torch.Tensor]:
     _, h, hd = _mlstm_dims(cfg)
+    h = h if heads is None else heads
     return {
         "C": torch.zeros((batch, h, hd, hd), dtype=torch.float32, device=device),
         "n": torch.zeros((batch, h, hd), dtype=torch.float32, device=device),
@@ -140,19 +164,66 @@ def _mlstm_chunk_scan(
 
 def _mlstm_qkv(p, xn: torch.Tensor, cfg: ModelConfig):
     up, h, hd = _mlstm_dims(cfg)
-    bsz, s = xn.shape[0], xn.shape[1]
     u = xn @ p["w_up"]                                        # [B,S,up]
-    q = (u @ p["wq"]).reshape(bsz, s, h, hd) * (hd ** -0.5)
-    k = (u @ p["wk"]).reshape(bsz, s, h, hd) * (hd ** -0.5)
-    v = (u @ p["wv"]).reshape(bsz, s, h, hd)
-    gates = u.float() @ p["w_if"] + p["b_if"]                 # [B,S,2H]
-    ig = gates[..., :h]
-    lf = F.logsigmoid(gates[..., h:])
+    return (u,) + _mlstm_heads(u, p["wq"], p["wk"], p["wv"], p["w_if"], p["b_if"], 0, h, cfg)
+
+
+def _mlstm_heads(u, wq, wk, wv, w_if, b_if, first: int, n: int, cfg: ModelConfig):
+    """(q, k, v, ig, lf) [B, n, S, ...] of heads ``first`` to ``first + n``
+    (whose columns ``wq``/``wk``/``wv`` hold) from the whole ``u``."""
+    _, h, hd = _mlstm_dims(cfg)
+    bsz, s = u.shape[0], u.shape[1]
+    q = (u @ wq).reshape(bsz, s, n, hd) * (hd ** -0.5)
+    k = (u @ wk).reshape(bsz, s, n, hd) * (hd ** -0.5)
+    v = (u @ wv).reshape(bsz, s, n, hd)
+    if n == h:
+        gates = u.float() @ w_if + b_if                       # [B,S,2H]
+        ig, f_pre = gates[..., :h], gates[..., h:]
+    else:
+        sl = [slice(first, first + n), slice(h + first, h + first + n)]
+        ig, f_pre = (u.float() @ w_if[:, c] + b_if[c] for c in sl)
+    lf = F.logsigmoid(f_pre)
 
     def tr(x):                                                # -> [B,H,S,...]
         return x.transpose(1, 2)
 
-    return u, tr(q), tr(k), tr(v), tr(ig), tr(lf)
+    return tr(q), tr(k), tr(v), tr(ig), tr(lf)
+
+
+def _mlstm_group(p, cfg: ModelConfig):
+    """The model group of a split mLSTM (whole heads on each position)."""
+    group = model_group(p, *_MLSTM_SPLIT)
+    if group is not None and cfg.n_heads % group.size:
+        for key in _MLSTM_SPLIT:
+            p.note_gathered(key, f"{cfg.n_heads} mLSTM heads do not split over model "
+                                 f"{group.size}")
+        return None
+    return group
+
+
+def _mlstm_split(p, group, xn: torch.Tensor, cfg: ModelConfig):
+    """(the normed input on each position, each position's (q, k, v, ig,
+    lf) of its heads)."""
+    _, h, _ = _mlstm_dims(cfg)
+    n = h // group.size
+    xs = copy_to_model(xn, group.devices)
+    us = gather_from_model([xm @ w for xm, w in zip(xs, group.local("w_up"))], -1, group.devices)
+    return xs, [_mlstm_heads(u, q.local("wq"), q.local("wk"), q.local("wv"), q.local("w_if"),
+                             q.local("b_if"), i * n, n, cfg)
+                for i, (q, u) in enumerate(zip(group.views, us))]
+
+
+def _mlstm_out_split(p, group, x, xs, heads: List[torch.Tensor], cfg: ModelConfig):
+    """``x`` plus the block's output from each position's heads' ``h``
+    [B, S, up / M]: the heads gathered for the output norm, then each
+    position's columns gated and row-parallel through ``w_down``."""
+    up, _, _ = _mlstm_dims(cfg)
+    n = up // group.size
+    hs = rmsnorm(p["out_norm"], gather_from_model(heads, -1, [x.device])[0], cfg.norm_eps)
+    ys = [partial_product(hm[..., i * n:(i + 1) * n] * F.silu(xm @ q.local("w_gate")),
+                          q.local("w_down"))
+          for i, (q, xm, hm) in enumerate(zip(group.views, xs, copy_to_model(hs, group.devices)))]
+    return x + reduce_from_model(ys, x.device, x.dtype)
 
 
 def mlstm_apply(p, x: torch.Tensor, cfg: ModelConfig, chunk: int = 64) -> torch.Tensor:
@@ -160,27 +231,29 @@ def mlstm_apply(p, x: torch.Tensor, cfg: ModelConfig, chunk: int = 64) -> torch.
     up, h, hd = _mlstm_dims(cfg)
     b, s, d = x.shape
     xn = rmsnorm(p["norm"], x, cfg.norm_eps)
-    u, q, k, v, ig, lf = _mlstm_qkv(p, xn, cfg)
-    state = mlstm_init_state(b, cfg, x.device)
-    hseq, _ = _mlstm_chunk_scan(q, k, v, ig, lf, state, chunk)
-    hseq = hseq.transpose(1, 2).reshape(b, s, up)
-    hseq = rmsnorm(p["out_norm"], hseq, cfg.norm_eps)
-    gate = F.silu(xn @ p["w_gate"])
-    return x + (hseq * gate) @ p["w_down"]
+    group = _mlstm_group(p, cfg)
+    if group is None:
+        u, q, k, v, ig, lf = _mlstm_qkv(p, xn, cfg)
+        state = mlstm_init_state(b, cfg, x.device)
+        hseq, _ = _mlstm_chunk_scan(q, k, v, ig, lf, state, chunk)
+        hseq = hseq.transpose(1, 2).reshape(b, s, up)
+        hseq = rmsnorm(p["out_norm"], hseq, cfg.norm_eps)
+        gate = F.silu(xn @ p["w_gate"])
+        return x + (hseq * gate) @ p["w_down"]
+    xs, parts = _mlstm_split(p, group, xn, cfg)
+    heads = []
+    for q, k, v, ig, lf in parts:
+        state = mlstm_init_state(b, cfg, q.device, heads=q.shape[1])
+        hseq, _ = _mlstm_chunk_scan(q, k, v, ig, lf, state, chunk)
+        heads.append(hseq.transpose(1, 2).reshape(b, s, -1))
+    return _mlstm_out_split(p, group, x, xs, heads, cfg)
 
 
-def mlstm_decode(
-    p, x: torch.Tensor, state: Dict[str, torch.Tensor], cfg: ModelConfig
-) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """One-token mLSTM step. x [B, 1, d] -> (y [B, 1, d], new state)."""
-    up, h, hd = _mlstm_dims(cfg)
-    b = x.shape[0]
-    xn = rmsnorm(p["norm"], x, cfg.norm_eps)
-    u, q, k, v, ig, lf = _mlstm_qkv(p, xn, cfg)
+def _mlstm_step(q, k, v, ig, lf, C, n, m):
+    """The one-step recurrence of heads ``[B, H, ...]``: (h [B, H, hd],
+    C, n, m)."""
     q, k, v = (t[:, :, 0].float() for t in (q, k, v))        # [B,H,hd]
     ig, lf = ig[:, :, 0], lf[:, :, 0]                         # [B,H]
-
-    C, n, m = state["C"], state["n"], state["m"]
     m_new = torch.maximum(lf + m, ig)
     wf = torch.exp(lf + m - m_new)
     wi = torch.exp(ig - m_new)
@@ -188,11 +261,43 @@ def mlstm_decode(
     n_new = n * wf[..., None] + wi[..., None] * k
     num = torch.einsum("bhd,bhde->bhe", q, C_new)
     denom = torch.maximum(torch.abs(torch.einsum("bhd,bhd->bh", q, n_new)), torch.exp(-m_new))
-    hvec = (num / denom[..., None]).reshape(b, 1, up).to(x.dtype)
-    hvec = rmsnorm(p["out_norm"], hvec, cfg.norm_eps)
-    gate = F.silu(xn @ p["w_gate"])
-    y = x + (hvec * gate) @ p["w_down"]
-    return y, {"C": C_new, "n": n_new, "m": m_new}
+    return num / denom[..., None], C_new, n_new, m_new
+
+
+def mlstm_decode(
+    p, x: torch.Tensor, state: Dict, cfg: ModelConfig
+) -> Tuple[torch.Tensor, Dict]:
+    """One-token mLSTM step. x [B, 1, d] -> (y [B, 1, d], new state).  A
+    state held by the positions along ``model`` (:class:`ModelBlocks`)
+    runs split by heads."""
+    up, h, hd = _mlstm_dims(cfg)
+    b = x.shape[0]
+    group = _mlstm_group(p, cfg)
+    if isinstance(state["C"], ModelBlocks) and group is None:
+        y, new = mlstm_decode(p, x, {k: v.whole(x.device) for k, v in state.items()}, cfg)
+        return y, {k: state[k].like(v) for k, v in new.items()}
+    xn = rmsnorm(p["norm"], x, cfg.norm_eps)
+    if group is None:
+        u, q, k, v, ig, lf = _mlstm_qkv(p, xn, cfg)
+        hvec, C_new, n_new, m_new = _mlstm_step(q, k, v, ig, lf, state["C"], state["n"],
+                                                state["m"])
+        hvec = hvec.reshape(b, 1, up).to(x.dtype)
+        hvec = rmsnorm(p["out_norm"], hvec, cfg.norm_eps)
+        gate = F.silu(xn @ p["w_gate"])
+        y = x + (hvec * gate) @ p["w_down"]
+        return y, {"C": C_new, "n": n_new, "m": m_new}
+    xs, parts = _mlstm_split(p, group, xn, cfg)
+    heads, new = [], {"C": [], "n": [], "m": []}
+    for i, (q, k, v, ig, lf) in enumerate(parts):
+        sl = slice(i * q.shape[1], (i + 1) * q.shape[1])
+        hv, *st = _mlstm_step(q, k, v, ig, lf, *(state[key].blocks[i][:, sl]
+                                                  for key in ("C", "n", "m")))
+        heads.append(hv.reshape(b, 1, -1).to(x.dtype))
+        for key, t in zip(("C", "n", "m"), st):
+            new[key].append(t)
+    state = {key: ModelBlocks(gather_from_model(ts, 1, group.devices), None)
+             for key, ts in new.items()}
+    return _mlstm_out_split(p, group, x, xs, heads, cfg), state
 
 
 # ---------------------------------------------------------------------------
@@ -220,8 +325,9 @@ def slstm_decls(cfg: ModelConfig) -> Dict:
     return decls
 
 
-def slstm_init_state(batch: int, cfg: ModelConfig, device=None) -> Dict[str, torch.Tensor]:
-    d = cfg.d_model
+def slstm_init_state(batch: int, cfg: ModelConfig, device=None, units=None
+                     ) -> Dict[str, torch.Tensor]:
+    d = cfg.d_model if units is None else units
 
     def zeros():
         return torch.zeros((batch, d), dtype=torch.float32, device=device)
@@ -230,14 +336,19 @@ def slstm_init_state(batch: int, cfg: ModelConfig, device=None) -> Dict[str, tor
             "m": torch.full((batch, d), -1e30, dtype=torch.float32, device=device)}
 
 
-def _slstm_cell(p, state, x_proj: torch.Tensor, cfg: ModelConfig):
-    """One sLSTM step. x_proj [B, 4d] precomputed input projection."""
+def _slstm_cell(r_rec, b, state, x_proj: torch.Tensor, h_all: torch.Tensor, cfg: ModelConfig,
+                cols=None):
+    """One sLSTM step of the units whose ``[z, i, f, o]`` columns ``cols``
+    name (all by default).  x_proj [B, 4n] their input projection; h_all
+    [B, d] every unit's ``h``."""
     d = cfg.d_model
-    h_heads = state["h"].reshape(-1, cfg.n_heads, d // cfg.n_heads)
-    rec = torch.einsum("bhd,hde->bhe", h_heads, p["r_rec"])  # [B,H,4hd]
+    h_heads = h_all.reshape(-1, cfg.n_heads, d // cfg.n_heads)
+    rec = torch.einsum("bhd,hde->bhe", h_heads, r_rec)        # [B,H,4hd]
     rec = rec.reshape(-1, 4 * d)
-    pre = x_proj.float() + rec + p["b"]
-    z, i_pre, f_pre, o = torch.split(pre, d, dim=-1)
+    if cols is not None:
+        rec = rec[:, cols]
+    pre = x_proj.float() + rec + b
+    z, i_pre, f_pre, o = torch.split(pre, pre.shape[-1] // 4, dim=-1)
     z = torch.tanh(z)
     o = torch.sigmoid(o)
     lf = F.logsigmoid(f_pre)
@@ -257,24 +368,87 @@ def _slstm_out(p, x: torch.Tensor, hseq: torch.Tensor, cfg: ModelConfig) -> torc
     return y
 
 
+def _slstm_group(p, cfg: ModelConfig):
+    """The model group of a split sLSTM (``d_model`` units divide over it);
+    ``w_in`` is recorded, every position reading it whole."""
+    group = model_group(p, "w_in")
+    if group is None:
+        return None
+    if cfg.d_model % group.size:
+        p.note_gathered("w_in", f"{cfg.d_model} sLSTM units do not split over model "
+                                f"{group.size}")
+        return None
+    return group
+
+
+def _slstm_split(p, group, xn: torch.Tensor, cfg: ModelConfig):
+    """Each position's (columns of its units, input projection of them,
+    r_rec, bias)."""
+    d = cfg.d_model
+    n = d // group.size
+    out = []
+    for i, (q, xm) in enumerate(zip(group.views, copy_to_model(xn, group.devices))):
+        cols = torch.cat([torch.arange(g * d + i * n, g * d + (i + 1) * n, device=q.device)
+                          for g in range(4)])
+        out.append((cols, xm @ q.whole("w_in", _W_IN_REASON)[:, cols], q.local("r_rec"),
+                    q.local("b")[cols]))
+    return out
+
+
+def _slstm_steps(parts, states, xps_at, cfg: ModelConfig, devices):
+    """One step of every position's units: the units' ``h`` gathered over
+    ``model``, then each position's cell."""
+    h_all = gather_from_model([st["h"] for st in states], -1, devices)
+    return [_slstm_cell(r_rec, b, st, xp, ha, cfg, cols)
+            for (cols, _, r_rec, b), st, xp, ha in zip(parts, states, xps_at, h_all)]
+
+
 def slstm_apply(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """Full-sequence sLSTM block (sequential over time)."""
     b, s, d = x.shape
     xn = rmsnorm(p["norm"], x, cfg.norm_eps)
-    xp = xn @ p["w_in"]                                       # [B,S,4d]
-    st = slstm_init_state(b, cfg, x.device)
-    hs = []
+    group = _slstm_group(p, cfg)
+    if group is None:
+        xp = xn @ p["w_in"]                                   # [B,S,4d]
+        r_rec, bias = p["r_rec"], p["b"]
+        st = slstm_init_state(b, cfg, x.device)
+        hs = []
+        for t in range(s):
+            st = _slstm_cell(r_rec, bias, st, xp[:, t], st["h"], cfg)
+            hs.append(st["h"])
+        hseq = torch.stack(hs, dim=1).to(x.dtype)            # [B,S,d]
+        return _slstm_out(p, x, hseq, cfg)
+    parts = _slstm_split(p, group, xn, cfg)
+    states = [slstm_init_state(b, cfg, dev, units=d // group.size) for dev in group.devices]
+    hs = [[] for _ in parts]
     for t in range(s):
-        st = _slstm_cell(p, st, xp[:, t], cfg)
-        hs.append(st["h"])
-    hseq = torch.stack(hs, dim=1).to(x.dtype)                # [B,S,d]
-    return _slstm_out(p, x, hseq, cfg)
+        states = _slstm_steps(parts, states, [xp[:, t] for _, xp, _, _ in parts], cfg,
+                              group.devices)
+        for h, st in zip(hs, states):
+            h.append(st["h"])
+    hseq = gather_from_model([torch.stack(h, dim=1) for h in hs], -1, [x.device])[0]
+    return _slstm_out(p, x, hseq.to(x.dtype), cfg)
 
 
 def slstm_decode(
-    p, x: torch.Tensor, state: Dict[str, torch.Tensor], cfg: ModelConfig
-) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    p, x: torch.Tensor, state: Dict, cfg: ModelConfig
+) -> Tuple[torch.Tensor, Dict]:
+    """One-token sLSTM step.  A state in blocks along ``model``
+    (:class:`ModelBlocks`, units split) runs split."""
+    group = _slstm_group(p, cfg)
+    if isinstance(state["h"], ModelBlocks) and (group is None or state["h"].dim is None):
+        y, new = slstm_decode(p, x, {k: v.whole(x.device) for k, v in state.items()}, cfg)
+        return y, {k: state[k].like(v) for k, v in new.items()}
     xn = rmsnorm(p["norm"], x, cfg.norm_eps)
-    xp = (xn @ p["w_in"])[:, 0]
-    st = _slstm_cell(p, state, xp, cfg)
-    return _slstm_out(p, x, st["h"][:, None].to(x.dtype), cfg), st
+    if group is None:
+        xp = (xn @ p["w_in"])[:, 0]
+        st = _slstm_cell(p["r_rec"], p["b"], state, xp, state["h"], cfg)
+        return _slstm_out(p, x, st["h"][:, None].to(x.dtype), cfg), st
+    parts = _slstm_split(p, group, xn, cfg)
+    keys = ("c", "n", "h", "m")
+    states = [{k: state[k].blocks[i] for k in keys} for i in range(group.size)]
+    states = _slstm_steps(parts, states, [xp[:, 0] for _, xp, _, _ in parts], cfg,
+                          group.devices)
+    h = gather_from_model([st["h"] for st in states], -1, [x.device])[0]
+    return (_slstm_out(p, x, h[:, None].to(x.dtype), cfg),
+            {k: ModelBlocks([st[k] for st in states], 1) for k in keys})

@@ -15,7 +15,12 @@ body) and the tail without.  Decode caches are per-layer lists on an
 explicit device.  With a ``mesh`` (``forward``, ``lm_loss``,
 ``decode_step``) the same functions run over the batch's data shards in
 lockstep, each shard reading the parameters from their blocks
-(``sharding/blocks.py``).
+(``sharding/blocks.py``).  Where the sharding profile splits ``tensor`` or
+``expert`` dims over ``model`` (``tp``, ``serve_tp``), each block's split
+layers run on every position of the shard, each on its own blocks, and
+combine over ``model`` (the layers' modules); the rest of a block runs on
+the shard's first position.  The decode cache is laid out as the
+reference's ``cache_shardings`` lay it out (:func:`init_decode_cache`).
 
 The parameter tree: ``{embed, layers: [block, ...], final_norm}``.
 """
@@ -45,9 +50,17 @@ from repro_torch.models.layers import (
     rmsnorm,
     rmsnorm_decls,
     softcap,
-    wide,
+    token_xent,
 )
-from repro_torch.sharding.blocks import join_rows, shard_views, split_rows
+from repro_torch.sharding.blocks import (
+    BlockStore,
+    join_rows,
+    lay_out_cache,
+    shard_cache,
+    shard_views,
+    split_rows,
+    store_shard_cache,
+)
 
 __all__ = [
     "model_decls",
@@ -292,12 +305,10 @@ def _token_loss(params, hidden: torch.Tensor, aux: torch.Tensor, tokens: torch.T
     chunk = min(loss_chunk, sm1)
     if sm1 % chunk:
         chunk = sm1
-    head = params["embed"]["tok"].T if cfg.tie_embeddings else params["embed"]["head"]
+    embed = params["embed"]
 
     def body(h, t):
-        logits = softcap(wide(h @ head), cfg.logit_softcap)
-        tgt = logits.gather(-1, t[..., None])[..., 0]
-        return torch.sum(torch.logsumexp(logits, dim=-1) - tgt)
+        return torch.sum(token_xent(embed, h, t, cfg, cfg.logit_softcap))
 
     total = torch.zeros((), dtype=torch.float32, device=hidden.device)
     for c0 in range(0, sm1, chunk):
@@ -370,11 +381,23 @@ def _block_cache(kind: str, batch: int, cfg: ModelConfig, max_seq: int, device):
     raise ValueError(kind)
 
 
-def init_decode_cache(batch: int, cfg: ModelConfig, max_seq: int, device=None) -> List[Dict]:
+def layer_kinds(cfg: ModelConfig) -> List[str]:
+    """Each layer's block kind, in layer order."""
+    return [cfg.pattern_for_layer(i) for i in range(cfg.n_layers)]
+
+
+def init_decode_cache(batch: int, cfg: ModelConfig, max_seq: int, device=None, *,
+                      mesh=None):
     """One cache dict per layer: {k, v} for attention (a ring of the window
-    for windowed archs), the recurrent state otherwise."""
-    return [_block_cache(cfg.pattern_for_layer(i), batch, cfg, max_seq, device)
-            for i in range(cfg.n_layers)]
+    for windowed archs), the recurrent state otherwise.  With a ``mesh``,
+    laid out on it (``sharding.blocks.lay_out_cache``: ``k``/``v`` split by
+    ``seq`` over ``model``, recurrent states by ``tensor``, the mLSTM state
+    replicated, the batch over the data axes), made on ``device`` (the
+    mesh's first by default) and copied to its blocks."""
+    device = mesh.flat[0] if device is None and mesh is not None else device
+    kinds = layer_kinds(cfg)
+    cache = [_block_cache(kind, batch, cfg, max_seq, device) for kind in kinds]
+    return cache if mesh is None else lay_out_cache(cache, kinds, mesh)
 
 
 def _decode_attention(p, x: torch.Tensor, cache, pos: int, cfg: ModelConfig):
@@ -436,42 +459,55 @@ def _decode_shards(params: Sequence, tokens: Sequence, caches: Sequence, pos: in
     return logits, new
 
 
-def split_cache(cache: List[Dict], shards) -> List[List[Dict]]:
-    """A per-layer cache's batch rows, per shard (views where the shard's
-    device is the cache's)."""
-    per = [[{} for _ in cache] for _ in shards]
-    for i, layer in enumerate(cache):
-        for k, v in layer.items():
-            for j, part in enumerate(split_rows(v, shards)):
-                per[j][i][k] = part
-    return per
+def join_cache(store: BlockStore) -> List[Dict]:
+    """A laid-out cache whole on its mesh's first device, one dict per
+    layer."""
+    return [{leaf: store.full(name) for leaf, name in node.items()} for node in store.tree]
 
 
-def join_cache(per: Sequence[List[Dict]], device) -> List[Dict]:
-    """The shards' caches joined along the batch on ``device``."""
-    return [{k: join_rows([p[i][k] for p in per], device) for k in layer}
-            for i, layer in enumerate(per[0])]
+def meshed_decode(run, params, tokens: torch.Tensor, caches: Sequence, kinds: Sequence,
+                  cfg: ModelConfig, mesh):
+    """One decode step over ``mesh``'s data shards: ``run(views, tokens,
+    per-shard caches)`` -> (each shard's logits, each shard's new caches).
+    Each of ``caches`` is laid out on the mesh (``lay_out_cache``) or, when
+    given whole, laid out for the step and returned whole.  Returns (the
+    logits joined on the mesh's first device, the caches)."""
+    views, shards = shard_views(params, cfg, mesh, tokens.shape[0])
+    stores = [c if isinstance(c, BlockStore) else lay_out_cache(c, k, mesh)
+              for c, k in zip(caches, kinds)]
+    logits, new = run(views, split_rows(tokens, shards),
+                      [[shard_cache(st, s.pos) for st in stores] for s in shards])
+    for s, per in zip(shards, new):
+        for st, layers in zip(stores, per):
+            store_shard_cache(st, s.pos, layers)
+    out = [st if isinstance(c, BlockStore) else join_cache(st) for c, st in zip(caches, stores)]
+    return join_rows(logits, shards[0].device), out
 
 
 def decode_step(
     params,
     tokens: torch.Tensor,         # [B, 1] current token ids
-    cache: List[Dict],
+    cache,
     pos: int,                     # current position
     cfg: ModelConfig,
     *,
     mesh=None,
-) -> Tuple[torch.Tensor, List[Dict]]:
+) -> Tuple[torch.Tensor, Any]:
     """One serve step: returns (logits [B, vocab] float32, new cache).
     Attention caches are written in place; recurrent states are new.  With
     a ``mesh`` the step runs over the batch's data shards, each on its
-    shard of the cache; logits and cache come back joined on the mesh's
-    first device (the cache as it was when the batch is not split)."""
+    blocks of the cache (one laid out by ``init_decode_cache(...,
+    mesh=mesh)``, kept so; a whole cache is laid out for the step and
+    returned whole); the logits come back joined on the mesh's first
+    device."""
     if mesh is None:
         logits, new = _decode_shards([params], [tokens], [cache], pos, cfg)
         return logits[0], new[0]
-    views, shards = shard_views(params, cfg, mesh, tokens.shape[0])
-    logits, new = _decode_shards(views, split_rows(tokens, shards),
-                                 split_cache(cache, shards), pos, cfg)
-    home = shards[0].device
-    return join_rows(logits, home), join_cache(new, home)
+
+    def run(views, toks, per):
+        logits, new = _decode_shards(views, toks, [c[0] for c in per], pos, cfg)
+        return logits, [[n] for n in new]
+
+    logits, (cache,) = meshed_decode(run, params, tokens, [cache], [layer_kinds(cfg)], cfg,
+                                     mesh)
+    return logits, cache

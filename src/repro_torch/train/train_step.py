@@ -30,7 +30,13 @@ storage (``sharding/blocks.py``):
   order the unmeshed step adds its microbatches in; so a data-2 mesh at
   microbatches ``k`` computes the unmeshed step's sums at ``2 k``.  The
   norm for the clip is taken leaf by leaf over each whole gradient;
-  compression runs on the reduced gradient, group by stacked group.
+  compression runs on the reduced gradient, group by stacked group;
+* tensor and expert parallelism (profiles ``tp``, ``serve_tp``): each
+  position of a shard reads its own blocks of the leaves split over
+  ``model``, so their gradients land in those blocks with no sum over
+  ``model``; a leaf replicated over ``model`` that several positions read
+  (a slice each) gets the positions' gradients summed into its holder,
+  in position order, once.
 
 A train state is ``{"params": model, "opt": OptState}``, with
 ``"residual"`` (float32, keyed as the parameters) when the gradients are
@@ -286,8 +292,9 @@ def _mesh_grads(cfg: ModelConfig, tcfg: TrainConfig, mesh, store: BlockStore, ba
                 continue
             at = canon[name][pos]
             acc = grads[name].get(at)
-            if n == 1:
-                grads[name][at] = g
+            if n == 1:               # several positions of the shard read the block
+                grads[name][at] = g if acc is None else (
+                    acc.float() + g.to(device=acc.device, dtype=torch.float32)).to(acc.dtype)
             elif acc is None:        # 0 + g: the accumulator starts as g in float32
                 grads[name][at] = g.to(device=store.blocks[name][at].device,
                                        dtype=torch.float32)
