@@ -29,7 +29,16 @@ this file and builds the CUDA kernels from ``src/repro_torch/csrc``).
      (past the envelope: the kernel refills its stages, with 4-byte
      copies), each with random bits and with one-hot fired rows against
      weights ``((m*C + c) mod 255) - 127`` (a swapped fragment shows
-     there), with uint8 and bool fired;
+     there), with uint8 and bool fired; then ``[prng]``: the threefry
+     kernel against known answers of ``jax.random`` (constants here, no
+     JAX imported) and against its plain version (bits, float32 uniforms
+     over four ranges, split pairs; 1, 3, 100 and 70,000 keys; 1 to
+     46,208 counters, from 0 and across 2**32), then the main path's own
+     launches recorded and held the same way (a batch-100 TM step's
+     draws, 8 launches, 15.09 M outputs; every launch of h2o-danube-1.8b's
+     ``init_params``; ``sample_tokens`` over float32 and bf16 logits),
+     with the times of the first two beside the plain version,
+     ``torch.rand`` of as many floats and the bound;
   3. the main paths: ``ServingEngine.register`` -> ``classify`` of the
      ``convcotm-mnist`` configuration (full width, seeded weights) with
      requests of 1, 3, 64, 256 and 300 images.  First the ``fused`` path
@@ -46,12 +55,17 @@ this file and builds the CUDA kernels from ``src/repro_torch/csrc``).
      ingress, block 11, c 2) on ``fused`` and ``fused_sparse`` with
      requests of 1, 3, 256 and 300 images, equal to the CPU plain
      composition and to the host ingress; the trainer at full width (6
-     batch-mode steps of 100) on the card and on the CPU from the same
-     draws, equal models; the trainer on the card (``fit``, 2 epochs of
-     4,000 glyphs, 800 test, the card's own generator: samples/s per
-     epoch, accuracy, the median samples/s over 15 further epochs of 40
-     steps on a copy of the model, a ``torch.profiler`` split of a step
-     into draws, matmul, feedback and apply); the trained model frozen, registered and
+     batch-mode steps of 100) on the card and on the CPU from one key
+     (the first step's draws equal but for the Gumbel noise's logs, equal
+     keys and models, or a parting only where the logs' last place
+     decided); the trainer on the card (``fit``, 2 epochs of 4,000 glyphs,
+     800 test, from ``prng_key(0)``, the threefry launches counted:
+     samples/s per epoch, accuracy, the median samples/s over 16 further
+     epochs of 40 steps on copies of the model in turns with the key
+     chain and with Philox draws, a ``torch.profiler`` split of a step
+     into draws, matmul, feedback and apply with the draws' share); a TM
+     checkpoint written on the card after one epoch and resumed on the
+     CPU, against the uninterrupted card run; the trained model frozen, registered and
      served on ``fused`` and ``fused_sparse`` and through
      ``infer_packed(use_kernel=True)``, equal to ``evaluate``'s matmul
      predictions on every test image; its 5,632-byte register image and a
@@ -111,9 +125,9 @@ this file and builds the CUDA kernels from ``src/repro_torch/csrc``).
      latency at bucket 1 on ``fused`` and ``fused_sparse``, a profile of
      each;
   5. the LM substrate's serving path (``[lm]`` lines; plain PyTorch, no
-     kernel of its own, fp32 matmuls without TF32): each of the ten archs
-     at ``reduced_config`` in fp32, drawn on a seeded CPU generator and
-     copied to the card, runs ``prefill`` and 8 decode steps (h2o-danube
+     kernel of its own but threefry's draws, fp32 matmuls without TF32):
+     each of the ten archs at ``reduced_config`` in fp32, drawn on the CPU
+     from a key and copied to the card, runs ``prefill`` and 8 decode steps (h2o-danube
      40, so its ring of 16 wraps twice; xLSTM on the reference's 3-layer
      stack, and at its 17-layer reduced depth on weights of each layer's
      own fan-in) on both,
@@ -121,7 +135,8 @@ this file and builds the CUDA kernels from ``src/repro_torch/csrc``).
      the CPU's top-2 margin exceeds 1e-2; h2o-danube-1.8b whole in fp32,
      drawn on the card: 16 decode steps equal ``forward`` + ``lm_logits``
      (2e-3); h2o-danube-1.8b whole in bf16 through ``generate`` (batch
-     4, prompt 32, 16 new tokens, greedy) twice the same tokens, decode
+     4, prompt 32, 16 new tokens, greedy) twice the same tokens, at
+     temperature 1 from one seed twice the same tokens, decode
      ms a step (host clock and CUDA events), tokens/s, ``prefill`` of
      1 x 2,048 tokens, peak memory, a ``torch.profiler`` split of 8
      decode steps; ``[roofline] lm`` lines put the decode byte floor
@@ -129,9 +144,10 @@ this file and builds the CUDA kernels from ``src/repro_torch/csrc``).
      floor (``flops_estimate`` over SMs x 4,096 bf16 FLOPs per clock x
      the highest SM clock) beside them;
   6. the LM substrate's training path (``[lm train]`` lines; plain
-     PyTorch, no kernel of its own, the six kernels' counters held at 0):
+     PyTorch, no kernel of its own, the six TM kernels' counters held at
+     0, threefry's counted):
      each of the ten archs at ``reduced_config`` in fp32, microbatches
-     2, remat on, drawn on a seeded CPU generator: one train step and
+     2, remat on, drawn on the CPU from a key: one train step and
      then three on the card and on the CPU from the same weights and
      batches, held on weights of each layer's own fan-in (xLSTM at its
      17 layers: loss 1e-5, grad_norm 1e-4, the three losses 1e-4
@@ -159,7 +175,7 @@ this file and builds the CUDA kernels from ``src/repro_torch/csrc``).
      ``run_training`` on the card (reduced, fp32, checkpoint at step 2)
      against the uninterrupted run (1e-5);
   7. the LM substrate over a mesh (``[lm mesh]`` lines), on meshes of the
-     card repeated, the six kernels' counters held at 0: every reduced
+     card repeated, the six TM kernels' counters held at 0: every reduced
      arch in fp32, 3 train steps at 4 x 32 on a (2, 2) "tp" mesh, its
      layers split over ``model`` (xLSTM on its 3-layer stack), at
      microbatches 1 against the unmeshed step at the matching count (2;
@@ -187,7 +203,8 @@ this file and builds the CUDA kernels from ``src/repro_torch/csrc``).
      float32 (the unmeshed tokens, held); and the dry-run of
      h2o-danube-1.8b x train_4k on both production meshes (argument bytes
      a device against the card's memory, the dominant roofline term);
-     then one ``{"kernels": [...]}`` line.
+     then one ``{"kernels": [...]}`` line (threefry's row counts the
+     fit's launches, the LM phases' beside them).
 
 The last line is ``{"ok": true, "device": {...}}``.  Any failed phase
 raises and exits non-zero, as does a run without CUDA or outside the
@@ -316,6 +333,8 @@ def start_parent_build(build_mod):
     out.mkdir(exist_ok=True)
     procs = {}
     for name in build_mod.SOURCES:
+        if not (csrc / f"{name}.cu").exists():      # a kernel the parent does not have
+            continue
         cmd = [build_mod.nvcc_path(), *build_mod.NVCC_FLAGS, "-o", str(out / f"lib{name}.so"),
                str(csrc / f"{name}.cu")]
         procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE,
@@ -554,15 +573,93 @@ def adaptive_serving(engine, cpu, pools, registry, dev) -> dict:
     return launches
 
 
+def _gumbel_apart(a, b, u) -> float:
+    """Largest distance of two Gumbel draws ``-log(-log(u))`` of the same
+    uniforms ``u`` whose logs round apart, in units of one ulp at each log:
+    ``spacing(t) / t + spacing(g)`` (``t = -log(u)``; the inner log's ulp
+    moves the result by the first term, the outer's by the second)."""
+    import torch
+
+    def spacing(x):
+        x = x.float()
+        return x.nextafter(torch.tensor(float("inf"))).double() - x.double()
+
+    a, b, u = a.double().cpu(), b.double().cpu(), u.double().cpu()
+    t = -torch.log(u)
+    unit = spacing(t) / t + spacing(b.abs())
+    return float(((a - b).abs() / unit).max()) if a.numel() else 0.0
+
+
+def _patch_uniforms(k, b: int, cfg):
+    """The uniforms behind a step's Gumbel noise, from its step key ``k``
+    (as ``make_draws`` splits it), on the key's device."""
+    import numpy as np
+
+    from repro_torch.core import prng
+
+    k_patch = prng.split(prng.split(k, b), 7)[:, 0]
+    return prng.uniform(k_patch, (cfg.patch.n_patches, cfg.n_clauses),
+                        minval=float(np.finfo(np.float32).tiny))
+
+
+def _first_parting(cfg, lits, labels, idx, m0, key_a, key_b, dev_a, dev_b):
+    """Replay batch-mode steps from one model and two copies of a key on two
+    devices (the engine's ``key, k = split(key)`` chain over the index rows
+    ``idx``).  Returns None when every step's models agree, else (step,
+    the number of patch choices of fired clauses that differ, the largest
+    distance of the two devices' Gumbel noise at those choices in units of
+    one ulp at each log, see :func:`_gumbel_apart`)."""
+    import torch
+
+    from repro_torch.core import prng
+    from repro_torch.core import train as tt
+
+    ma = type(m0)(ta_state=m0.ta_state.to(dev_a), weights=m0.weights.to(dev_a))
+    mb = type(m0)(ta_state=m0.ta_state.to(dev_b), weights=m0.weights.to(dev_b))
+    for step, ix in enumerate(idx):
+        key_a, ka = prng.split(key_a).unbind(0)
+        key_b, kb = prng.split(key_b).unbind(0)
+        da, db = tt.make_draws(ka, len(ix), cfg), tt.make_draws(kb, len(ix), cfg)
+        la, ya = lits[ix].to(dev_a), labels[ix].to(dev_a)
+        na = tt.update_batch_literals(da, ma, la, ya, cfg)
+        nb = tt.update_batch_literals(db, mb, lits[ix].to(dev_b), labels[ix].to(dev_b), cfg)
+        if torch.equal(na.ta_state.cpu(), nb.ta_state.cpu()) and torch.equal(
+                na.weights.cpu(), nb.weights.cpu()):
+            ma, mb = na, nb
+            continue
+        cp = tt._train_patch_outputs(la, ma.include, cfg) > 0
+        fired = cp.any(dim=1)
+        ga, gb = da.gumbel, db.gumbel.to(dev_a)
+        pa = torch.where(cp, ga, float("-inf")).argmax(dim=1)
+        pb = torch.where(cp, gb, float("-inf")).argmax(dim=1)
+        parted = ((pa != pb) & fired).nonzero().tolist()
+        u = _patch_uniforms(kb, len(ix), cfg)
+        apart = [0.0]
+        for b, c in parted:
+            at = [int(pa[b, c]), int(pb[b, c])]
+            apart.append(_gumbel_apart(ga[b, at, c], gb[b, at, c], u[b, at, c]))
+        return step, len(parted), max(apart)
+    return None
+
+
 def trainer_card_equals_cpu(dev) -> None:
     """The trainer at full width (convcotm-mnist, P=361, 2o=272, C=128) takes
-    the same batch-mode steps on the card and on the CPU from the same draws
-    (made on a CPU generator and copied); the models must be equal."""
+    6 batch-mode steps of 100 on the card and on the CPU from one key
+    (``prng_key``, the reference's ``PRNGKey``): the card draws through the
+    threefry kernel, the CPU through its plain version.  The first step's
+    uniforms and negative classes are equal bit for bit, its Gumbel noise
+    within 2 ulp at each log (CUDA's ``log`` against the CPU's); the
+    advanced keys are equal; the models are equal, or at the first step
+    where they part every differing patch choice lies where the two
+    devices' noise is within that bound (the logs' last place decided)."""
     import torch
 
     from repro_torch.configs.convcotm import COTM_CONFIGS
+    from repro_torch.core import prng
+    from repro_torch.core.prng import prng_key
     from repro_torch.core.train import make_draws
-    from repro_torch.data import PipelineState, synthetic_glyphs
+    from repro_torch.data import PipelineState, epoch_permutation, synthetic_glyphs
+    from repro_torch.kernels import registry
     from repro_torch.train.tm_engine import TrainerEngine
 
     cfg = COTM_CONFIGS["convcotm-mnist"]
@@ -574,45 +671,81 @@ def trainer_card_equals_cpu(dev) -> None:
     ds_card, ds_cpu = card.prepare(tx, ty), host.prepare(tx, ty)
     check(torch.equal(ds_card.literals.cpu(), ds_cpu.literals),
           "prepared literals differ between the card and the CPU")
-    g = torch.Generator().manual_seed(SEED + 7)
-    draws = [make_draws(g, b, cfg) for _ in range(steps)]
-    m0 = host.init_model(torch.Generator().manual_seed(SEED))
-    t = time.perf_counter()
-    _, m_cpu, _, n_cpu = host.run_epoch(iter(draws), m0, ds_cpu, PipelineState(seed=SEED))
-    cpu_s = time.perf_counter() - t
-    m0_card = type(m0)(ta_state=m0.ta_state.to(dev), weights=m0.weights.to(dev))
-    _, m_card, _, n_card = card.run_epoch(iter(draws), m0_card, ds_card,
-                                          PipelineState(seed=SEED))
+    k_card, k_cpu = prng_key(SEED + 7, dev), prng_key(SEED + 7)
+    first = prng.split(k_cpu).unbind(0)[1]
+    d_card, d_cpu = make_draws(first.to(dev), b, cfg), make_draws(first, b, cfg)
     torch.cuda.synchronize()
+    for name in ("neg", "u_t", "u_q", "u_ia1", "u_ia0", "u_ib"):
+        check(torch.equal(getattr(d_card, name).cpu(), getattr(d_cpu, name)),
+              f"trainer draws: {name} differs between the card and the CPU from one key")
+    g_ulps = _gumbel_apart(d_card.gumbel, d_cpu.gumbel, _patch_uniforms(first, b, cfg))
+    g_apart = int((d_card.gumbel.cpu() != d_cpu.gumbel).sum())
+    if g_ulps > 2:
+        # Which side moved: each draws its noise again from the same key.
+        i = int((d_card.gumbel.cpu().double() - d_cpu.gumbel.double()).abs().argmax())
+        again_cpu = make_draws(first, b, cfg).gumbel
+        again_card = make_draws(first.to(dev), b, cfg).gumbel.cpu()
+        check(False, f"trainer draws: Gumbel noise {g_ulps} ulp apart at its logs; the "
+              f"largest difference at flat index {i}: card {float(d_card.gumbel.flatten()[i])!r}, "
+              f"CPU {float(d_cpu.gumbel.flatten()[i])!r}; drawn again, the CPU "
+              f"{'repeats' if torch.equal(again_cpu, d_cpu.gumbel) else 'differs'}, the card "
+              f"{'repeats' if torch.equal(again_card, d_card.gumbel.cpu()) else 'differs'}")
+    m0 = host.init_model(prng_key(SEED))
+    t = time.perf_counter()
+    kc, m_cpu, _, n_cpu = host.run_epoch(k_cpu, m0, ds_cpu, PipelineState(seed=SEED))
+    cpu_s = time.perf_counter() - t
+    registry.reset_launches()
+    kd, m_card, _, n_card = card.run_epoch(k_card, card.init_model(prng_key(SEED)), ds_card,
+                                           PipelineState(seed=SEED))
+    torch.cuda.synchronize()
+    launches = registry.launch_counts()["threefry"]
+    check(launches > 0, "trainer: the card drew without the threefry kernel")
     check(n_cpu == n_card == b * steps, f"trained {n_cpu} and {n_card} samples")
-    check(torch.equal(m_card.ta_state.cpu(), m_cpu.ta_state)
-          and torch.equal(m_card.weights.cpu(), m_cpu.weights),
-          "trainer: the card's model differs from the CPU's on the same draws")
+    check(torch.equal(kd.cpu(), kc), "trainer: the advanced keys differ")
+    equal = torch.equal(m_card.ta_state.cpu(), m_cpu.ta_state) and torch.equal(
+        m_card.weights.cpu(), m_cpu.weights)
     moved = int((m_cpu.ta_state != m0.ta_state).sum())
     check(moved > 0 and bool((m_cpu.weights != m0.weights).any()),
           "trainer: the steps changed no TA state or no weight")
-    print(f"[train] card == CPU: {steps} batch-mode steps of {b} at full width (P=361, "
-          f"2o=272, C=128) from the same draws: ta_state and weights equal ({moved} TA "
-          f"states and {int((m_cpu.weights != m0.weights).sum())} weights moved; CPU "
-          f"{cpu_s:.2f} s)")
+    verdict = "ta_state and weights equal"
+    if not equal:
+        idx = torch.from_numpy(epoch_permutation(SEED, 0, b * steps).reshape(steps, b)
+                               .astype("int64"))
+        part = _first_parting(cfg, ds_cpu.literals, ds_cpu.labels, idx, m0, k_card, k_cpu,
+                              dev, torch.device("cpu"))
+        check(part is not None and part[1] > 0 and part[2] <= 2,
+              f"trainer: the card's model parts from the CPU's: {part}")
+        verdict = (f"models part at step {part[0]}: {part[1]} patch choices flip where the "
+                   f"noise is {part[2]:.2f} ulp apart at its logs")
+    print(f"[train] card == CPU from one key: {steps} batch-mode steps of {b} at full width "
+          f"(P=361, 2o=272, C=128): first step's uniforms and negative classes equal, Gumbel "
+          f"noise {g_apart} of {d_cpu.gumbel.numel()} values apart by at most {g_ulps:.2f} "
+          f"ulp at its logs; keys equal; {verdict} ({moved} TA states and "
+          f"{int((m_cpu.weights != m0.weights).sum())} weights moved; {launches} threefry "
+          f"launches on the card, {launches // steps} a step; CPU {cpu_s:.2f} s)")
 
 
-def profile_train_steps(trainer, model, ds, gen, steps: int, card: str) -> None:
+def profile_train_steps(trainer, model, ds, key, steps: int, card: str) -> None:
     """Where a training step's time goes on the card: ``torch.profiler`` over
-    ``steps`` batch-mode steps, split by the step's annotations (draws,
-    matmul, feedback, apply)."""
+    ``steps`` batch-mode steps, each drawing from the key chain as ``fit``
+    does, split by the step's annotations (draws, matmul, feedback,
+    apply), with the draws' share of the step and the threefry kernel's
+    device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
 
+    from repro_torch.core import prng
     from repro_torch.core.train import _step_literals, make_draws
 
     b, cfg = trainer.batch_size, trainer.config
     ix = torch.arange(b, device=ds.literals.device)
     lits, labels = ds.literals[ix], ds.labels[ix]
+    chain = [key]
 
     def step(m):
         with record_function("train.draws"):
-            d = make_draws(gen, b, cfg)
+            chain[0], k = prng.split(chain[0]).unbind(0)
+            d = make_draws(k, b, cfg)
         return _step_literals(d, m, lits, labels, cfg, "batch")
 
     model = step(model)
@@ -626,6 +759,7 @@ def profile_train_steps(trainer, model, ds, gen, steps: int, card: str) -> None:
     rows = prof.key_averages()
     kernels = device_rows(rows)
     busy = sum(self_dev_us(e) for e in kernels)
+    threefry_us = sum(self_dev_us(e) for e in kernels if "threefry" in e.key)
     parts = {}
     for e in rows:
         if e.key.startswith("train."):
@@ -635,40 +769,332 @@ def profile_train_steps(trainer, model, ds, gen, steps: int, card: str) -> None:
           f"{wall_us / steps:.1f} us/step, device busy {busy / steps:.1f} us/step "
           f"({100 * busy / wall_us:.1f}% of wall), idle {100 * (1 - busy / wall_us):.1f}% | "
           f"{card}")
-    for key in ("train.draws", "train.matmul", "train.feedback", "train.apply"):
-        cpu_us, gpu_us = parts.get(key, (0.0, 0.0))
+    for name in ("train.draws", "train.matmul", "train.feedback", "train.apply"):
+        cpu_us, gpu_us = parts.get(name, (0.0, 0.0))
         gpu = f"{gpu_us / steps:.1f} us" if gpu_us else "not measured"
-        print(f"[profile] train step {key[6:]}: host {cpu_us / steps:.1f} us/step, device "
+        print(f"[profile] train step {name[6:]}: host {cpu_us / steps:.1f} us/step, device "
               f"range {gpu}/step")
+    host_draws = parts.get("train.draws", (0.0, 0.0))[0]
+    print(f"[profile] train step draws' share: host {100 * host_draws / wall_us:.1f}% of the "
+          f"wall; threefry kernel {threefry_us / steps:.1f} us/step of device time "
+          f"({100 * threefry_us / max(busy, 1e-9):.1f}% of busy) | {card}")
     print_top_device("train step", kernels, steps, "step")
 
 
-def train_rate(trainer, model, ds, gen, epochs: int, card: str) -> None:
+def philox_draws(trainer, seed: int):
+    """The trainer's draws as the port made them before it drew from keys:
+    ``torch.rand``/``torch.randint`` of a card generator (Philox), one
+    TrainDraws per step, without end.  A yardstick for the key stream's
+    cost, not a source the package offers."""
+    import torch
+
+    from repro_torch.core.train import TrainDraws
+
+    cfg, b, dev = trainer.config, trainer.batch_size, trainer.device
+    p, c, n, m = cfg.patch.n_patches, cfg.n_clauses, cfg.n_literals, cfg.n_classes
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def rand(*shape):
+        return torch.rand(shape, generator=g, device=dev)
+
+    while True:
+        u = rand(b, p, c).clamp_(min=torch.finfo(torch.float32).tiny)
+        yield TrainDraws(gumbel=-torch.log(-torch.log(u)),
+                         neg=torch.randint(0, m - 1, (b,), generator=g, device=dev),
+                         u_t=rand(b, c), u_q=rand(b, c), u_ia1=rand(b, c, n),
+                         u_ia0=rand(b, c, n), u_ib=rand(b, c, n))
+
+
+def per_key_draws(trainer, key):
+    """The key chain's draws as ``make_draws`` made them before it drew the
+    keys of one shape together: each of a sample's seven keys in calls of
+    its own (11 launches a step, the chain's split included).  The same
+    numbers as the key chain; a yardstick, not a source the package offers."""
+    from repro_torch.core import prng
+    from repro_torch.core.train import TrainDraws
+
+    cfg, b = trainer.config, trainer.batch_size
+    p, c, n, m = cfg.patch.n_patches, cfg.n_clauses, cfg.n_literals, cfg.n_classes
+    key = key.to(trainer.device)
+    while True:
+        key, k = prng.split(key).unbind(0)
+        k_patch, k_neg, k_t, k_q, k_ia1, k_ia0, k_ib = prng.split(prng.split(k, b),
+                                                                  7).unbind(1)
+        yield TrainDraws(gumbel=prng.gumbel(k_patch, (p, c)),
+                         neg=prng.randint(k_neg, (), 0, m - 1),
+                         u_t=prng.uniform(k_t, (c,)), u_q=prng.uniform(k_q, (c,)),
+                         u_ia1=prng.uniform(k_ia1, (c, n)), u_ia0=prng.uniform(k_ia0, (c, n)),
+                         u_ib=prng.uniform(k_ib, (c, n)))
+
+
+def train_rate(trainer, model, ds, key, epochs: int, card: str) -> None:
     """The trainer's rate over a window longer than one epoch: ``epochs``
     further batch-mode epochs on a copy of ``model`` (no evaluation), each
-    timed by ``fit`` from its first launch to the card's last step; prints
-    the median, the least and the most samples/s and the steps covered."""
-    from repro_torch.core.cotm import CoTMModel
+    timed by ``fit`` from its first launch to the card's last step, in
+    turns of ``epochs // 2`` with the key chain (the threefry kernel, 8
+    launches a step), with the same draws a key at a time
+    (:func:`per_key_draws`, 11 launches) and with Philox draws
+    (:func:`philox_draws`, the port's draws before); first holds one step
+    of the per-key draws equal to the key chain's; prints the median, the
+    least and the most samples/s of each and the steps covered."""
+    import torch
 
-    copy = CoTMModel(ta_state=model.ta_state.clone(), weights=model.weights.clone())
-    *_, reports = trainer.fit(gen, copy, ds, epochs=epochs)
-    rates = sorted(r.samples_per_s for r in reports)
-    steps = sum(r.samples for r in reports) // trainer.batch_size
-    print(f"[train] rate: median {statistics.median(rates):.1f} samples/s over {epochs} "
-          f"epochs of {steps // epochs} steps ({steps} steps of batch "
-          f"{trainer.batch_size}, full width, batch mode; least {rates[0]:.1f}, most "
-          f"{rates[-1]:.1f}) | {card}")
+    from repro_torch.core import prng
+    from repro_torch.core.cotm import CoTMModel
+    from repro_torch.core.train import make_draws
+
+    one = next(per_key_draws(trainer, key))
+    want = make_draws(prng.split(key.to(trainer.device)).unbind(0)[1], trainer.batch_size,
+                      trainer.config)
+    check(all(torch.equal(getattr(one, f), getattr(want, f)) for f in
+              ("gumbel", "neg", "u_t", "u_q", "u_ia1", "u_ia0", "u_ib")),
+          "[train] the per-key draws differ from make_draws'")
+    turns = ("key", "per_key", "philox", "philox", "per_key", "key")
+    rates = {t: [] for t in turns}
+    steps = 0
+    for turn in turns:
+        copy = CoTMModel(ta_state=model.ta_state.clone(), weights=model.weights.clone())
+        source = {"key": lambda: key, "per_key": lambda: per_key_draws(trainer, key),
+                  "philox": lambda: philox_draws(trainer, SEED + 31)}[turn]()
+        *_, reports = trainer.fit(source, copy, ds, epochs=epochs // 2)
+        rates[turn] += [r.samples_per_s for r in reports]
+        steps = sum(r.samples for r in reports) // trainer.batch_size // len(reports)
+    for turn, label in (("key", "key chain (threefry kernel, 8 launches a step)"),
+                        ("per_key", "key chain a key at a time (11 launches a step, the "
+                                    "form before)"),
+                        ("philox", "Philox draws (torch.rand, the port's before)")):
+        r = sorted(rates[turn])
+        print(f"[train] rate, {label}: median {statistics.median(r):.1f} samples/s over "
+              f"{len(r)} epochs of {steps} steps (batch {trainer.batch_size}, full width, "
+              f"batch mode; least {r[0]:.1f}, most {r[-1]:.1f}; in turns "
+              f"{', '.join(turns)}) | {card}")
+
+
+#: Known answers of ``jax.random`` (JAX 0.9.0 on the CPU, threefry2x32,
+#: partitionable), written here so the card's draws are held against the
+#: reference without importing it.  Floats as ``float.hex``.
+PRNG_KNOWN = {
+    "split(PRNGKey(0))": [[1797259609, 2579123966], [928981903, 3453687069]],
+    "bits(PRNGKey(0), (6,))": [4070199207, 4202968722, 1427181096, 2012915765, 2447653815,
+                               710830403],
+    "uniform(PRNGKey(0), (4,))": ["0x1.e5349c0000000p-1", "0x1.f5086c0000000p-1",
+                                  "0x1.5444380000000p-2", "0x1.dfeaa00000000p-2"],
+    "bits(key 0x12345678 0x9ABCDEF0, (5,))": [1301508282, 621857182, 3376475320,
+                                              2348759505, 459113140],
+    "split(key 0x12345678 0x9ABCDEF0, 3)": [[3978822521, 2696639427],
+                                            [2085429205, 1499321931],
+                                            [1630462717, 2825784901]],
+    "randint(PRNGKey(42), (6,), 0, 9)": [0, 6, 0, 1, 2, 6],
+    "uniform(PRNGKey(42), (3,), -3.7, 2.1)": ["-0x1.bb20c80000000p-1",
+                                              "0x1.f14d8c0000000p-3",
+                                              "-0x1.0147d00000000p-3"],
+}
+#: Integer operations of one threefry2x32-20 hash (csrc/threefry.cu): two
+#: key adds, 20 rounds of add / rotate / xor, five injections of three adds,
+#: and the output's xor.
+THREEFRY_OPS = 78
+
+
+def _recorded_threefry(fn):
+    """``fn()`` with every ``ops.threefry`` call it makes recorded: returns
+    (its result, the calls as ``(keys, n, mode, keywords)``), so that the
+    main path's own launches can be replayed, timed and held against the
+    plain version at their real shapes and counters."""
+    from repro_torch.kernels import ops
+
+    calls, launch = [], ops.threefry
+
+    def record(keys, n, mode="bits", **kw):
+        calls.append((keys.clone(), n, mode, kw))
+        return launch(keys, n, mode, **kw)
+
+    ops.threefry = record
+    try:
+        return fn(), calls
+    finally:
+        ops.threefry = launch
+
+
+def _replay(calls, backend=None) -> list:
+    from repro_torch.kernels import ops
+
+    return [ops.threefry(k, n, m, backend=backend, **kw) for k, n, m, kw in calls]
+
+
+def _hold_calls(calls, what: str) -> float:
+    """Each recorded call's kernel output against the plain version's on the
+    card, one call at a time (``torch.equal``); the largest difference."""
+    import torch
+
+    err = 0.0
+    for call in calls:
+        (a,), (w,) = _replay([call]), _replay([call], "plain")
+        torch.cuda.synchronize()
+        check(a.dtype == w.dtype and torch.equal(a, w),
+              f"[prng] {what}: threefry differs from plain at K={call[0].shape[0]} "
+              f"N={call[1]} {call[2]} {call[3]}")
+        err = max(err, float((a.double() - w.double()).abs().max()))
+        del a, w
+    return err
+
+
+def _call_bytes(calls) -> int:
+    """Bytes a call must move: its keys read, its output written."""
+    return sum(k.numel() * 4 + k.shape[0] * n * (8 if m == "pairs" else 4)
+               for k, n, m, _ in calls)
+
+
+def prng_phase(dev, card: str, ops_per_s: float) -> dict:
+    """[prng]: the threefry kernel against ``jax.random``'s known answers and
+    against its plain version on the card (``torch.equal``: bits, float32
+    uniforms at four ranges, split pairs; K = 1, 3, 100 and 70,000 keys, the
+    last past grid.y's 65,535; N = 1, 7, 1,001 and a TM step's 46,208;
+    counters from 0 and across the 2**32 boundary); then the main path's
+    own launches, recorded and each held against the plain version the same
+    way: one batch-100 TM step's draws (8 launches, 15.09 M outputs), every
+    launch of h2o-danube-1.8b's ``init_params`` (N up to 81.9 M, stacked
+    layers' slices at their counters) and of ``sample_tokens`` over float32
+    and bf16 logits; and the times of the first two beside the plain
+    version, ``torch.rand`` of as many floats and the bound.  Returns the
+    kernel's row for the ``kernels`` line."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.convcotm import COTM_CONFIGS
+    from repro_torch.core import prng
+    from repro_torch.kernels import ops, registry
+    from repro_torch.launch.specs import model_decls
+    from repro_torch.core.train import make_draws
+    from repro_torch.models.base import init_params
+    from repro_torch.train.serve_step import sample_tokens
+
+    def floats(xs):
+        return [float.fromhex(x) for x in xs]
+
+    hi = prng.key_from_data([0x12345678, 0x9ABCDEF0], dev)
+    got = {
+        "split(PRNGKey(0))": prng.key_data(prng.split(prng.prng_key(0, dev))).tolist(),
+        "bits(PRNGKey(0), (6,))": prng.random_bits(prng.prng_key(0, dev), 6).cpu().numpy()
+        .view(np.uint32).tolist(),
+        "uniform(PRNGKey(0), (4,))": prng.uniform(prng.prng_key(0, dev), 4).tolist(),
+        "bits(key 0x12345678 0x9ABCDEF0, (5,))": prng.random_bits(hi, 5).cpu().numpy()
+        .view(np.uint32).tolist(),
+        "split(key 0x12345678 0x9ABCDEF0, 3)": prng.key_data(prng.split(hi, 3)).tolist(),
+        "randint(PRNGKey(42), (6,), 0, 9)": prng.randint(prng.prng_key(42, dev), 6, 0, 9)
+        .tolist(),
+        "uniform(PRNGKey(42), (3,), -3.7, 2.1)": prng.uniform(prng.prng_key(42, dev), 3,
+                                                              minval=-3.7, maxval=2.1).tolist(),
+    }
+    for name, want in PRNG_KNOWN.items():
+        want = floats(want) if isinstance(want[0], str) else want
+        check(got[name] == want, f"[prng] {name} on the card: {got[name]} != jax's {want}")
+    print(f"[prng] known answers of jax.random on the card: {', '.join(PRNG_KNOWN)}")
+
+    base = prng.split(prng.prng_key(SEED + 41, dev), 70000)
+    tiny = float(np.finfo(np.float32).tiny)
+    ranges = ((0.0, 1.0), (tiny, 1.0), (float(np.nextafter(np.float32(-1), np.float32(0))),
+                                        1.0), (-3.7, 2.1))
+    cases = 0
+    for k in (1, 3, 100, 70000):
+        keys = base[:k].contiguous()
+        for n in ((1, 7, 1001, 46208) if k <= 100 else (1, 7)):
+            for start in (0, 2**32 - 5):
+                for mode, lo_hi in (("bits", ranges[:1]), ("pairs", ranges[:1]),
+                                    ("uniform", ranges)):
+                    for lo, hi_ in lo_hi:
+                        a = ops.threefry(keys, n, mode, start=start, minval=lo, maxval=hi_)
+                        want = ops.threefry(keys, n, mode, start=start, minval=lo, maxval=hi_,
+                                            backend="plain")
+                        torch.cuda.synchronize()
+                        check(a.dtype == want.dtype and torch.equal(a, want),
+                              f"[prng] threefry differs from plain: K={k} N={n} "
+                              f"start={start} {mode} [{lo}, {hi_})")
+                        cases += 1
+    print(f"[kernel] threefry == plain: {cases} cases (bits, pairs, uniform over 4 ranges; "
+          f"K = 1, 3, 100, 70000; N = 1, 7, 1001, 46208; counters from 0 and 2**32 - 5)")
+
+    # One TM step's draws, launch for launch: the engine's chain split and
+    # make_draws, recorded and replayed.
+    cfg = COTM_CONFIGS["convcotm-mnist"]
+    b = 100
+    step_key = prng.prng_key(SEED + 43, dev)
+    _, calls = _recorded_threefry(
+        lambda: make_draws(prng.split(step_key).unbind(0)[1], b, cfg))
+    outputs = hashes = sum(k.shape[0] * n for k, n, _, _ in calls)
+    nbytes = _call_bytes(calls)
+    err = _hold_calls(calls, "a TM step's draws")
+    before = registry.launch_counts()["threefry"]
+    _replay(calls)
+    per_step = registry.launch_counts()["threefry"] - before
+    check(per_step == len(calls), f"[prng] a TM step replayed {per_step} launches of "
+          f"{len(calls)} calls")
+    ms, held = time_ms(lambda: _replay(calls), inner=10)
+    plain_ms, _ = time_ms(lambda: _replay(calls, "plain"), inner=2, repeats=5, warmup=1)
+    library_ms, _ = time_ms(lambda: torch.rand(outputs, device=dev), inner=10)
+    bound_ms, bound_by = bound(nbytes, hashes * THREEFRY_OPS, ops_per_s)
+    print(f"[time] threefry, one TM step's draws (batch 100, full width: {per_step} launches, "
+          f"{outputs:,} outputs): kernel {ms:.5f} ms, plain {plain_ms:.5f} ms, torch.rand of "
+          f"{outputs:,} floats {library_ms:.5f} ms, bound {bound_ms:.4g} ms ({bound_by}: "
+          f"{nbytes:,} B, {hashes * THREEFRY_OPS:,} ops){'' if held else '; host gaps'} | "
+          f"{card}")
+
+    # h2o-danube-1.8b's init_params on the card: its launches recorded (each
+    # leaf's normal draws its uniforms; a stacked layer its slice of the
+    # stack's counters), then each held against the plain version and timed.
+    h2o = get_config("h2o-danube-1.8b")
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    model, init_calls = _recorded_threefry(
+        lambda: init_params(model_decls(h2o), prng.prng_key(SEED, dev)))
+    torch.cuda.synchronize()
+    whole_s = time.perf_counter() - t
+    del model
+    torch.cuda.empty_cache()
+    init_err = _hold_calls(init_calls, "h2o-danube-1.8b's init_params")
+    widest = max(init_calls, key=lambda c: c[1])
+    furthest = max(init_calls, key=lambda c: c[3].get("start", 0))
+    init_ms, _ = time_ms(lambda: _replay(init_calls), inner=1, repeats=3, warmup=1)
+    init_out = sum(k.shape[0] * n for k, n, _, _ in init_calls)
+    init_bound, init_by = bound(_call_bytes(init_calls), init_out * THREEFRY_OPS, ops_per_s)
+    print(f"[kernel] threefry == plain over h2o-danube-1.8b's init_params: {len(init_calls)} "
+          f"launches, {init_out:,} outputs; the widest N = {widest[1]:,}, the furthest start "
+          f"{furthest[3].get('start', 0):,} (N = {furthest[1]:,})")
+    print(f"[time] threefry, h2o-danube-1.8b init_params' uniforms ({len(init_calls)} "
+          f"launches, {init_out:,} outputs): kernel {init_ms:.4f} ms, bound {init_bound:.4g} "
+          f"ms ({init_by}); the whole init_params on the card (erf_inv in torch operations, "
+          f"bf16 cast) {whole_s:.3f} s host clock | {card}")
+
+    # Sampling: categorical over a served batch's logits, float32 and bf16.
+    vocab = h2o.vocab_size
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    logits = torch.randn(4, vocab, device=dev, generator=gen)
+    sample_key = prng.prng_key(SEED + 47, dev)
+    for dtype in (torch.float32, torch.bfloat16):
+        _, sample_calls = _recorded_threefry(
+            lambda: sample_tokens(sample_key, logits.to(dtype), temperature=0.8))
+        err = max(err, _hold_calls(sample_calls, f"sampling over {dtype} logits"))
+        print(f"[kernel] threefry == plain in sample_tokens over [4, {vocab}] {dtype} logits: "
+              f"{[(c[2], c[0].shape[0], c[1], c[3]) for c in sample_calls]}")
+    k = registry.KERNELS["threefry"]
+    return {"name": "threefry", "route": "cuda", "source": k.source, "replaces": k.replaces,
+            "pool": None, "launches": None, "max_abs_err": max(err, init_err), "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms, "launches_per_tm_step": per_step,
+            "h2o_init_ms": init_ms, "h2o_init_bound_ms": init_bound,
+            "h2o_init_s_whole": whole_s}
 
 
 def trainer_on_card(engine, registry, dev, card: str) -> dict:
     """The trainer on the card and the train -> serve hand-off: fit 2
-    epochs on 4,000 glyphs (800 test) with the card's own generator, then
+    epochs on 4,000 glyphs (800 test) from ``prng_key(0)`` (its draws from
+    the threefry kernel, its launches counted over the fit), then
     freeze_servable -> register -> classify the test split on ``fused``
     (and ``fused_sparse``, and ``infer_packed(use_kernel=True)``); the
     predictions must equal evaluate's matmul path on every image.  Then the
     register image and a servable checkpoint round trip.  Returns the
-    launch counts of the serving drive and the trained model (with its
-    servable, test split and predictions)."""
+    launch counts of the serving drive and the fit, and the trained model
+    (with its servable, test split and predictions)."""
     import tempfile
 
     import numpy as np
@@ -679,6 +1105,7 @@ def trainer_on_card(engine, registry, dev, card: str) -> dict:
     from repro_torch.core.cotm import infer_packed
     from repro_torch.core.ingress import IngressSpec, apply_ingress
     from repro_torch.core.model_io import model_size_bytes, pack_model, unpack_model
+    from repro_torch.core.prng import prng_key
     from repro_torch.data import synthetic_glyphs
     from repro_torch.serve.servable import servable_digest
     from repro_torch.train.tm_engine import TrainerEngine
@@ -691,9 +1118,14 @@ def trainer_on_card(engine, registry, dev, card: str) -> dict:
     train_ds, eval_ds = trainer.prepare(tx, ty), trainer.prepare(vx, vy)
     torch.cuda.synchronize()
     prep_s = time.perf_counter() - t
-    gen = trainer.draws_generator(SEED)
-    model = trainer.init_model(torch.Generator().manual_seed(SEED))
-    gen, model, state, reports = trainer.fit(gen, model, train_ds, epochs=2, eval_ds=eval_ds)
+    key = prng_key(SEED, trainer.device)
+    model = trainer.init_model(key)
+    registry.reset_launches()
+    key, model, state, reports = trainer.fit(key, model, train_ds, epochs=2, eval_ds=eval_ds)
+    fit_launches = registry.launch_counts()
+    print(f"[engine] launches during fit (2 epochs of 40 steps, evaluation included): "
+          f"{fit_launches}")
+    check(fit_launches["threefry"] >= 80, "fit did not draw through the threefry kernel")
     for r in reports:
         print(f"[train] convcotm-mnist on glyphs (4,000 train / 800 test), batch 100, batch "
               f"mode: epoch {r.epoch}: {r.samples_per_s:.1f} samples/s ({r.samples} samples "
@@ -701,8 +1133,8 @@ def trainer_on_card(engine, registry, dev, card: str) -> dict:
     acc = trainer.evaluate(model, eval_ds)
     check(acc == reports[-1].accuracy, "evaluate is not deterministic")
     print(f"[train] prepare (ingress of 4,800 images to literals on the card) {prep_s:.3f} s")
-    train_rate(trainer, model, train_ds, gen, 15, card)
-    profile_train_steps(trainer, model, train_ds, gen, 20, card)
+    train_rate(trainer, model, train_ds, key, 16, card)
+    profile_train_steps(trainer, model, train_ds, key, 20, card)
 
     servable = trainer.freeze_servable(model, state)
     check(servable.version.epoch == 2 and servable.version.digest == servable_digest(servable),
@@ -763,7 +1195,65 @@ def trainer_on_card(engine, registry, dev, card: str) -> dict:
           f"{servable.version.digest}")
     trained = {"model": model, "servable": servable, "epoch": state.epoch, "vx": vx,
                "vy": vy, "want": want}
-    return launches, trained
+    return launches, fit_launches, trained
+
+
+def tm_resume_card_to_cpu(dev, card: str) -> None:
+    """A TM training checkpoint moves from the card to the CPU: one epoch of
+    ``run_tm_training`` on the card (400 glyphs, batch 100) written with its
+    key (the reference's ``uint32[2]``), resumed on the CPU to epoch 2,
+    against the uninterrupted two-epoch run on the card.  The saved keys
+    and cursors are equal; the models are equal, or epoch 2 replayed on
+    both devices parts only at near ties of the Gumbel noise."""
+    import contextlib
+    import io
+    import tempfile
+
+    import torch
+
+    from repro_torch.checkpoint.checkpointer import restore_pytree
+    from repro_torch.configs.convcotm import BOOLEANIZE_METHOD, COTM_CONFIGS
+    from repro_torch.core.cotm import init_model
+    from repro_torch.core.prng import key_from_data, prng_key
+    from repro_torch.data import epoch_permutation, get_dataset
+    from repro_torch.launch.train import run_tm_training
+    from repro_torch.train.tm_engine import TrainerEngine
+
+    arch, kw = "convcotm-mnist", dict(n_train=400, n_test=100, batch=100, seed=SEED + 3)
+    cfg = COTM_CONFIGS[arch]
+
+    def saved(d):
+        return restore_pytree(init_model(prng_key(0), cfg), d, device="cpu")
+
+    with tempfile.TemporaryDirectory() as d, contextlib.redirect_stdout(io.StringIO()):
+        run_tm_training(arch, epochs=1, device=dev, ckpt_dir=f"{d}/moved", **kw)
+        one, _, extra1 = saved(f"{d}/moved")
+        resumed = run_tm_training(arch, epochs=2, device="cpu", ckpt_dir=f"{d}/moved", **kw)
+        whole = run_tm_training(arch, epochs=2, device=dev, ckpt_dir=f"{d}/whole", **kw)
+        got, step, extra = saved(f"{d}/moved")
+        want, _, extra_w = saved(f"{d}/whole")
+    check(step == 2 and extra["key"] == extra_w["key"]
+          and extra["pipeline"] == extra_w["pipeline"],
+          f"resume card -> CPU: key or cursor {extra} != {extra_w}")
+    verdict = "models equal"
+    if not (torch.equal(got.ta_state, want.ta_state) and torch.equal(got.weights,
+                                                                      want.weights)):
+        tx, ty, _, _, _ = get_dataset("mnist", n_train=400, n_test=100)
+        ds = TrainerEngine(cfg, batch_size=100, device="cpu").prepare(
+            tx, ty, booleanize_method=BOOLEANIZE_METHOD[arch])
+        idx = torch.from_numpy(epoch_permutation(kw["seed"], 1, 400).reshape(4, 100)
+                               .astype("int64"))
+        k = key_from_data(extra1["key"])
+        part = _first_parting(cfg, ds.literals, ds.labels, idx, one, k.to(dev), k, dev,
+                              torch.device("cpu"))
+        check(part is not None and part[1] > 0 and part[2] <= 2,
+              f"resume card -> CPU: models part: {part}")
+        verdict = (f"models part in epoch 2 at step {part[0]}: {part[1]} patch choices flip "
+                   f"where the noise is {part[2]:.2f} ulp apart at its logs")
+    print(f"[train] checkpoint card -> CPU: epoch 1 on the card, resumed on the CPU to epoch "
+          f"2: saved key {extra['key']} and cursor equal to the uninterrupted card run's; "
+          f"{verdict}; accuracy {resumed['accuracy']:.4f} against {whole['accuracy']:.4f} "
+          f"| {card}")
 
 
 def engine_lifecycle(cfg, method, pools, trained, dev) -> None:
@@ -1024,6 +1514,7 @@ def lifecycle_round(cfg, method, trained, registry, card) -> dict:
 
     import torch
 
+    from repro_torch.core.prng import prng_key
     from repro_torch.data import synthetic_glyphs
     from repro_torch.launch.lifecycle import LifecycleConfig, LifecycleDriver
     from repro_torch.serve.engine import ServingEngine
@@ -1031,7 +1522,7 @@ def lifecycle_round(cfg, method, trained, registry, card) -> dict:
 
     tx, ty, _, _ = synthetic_glyphs(n_train=4000, n_test=0, seed=SEED + 13)
     trainer = TrainerEngine(cfg, batch_size=100)
-    model = trainer.init_model(torch.Generator().manual_seed(SEED))
+    model = trainer.init_model(prng_key(SEED))
     eng = ServingEngine(max_batch=256)
     eng.register("life", trainer.freeze_servable(model), booleanize_method=method,
                  path="fused")
@@ -1042,7 +1533,7 @@ def lifecycle_round(cfg, method, trained, registry, card) -> dict:
         registry.reset_launches()
         t = time.perf_counter()
         _, model, state, rep = driver.run_round(
-            trainer.draws_generator(SEED), model, trainer.prepare(tx, ty), trained["vx"],
+            prng_key(SEED, trainer.device), model, trainer.prepare(tx, ty), trained["vx"],
             trained["vy"], epochs=1)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t
@@ -1168,6 +1659,7 @@ def autotune_lifecycle(cfg, method, pools, eng, trained, card) -> None:
     import torch
 
     from repro_torch.checkpoint.checkpointer import restore_servable, save_servable
+    from repro_torch.core.prng import prng_key
     from repro_torch.data import synthetic_glyphs
     from repro_torch.launch.lifecycle import LifecycleConfig, LifecycleDriver
     from repro_torch.serve.autotune import TunedPlan
@@ -1211,7 +1703,7 @@ def autotune_lifecycle(cfg, method, pools, eng, trained, card) -> None:
 
     tx, ty, _, _ = synthetic_glyphs(n_train=1000, n_test=0, seed=SEED + 19)
     trainer = TrainerEngine(cfg, batch_size=100)
-    model = trainer.init_model(torch.Generator().manual_seed(SEED))
+    model = trainer.init_model(prng_key(SEED))
     life = ServingEngine(max_batch=256)
     life.register("life", trainer.freeze_servable(model), booleanize_method=method,
                   path="fused")
@@ -1219,7 +1711,7 @@ def autotune_lifecycle(cfg, method, pools, eng, trained, card) -> None:
         min_agreement=0.0, allow_accuracy_drop=1.0, shadow_requests=256,
         autotune_candidate=True), booleanize_method=method, eval_path="fused")
     t = time.perf_counter()
-    *_, rep = driver.run_round(trainer.draws_generator(SEED), model,
+    *_, rep = driver.run_round(prng_key(SEED, trainer.device), model,
                                trainer.prepare(tx, ty), trained["vx"], trained["vy"], epochs=1)
     dt = time.perf_counter() - t
     live = life.servable("life").tuned
@@ -1536,11 +2028,12 @@ def mesh_service_and_tuning(cfg, method, pools, registry, dev, card) -> dict:
 def mesh_training(dev, card) -> None:
     """[mesh] part 3: TrainerEngine data-parallel on data 2 and data 4
     (cuda:0 repeated), batch 100, one epoch of 4,000 glyphs from the same
-    draws (the card's generator, same seed) and the same initial model:
+    key and the same initial model:
     TA state and weights equal the unmeshed card run's."""
     import torch
 
     from repro_torch.configs.convcotm import COTM_CONFIGS
+    from repro_torch.core.prng import prng_key
     from repro_torch.data import PipelineState, synthetic_glyphs
     from repro_torch.launch.mesh import make_test_mesh
     from repro_torch.train.tm_engine import TrainerEngine
@@ -1552,10 +2045,10 @@ def mesh_training(dev, card) -> None:
         mesh = None if data == 1 else make_test_mesh(data, 1, device=dev)
         trainer = TrainerEngine(cfg, batch_size=100, mesh=mesh, device=dev)
         ds = trainer.prepare(tx, ty)
-        model = trainer.init_model(torch.Generator().manual_seed(SEED))
+        model = trainer.init_model(prng_key(SEED))
         torch.cuda.synchronize()
         t = time.perf_counter()
-        _, model, _, n = trainer.run_epoch(trainer.draws_generator(SEED + 22), model, ds,
+        _, model, _, n = trainer.run_epoch(prng_key(SEED + 22, trainer.device), model, ds,
                                            PipelineState(seed=SEED))
         torch.cuda.synchronize()
         out[data] = (model, n, time.perf_counter() - t)
@@ -1566,7 +2059,7 @@ def mesh_training(dev, card) -> None:
         check(torch.equal(m.ta_state, base.ta_state) and torch.equal(m.weights, base.weights),
               f"[mesh] data-{data} trainer differs from the unmeshed one")
     print(f"[mesh] trainer data 2 and data 4 (cuda:0 repeated), 1 epoch of 4,000 glyphs at "
-          f"batch 100 from the same draws: ta_state and weights == unmeshed; epoch seconds "
+          f"batch 100 from the same key: ta_state and weights == unmeshed; epoch seconds "
           f"{ {k: round(v[2], 4) for k, v in out.items()} } ({out[1][1]} samples each) | "
           f"{card}")
 
@@ -1661,11 +2154,12 @@ def _lm_card_and_cpu(cfg, dev, steps: int, seed: int, decls=None):
 
     import torch
 
+    from repro_torch.core.prng import prng_key
     from repro_torch.launch.specs import model_decls
     from repro_torch.models.base import init_params
 
     decls = model_decls(cfg) if decls is None else decls
-    cpu_model = init_params(decls, torch.Generator().manual_seed(seed))
+    cpu_model = init_params(decls, prng_key(seed))
     card_model = copy.deepcopy(cpu_model).to(dev)
     check(all(p.device == dev for p in card_model.parameters()), f"{cfg.name}: not on {dev}")
     data = _lm_data(cfg, seed)
@@ -1741,6 +2235,7 @@ def lm_full_width_stepwise(dev, card: str) -> None:
     import torch
 
     from repro_torch.configs import get_config
+    from repro_torch.core.prng import prng_key
     from repro_torch.launch.specs import model_decls
     from repro_torch.models import transformer as tfm
     from repro_torch.models.base import init_params, param_count
@@ -1749,7 +2244,7 @@ def lm_full_width_stepwise(dev, card: str) -> None:
 
     cfg = dataclasses.replace(get_config("h2o-danube-1.8b"), dtype=torch.float32)
     t = time.perf_counter()
-    model = init_params(model_decls(cfg), torch.Generator(device=dev).manual_seed(SEED))
+    model = init_params(model_decls(cfg), prng_key(SEED, dev))
     n_params = sum(p.numel() for p in model.parameters())
     check(n_params == param_count(model_decls(cfg)), "full-width parameter count")
     toks = torch.from_numpy(np.random.default_rng(SEED + 41).integers(
@@ -1787,6 +2282,8 @@ def lm_served(dev, card: str) -> dict:
 
     from repro_torch import generate
     from repro_torch.configs import get_config
+    from repro_torch.core.prng import prng_key
+    from repro_torch.kernels import registry
     from repro_torch.launch.specs import model_decls
     from repro_torch.models import transformer as tfm
     from repro_torch.models.base import init_params
@@ -1794,7 +2291,7 @@ def lm_served(dev, card: str) -> dict:
 
     cfg = get_config("h2o-danube-1.8b")
     torch.cuda.reset_peak_memory_stats()
-    model = init_params(model_decls(cfg), torch.Generator(device=dev).manual_seed(SEED))
+    model = init_params(model_decls(cfg), prng_key(SEED, dev))
     b, plen, gen = 4, 32, 16
     prompts = torch.from_numpy(np.random.default_rng(SEED + 42).integers(
         0, cfg.vocab_size, (b, plen)).astype(np.int32)).to(dev)
@@ -1807,11 +2304,23 @@ def lm_served(dev, card: str) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t
     check(torch.equal(first, second), "[lm] generate: two runs gave different tokens")
+    # Temperature sampling: categorical of the key chain, drawn by the
+    # threefry kernel on the card; a seed repeats its tokens.
+    before = registry.launch_counts()["threefry"]
+    hot = [generate(cfg, model, prompts, gen, temperature=1.0, seed=SEED + s) for s in (0, 0, 1)]
+    sampled_launches = registry.launch_counts()["threefry"] - before
+    check(torch.equal(hot[0], hot[1]) and not torch.equal(hot[0], hot[2])
+          and not torch.equal(hot[0], first) and sampled_launches >= 3 * 2 * gen,
+          f"[lm] sampled generate: seeds do not repeat or the kernel did not draw "
+          f"({sampled_launches} threefry launches)")
+    check(bool(((hot[0] >= 0) & (hot[0] < cfg.vocab_size)).all()), "[lm] sampled: vocab")
+    print(f"[lm] {cfg.name} bf16 generate at temperature 1.0: seed {SEED} twice the same "
+          f"tokens, seed {SEED + 1} others; {sampled_launches} threefry launches for 3 runs "
+          f"of {gen} tokens (split and categorical a token)")
 
     # Each decode step of a third run timed on both clocks: generate's loop
     # (the prompt teacher-forced, then greedy tokens) run here step by step.
     cache = tfm.init_decode_cache(b, cfg, plen + gen, dev)
-    sampler = torch.Generator(device=dev).manual_seed(0)
     done = torch.zeros((b,), dtype=torch.bool, device=dev)
     events, host, out = [torch.cuda.Event(enable_timing=True)], [], []
     torch.cuda.synchronize()
@@ -1820,7 +2329,7 @@ def lm_served(dev, card: str) -> dict:
     tok = prompts[:, :1]
     for i in range(plen + gen):
         if i >= plen:
-            tok, done = sample_tokens(sampler, logits, temperature=0.0, done=done)
+            tok, done = sample_tokens(None, logits, temperature=0.0, done=done)
             out.append(tok)
             tok = tok[:, None]
         logits, cache = decode(model, tok, cache, i, cfg)
@@ -2003,13 +2512,14 @@ def lm_train_card_against_cpu(dev, card: str) -> None:
     import torch
 
     from repro_torch.configs import TrainConfig
+    from repro_torch.core.prng import prng_key
     from repro_torch.models.base import init_params
 
     tcfg = TrainConfig(learning_rate=1e-3, warmup_steps=1, total_steps=6, microbatches=2,
                        remat="full")
     tol = (TRAIN_LOSS_RTOL, TRAIN_GNORM_RTOL, TRAIN_STEPS_RTOL)
     for arch, cfg, decls, fan_in in _train_cfgs(torch.float32):
-        model = init_params(decls, torch.Generator().manual_seed(SEED))
+        model = init_params(decls, prng_key(SEED))
         cpu, _ = _train_run(cfg, tcfg, model, "cpu", 3)
         on_card, state = _train_run(cfg, tcfg, model, dev, 3)
         check(all(p.device == dev for p in state["params"].parameters()),
@@ -2114,6 +2624,7 @@ def lm_train_full_width_fp32(dev, card: str) -> None:
     import torch
 
     from repro_torch.configs import get_config
+    from repro_torch.core.prng import prng_key
     from repro_torch.launch.specs import model_decls
     from repro_torch.models import transformer as tfm
     from repro_torch.models.base import init_params
@@ -2126,7 +2637,7 @@ def lm_train_full_width_fp32(dev, card: str) -> None:
                             ("weights of each layer's own fan-in", True)):
         t = time.perf_counter()
         model = init_params(model_decls(cfg, fan_in=fan_in),
-                            torch.Generator(device=dev).manual_seed(SEED))
+                            prng_key(SEED, dev))
         with torch.no_grad():
             hidden, _ = tfm.forward(model, toks, cfg)
             logits = lm_logits(model["embed"], hidden[:, :-1], cfg).float()
@@ -2173,13 +2684,14 @@ def _fd64_witness(g32: dict, loss32: float, toks, cfg, dev, card: str) -> None:
 
     import torch
 
+    from repro_torch.core.prng import prng_key
     from repro_torch.launch.specs import model_decls
     from repro_torch.models.base import init_params
 
     t = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
     cfg64 = dataclasses.replace(cfg, dtype=torch.float64)
-    model = init_params(model_decls(cfg64), torch.Generator(device=dev).manual_seed(SEED))
+    model = init_params(model_decls(cfg64), prng_key(SEED, dev))
     loss64, g64 = _grads(model, toks, cfg64)
     e_loss = abs(loss32 - loss64) / abs(loss64)
     print(f"[lm train] full width float64 witness (the reference's draws, widened): lm_loss "
@@ -2209,30 +2721,16 @@ def _fd64_witness(g32: dict, loss32: float, toks, cfg, dev, card: str) -> None:
     torch.cuda.empty_cache()
 
 
-def lm_train_run(dev, card: str) -> dict:
-    """[lm train] 3: h2o-danube-1.8b whole, bf16 weights with fp32 masters,
-    trained 8 steps at 4 x 2,048 (microbatches 2, remat full) on the
-    synthetic stream; each step's metrics and times, tokens/s, peak memory,
-    and a profile of one more step.  Returns the median step time."""
-    import numpy as np
+def _lm_train_steps(cfg, tcfg, model, batches, label: str, card: str):
+    """``TRAIN_RUN_STEPS`` train steps of ``model`` over ``batches``, each
+    step's metrics and times printed; returns (state, losses, host ms,
+    CUDA-event ms)."""
     import torch
 
-    from repro_torch.configs import TrainConfig, get_config
-    from repro_torch.launch.specs import model_decls
-    from repro_torch.launch.train import synthetic_lm_batch
-    from repro_torch.models.base import init_params
     from repro_torch.train.train_step import init_train_state, make_train_step
 
-    cfg = get_config("h2o-danube-1.8b")
-    tcfg = TrainConfig(learning_rate=3e-4, warmup_steps=1, total_steps=TRAIN_RUN_STEPS,
-                       microbatches=TRAIN_MICROBATCHES, remat="full")
-    torch.cuda.reset_peak_memory_stats()
-    model = init_params(model_decls(cfg), torch.Generator(device=dev).manual_seed(SEED))
     state = init_train_state(model, tcfg)
     step_fn = make_train_step(cfg, tcfg)
-    batches = [synthetic_lm_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, s, dev)
-               for s in range(TRAIN_RUN_STEPS + 1)]
-    tokens = TRAIN_BATCH * TRAIN_SEQ
     losses, host_ms, dev_ms = [], [], []
     for step in range(TRAIN_RUN_STEPS):
         start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -2246,9 +2744,54 @@ def lm_train_run(dev, card: str) -> dict:
         dev_ms.append(start.elapsed_time(stop))
         m = {k: float(v) for k, v in m.items()}
         losses.append(m["loss"])
-        print(f"[lm train] h2o-danube-1.8b bf16 step {step}: loss {m['loss']:.4f} grad_norm "
-              f"{m['grad_norm']:.4f} lr {m['lr']:.3e}; {host_ms[-1]:.1f} ms host clock, "
-              f"{dev_ms[-1]:.1f} ms CUDA events | {card}")
+        print(f"[lm train] h2o-danube-1.8b bf16 ({label}) step {step}: loss {m['loss']:.4f} "
+              f"grad_norm {m['grad_norm']:.4f} lr {m['lr']:.3e}; {host_ms[-1]:.1f} ms host "
+              f"clock, {dev_ms[-1]:.1f} ms CUDA events | {card}")
+    return state, step_fn, losses, host_ms, dev_ms
+
+
+def lm_train_run(dev, card: str) -> dict:
+    """[lm train] 3: h2o-danube-1.8b whole, bf16 weights with fp32 masters,
+    trained 8 steps at 4 x 2,048 (microbatches 2, remat full) on the
+    synthetic stream; each step's metrics and times, tokens/s, peak memory,
+    and a profile of one more step.  Returns the median step time.
+
+    The timed run draws the weights with each layer's own fan-in, where a
+    falling loss shows the step trains.  The same 8 steps on the
+    reference's own draws (the stacked layers' std ``1/sqrt(24)``,
+    ill-conditioned at full width, see the central differences above) run
+    beside it, printed: there 8 steps move the loss by a few hundredths
+    either way, so their loss is not held to fall."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.core.prng import prng_key
+    from repro_torch.launch.specs import model_decls
+    from repro_torch.launch.train import synthetic_lm_batch
+    from repro_torch.models.base import init_params
+
+    cfg = get_config("h2o-danube-1.8b")
+    tcfg = TrainConfig(learning_rate=3e-4, warmup_steps=1, total_steps=TRAIN_RUN_STEPS,
+                       microbatches=TRAIN_MICROBATCHES, remat="full")
+    batches = [synthetic_lm_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, s, dev)
+               for s in range(TRAIN_RUN_STEPS + 1)]
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+
+    model = init_params(model_decls(cfg), prng_key(SEED, dev))
+    state, _, ref_losses, _, _ = _lm_train_steps(cfg, tcfg, model, batches,
+                                                 "the reference's draws", card)
+    del state, model
+    torch.cuda.empty_cache()
+    print(f"[lm train] h2o-danube-1.8b bf16 on the reference's draws, {TRAIN_RUN_STEPS} "
+          f"steps: loss {ref_losses[0]:.4f} -> {ref_losses[-1]:.4f} (mean of the last three "
+          f"{float(np.mean(ref_losses[-3:])):.4f}; printed, not held) | {card}")
+    check(all(np.isfinite(ref_losses)), f"[lm train] non-finite loss: {ref_losses}")
+
+    torch.cuda.reset_peak_memory_stats()
+    model = init_params(model_decls(cfg, fan_in=True), prng_key(SEED, dev))
+    state, step_fn, losses, host_ms, dev_ms = _lm_train_steps(cfg, tcfg, model, batches,
+                                                              "fan-in weights", card)
     peak = torch.cuda.max_memory_allocated()
     steady = host_ms[1:]
     step_ms = statistics.median(steady)
@@ -2448,6 +2991,7 @@ def lm_mesh_reduced(dev, card: str) -> None:
     import torch
 
     from repro_torch.configs import TrainConfig, get_config, list_archs, reduced_config
+    from repro_torch.core.prng import prng_key
     from repro_torch.launch.mesh import make_test_mesh
     from repro_torch.launch.specs import model_decls
     from repro_torch.launch.train import synthetic_lm_batch
@@ -2472,7 +3016,7 @@ def lm_mesh_reduced(dev, card: str) -> None:
         with _sharding_profile(prof):
             cfg = dataclasses.replace(reduced_config(get_config(arch)), dtype=dtype, **changes)
             model = init_params(model_decls(cfg, fan_in=True),
-                                torch.Generator().manual_seed(SEED)).to(dev)
+                                prng_key(SEED)).to(dev)
             tcfg = TrainConfig(learning_rate=1e-3, warmup_steps=1, total_steps=6,
                                remat="full", grad_compression=comp)
             k_flat = 1 if cfg.is_moe else MESH_TRAIN[0]
@@ -2534,7 +3078,7 @@ def lm_mesh_reduced(dev, card: str) -> None:
     with _sharding_profile("serve_tp"):
         cfg = dataclasses.replace(reduced_config(get_config("recurrentgemma-2b")),
                                   dtype=torch.float32)
-        model = init_params(model_decls(cfg), torch.Generator().manual_seed(SEED)).to(dev)
+        model = init_params(model_decls(cfg), prng_key(SEED)).to(dev)
         smesh = make_test_mesh(*MESH_SERVE, device=dev)
         store = shard_params(model, cfg, smesh)
         c0 = tfm.init_decode_cache(4, cfg, 8, dev)
@@ -2565,6 +3109,7 @@ def _full_width_flat(cfg, dev, batches, fan_in: bool, nudge=None) -> list:
     import torch
 
     from repro_torch.configs import TrainConfig
+    from repro_torch.core.prng import prng_key
     from repro_torch.launch.specs import model_decls
     from repro_torch.models.base import init_params
     from repro_torch.train.train_step import init_train_state, make_train_step
@@ -2572,7 +3117,7 @@ def _full_width_flat(cfg, dev, batches, fan_in: bool, nudge=None) -> list:
     tcfg = TrainConfig(learning_rate=3e-4, warmup_steps=1, total_steps=TRAIN_RUN_STEPS,
                        microbatches=MESH_TRAIN[0], remat="full")
     model = init_params(model_decls(cfg, fan_in=fan_in),
-                        torch.Generator(device=dev).manual_seed(SEED))
+                        prng_key(SEED, dev))
     if nudge is not None:
         _nudged(model, nudge)
     out = _mesh_steps(init_train_state(model, tcfg), make_train_step(cfg, tcfg), batches)
@@ -2593,6 +3138,7 @@ def _full_width_steps(cfg, dev, card: str, profile: bool, fan_in: bool = False) 
     import torch
 
     from repro_torch.configs import ShapeConfig, TrainConfig
+    from repro_torch.core.prng import prng_key
     from repro_torch.launch import dryrun
     from repro_torch.launch.mesh import make_test_mesh
     from repro_torch.launch.specs import model_decls
@@ -2613,7 +3159,7 @@ def _full_width_steps(cfg, dev, card: str, profile: bool, fan_in: bool = False) 
         mesh = make_test_mesh(*MESH_TRAIN, device=dev)
         torch.cuda.reset_peak_memory_stats()
         model = init_params(model_decls(cfg, fan_in=fan_in),
-                            torch.Generator(device=dev).manual_seed(SEED))
+                            prng_key(SEED, dev))
         store = shard_params(model, cfg, mesh)
         del model
         state = init_train_state(store, tcfg)
@@ -2851,6 +3397,7 @@ def lm_mesh_generate(dev, card: str) -> None:
 
     from repro_torch import generate
     from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.core.prng import prng_key
     from repro_torch.launch import dryrun
     from repro_torch.launch.mesh import make_test_mesh
     from repro_torch.launch.specs import cache_shardings, cache_specs, model_decls
@@ -2863,7 +3410,7 @@ def lm_mesh_generate(dev, card: str) -> None:
         cfg = dataclasses.replace(get_config("h2o-danube-1.8b"), dtype=dtype)
         name = ("bf16" if dtype == torch.bfloat16 else "float32") + (" fan-in" if fan_in else "")
         model = init_params(model_decls(cfg, fan_in=fan_in),
-                            torch.Generator(device=dev).manual_seed(SEED))
+                            prng_key(SEED, dev))
         prompts = torch.from_numpy(np.random.default_rng(SEED + 42).integers(
             0, cfg.vocab_size, (b, plen)).astype(np.int32)).to(dev)
         with _sharding_profile("serve_tp"):
@@ -2950,6 +3497,7 @@ def main() -> int:
     from repro_torch.core.cotm import init_boundary_model
     from repro_torch.core.ingress import apply_ingress
     from repro_torch.core.patches import PatchSpec, pack_bits
+    from repro_torch.core.prng import prng_key
     from repro_torch.kernels import _build, ops, registry
     from repro_torch.serve.engine import ServingEngine
     from repro_torch.serve.paths import get_path
@@ -2988,7 +3536,7 @@ def main() -> int:
     arch = "convcotm-mnist"
     cfg = COTM_CONFIGS[arch]
     method = BOOLEANIZE_METHOD[arch]
-    model = init_boundary_model(torch.Generator().manual_seed(SEED), cfg)
+    model = init_boundary_model(prng_key(SEED), cfg)
     # A boundary model includes about half its literals, so no clause fires
     # on any image and every class sum is 0.  A pool with a few includes per
     # clause, as trained pools have, fires.  From it, a seeded ~40% of the
@@ -3156,8 +3704,13 @@ def main() -> int:
           f"{', '.join(str(g).replace(' ', '') for g in class_sum_geoms)} "
           f"(random and one-hot fired, uint8 and bool)")
 
-    # --- 3a. main path of slice 1: the engine on the fused path --------------
+    # --- 2b. the threefry kernel: known answers, == plain, times ------------
     phase_s["2 kernels == plain"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
+    threefry_row = prng_phase(dev, card, ops_per_s)
+    phase_s["2b prng"] = time.perf_counter() - t_phase
+
+    # --- 3a. main path of slice 1: the engine on the fused path --------------
     t_phase = time.perf_counter()
     engine = ServingEngine(max_batch=256)
     engine.register(arch, model, cfg, booleanize_method=method, path="fused")
@@ -3281,7 +3834,8 @@ def main() -> int:
     launches_adaptive = adaptive_serving(engine, cpu, {"few": few_model, "few40": few40_model},
                                   registry, dev)
     trainer_card_equals_cpu(dev)
-    launches_trained, trained = trainer_on_card(engine, registry, dev, card)
+    launches_trained, launches_fit, trained = trainer_on_card(engine, registry, dev, card)
+    tm_resume_card_to_cpu(dev, card)
 
     # --- 3d. the serving stack: lifecycle, service, chaos, lifecycle round --
     phase_s["3c adaptive, trainer, hand-off"] = time.perf_counter() - t_phase
@@ -3539,7 +4093,8 @@ def main() -> int:
     phase_s["4 times and profiles"] = time.perf_counter() - t_phase
 
     # --- 5. the LM substrate's serving path -----------------------------------
-    # It has no kernel of its own: the six kernels' counters stay at 0.
+    # It has no kernel of its own: the six TM kernels' counters stay at 0;
+    # threefry draws the weights drawn on the card and the sampled tokens.
     t_phase = time.perf_counter()
     registry.reset_launches()
     lm_card_against_cpu(dev, card)
@@ -3547,11 +4102,14 @@ def main() -> int:
     lm_roofline(lm_served(dev, card), card)
     lm_launches = registry.launch_counts()
     print(f"[engine] launches during the [lm] phase: {lm_launches}")
-    check(not any(lm_launches.values()), f"the LM path launched a TM kernel: {lm_launches}")
+    check(not any(v for k, v in lm_launches.items() if k != "threefry")
+          and lm_launches["threefry"] > 0,
+          f"the LM path launched a TM kernel, or drew nothing on the card: {lm_launches}")
     phase_s["5 lm"] = time.perf_counter() - t_phase
 
     # --- 6. the LM substrate's training path ----------------------------------
-    # Plain PyTorch as well: the six kernels' counters stay at 0.
+    # Plain PyTorch as well: the six TM kernels' counters stay at 0 (threefry
+    # draws the weights drawn on the card).
     t_phase = time.perf_counter()
     registry.reset_launches()
     lm_train_card_against_cpu(dev, card)
@@ -3560,12 +4118,15 @@ def main() -> int:
     lm_train_resume(dev, card)
     train_launches = registry.launch_counts()
     print(f"[engine] launches during the [lm train] phase: {train_launches}")
-    check(not any(train_launches.values()),
-          f"the LM training path launched a TM kernel: {train_launches}")
+    check(not any(v for k, v in train_launches.items() if k != "threefry")
+          and train_launches["threefry"] > 0,
+          f"the LM training path launched a TM kernel, or drew nothing on the card: "
+          f"{train_launches}")
     phase_s["6 lm train"] = time.perf_counter() - t_phase
 
     # --- 7. the LM substrate over a mesh --------------------------------------
-    # Meshes of the card repeated; plain PyTorch: the counters stay at 0.
+    # Meshes of the card repeated; plain PyTorch: the TM counters stay at 0
+    # (threefry draws the weights drawn on the card).
     t_phase = time.perf_counter()
     registry.reset_launches()
     lm_mesh_reduced(dev, card)
@@ -3574,12 +4135,22 @@ def main() -> int:
     lm_mesh_dryrun(card)
     mesh_lm_launches = registry.launch_counts()
     print(f"[engine] launches during the [lm mesh] phase: {mesh_lm_launches}")
-    check(not any(mesh_lm_launches.values()),
-          f"the meshed LM path launched a TM kernel: {mesh_lm_launches}")
+    check(not any(v for k, v in mesh_lm_launches.items() if k != "threefry")
+          and mesh_lm_launches["threefry"] > 0,
+          f"the meshed LM path launched a TM kernel, or drew nothing on the card: "
+          f"{mesh_lm_launches}")
     phase_s["7 lm mesh"] = time.perf_counter() - t_phase
     print(f"[env] phase seconds: {', '.join(f'{k} {v:.2f}' for k, v in phase_s.items())}")
     print(f"[env] {card} | build {build_s:.2f} s")
 
+    # The threefry row: its launches are the trainer's fit on the card (the
+    # main path of the draws); the LM phases' draws on the card beside.
+    threefry_row["launches"] = launches_fit["threefry"]
+    threefry_row["lm_launches"] = {"lm": lm_launches["threefry"],
+                                   "lm train": train_launches["threefry"],
+                                   "lm mesh": mesh_lm_launches["threefry"]}
+    threefry_row["launch_floor_ms"] = floor_ms
+    rows.append(threefry_row)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

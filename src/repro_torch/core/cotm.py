@@ -9,10 +9,8 @@
 path registry (``serve/paths.py``), freezing the model on every call;
 long-running callers freeze once and serve through ``serve/engine.py``.
 
-Random initialisation takes an explicit ``torch.Generator``.  Its numbers
-differ from ``jax.random``'s for the same seed; to hold the port against
-the reference, carry the reference's arrays across with
-:mod:`repro_torch.convert`.
+Random initialisation takes a ``jax.random`` key (``core/prng.py``): from
+one key both packages draw the same model.
 """
 
 from __future__ import annotations
@@ -22,6 +20,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.core import prng
 from repro_torch.core.patches import PatchSpec
 
 __all__ = [
@@ -121,30 +120,28 @@ class CoTMModel:
         return (self.ta_state >= TA_HALF).to(torch.uint8)
 
 
-def init_model(generator: torch.Generator, config: CoTMConfig) -> CoTMModel:
-    """All TAs at N-1 (weakly exclude); weights random +-1.  Tensors land
-    on the generator's device."""
-    dev = generator.device
+def init_model(key: torch.Tensor, config: CoTMConfig) -> CoTMModel:
+    """All TAs at N-1 (weakly exclude); weights +-1 from
+    ``bernoulli(key, 0.5)``, as the reference draws them.  Tensors land on
+    the key's device."""
     ta = torch.full(
-        (config.n_clauses, config.n_literals), TA_HALF - 1, dtype=torch.uint8, device=dev
+        (config.n_clauses, config.n_literals), TA_HALF - 1, dtype=torch.uint8,
+        device=key.device,
     )
-    signs = torch.randint(
-        0, 2, (config.n_classes, config.n_clauses), generator=generator, device=dev
-    )
-    weights = torch.where(signs > 0, 1, -1).to(torch.int32)
+    signs = prng.bernoulli(key, 0.5, (config.n_classes, config.n_clauses))
+    weights = torch.where(signs, 1, -1).to(torch.int32)
     return CoTMModel(ta_state=ta, weights=weights)
 
 
-def init_boundary_model(
-    generator: torch.Generator, config: CoTMConfig, spread: int = 10
-) -> CoTMModel:
+def init_boundary_model(key: torch.Tensor, config: CoTMConfig, spread: int = 10) -> CoTMModel:
     """Untrained model with TA states in ``[N - spread, N + spread)``, so
     include masks are nondegenerate without training (serving demos,
-    benchmarks, tests)."""
-    model = init_model(generator, config)
-    model.ta_state = torch.randint(
-        TA_HALF - spread, TA_HALF + spread, tuple(model.ta_state.shape),
-        generator=generator, device=generator.device,
+    benchmarks, tests): the reference's ``split`` of ``key`` into the
+    weights' key and the states' ``randint`` key."""
+    k_weights, k_ta = prng.split(key)
+    model = init_model(k_weights, config)
+    model.ta_state = prng.randint(
+        k_ta, tuple(model.ta_state.shape), TA_HALF - spread, TA_HALF + spread
     ).to(torch.uint8)
     return model
 

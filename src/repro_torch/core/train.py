@@ -19,11 +19,11 @@ outputs c_j ORed over patches:
     its budget.
 
 Training is random.  Every random number a step consumes is an explicit
-:class:`TrainDraws`, made by :func:`make_draws` from a ``torch.Generator``
-(on the card for the card's runs), or carried over from the reference's
-``jax.random`` keys (``repro_torch.convert.draws_from_arrays``) to hold
-the port bit for bit against the reference.  Every comparison is
-``uniform < p`` in float32, as ``jax.random.bernoulli`` draws it.
+:class:`TrainDraws`, made by :func:`make_draws` from the step's
+``jax.random`` key (``core/prng.py``, on the key's device) exactly as the
+reference's ``sample_deltas_literals`` draws them, so from one key both
+packages take the same step.  Every comparison is ``uniform < p`` in
+float32, as ``jax.random.bernoulli`` draws it.
 
 Two application modes: ``batch`` sums the per-sample deltas in int32 and
 applies them once; ``scan`` applies each sample in turn (exact TMU
@@ -45,6 +45,7 @@ import torch
 from torch.profiler import record_function
 
 from repro_torch.core import clauses as cl
+from repro_torch.core import prng
 from repro_torch.core.cotm import TA_HALF, WEIGHT_MAX, WEIGHT_MIN, CoTMConfig, CoTMModel
 from repro_torch.core.patches import extract_patch_features, make_literals
 from repro_torch.distributed.collectives import tree_psum_batch
@@ -93,27 +94,22 @@ class TrainDraws:
                              for f in dataclasses.fields(self)})
 
 
-def make_draws(generator: torch.Generator, batch: int, config: CoTMConfig) -> TrainDraws:
-    """One step's draws for ``batch`` samples from ``generator``, on its
-    device.  Uniforms in [0, 1); the Gumbel noise is ``-log(-log(u))``
-    with ``u`` kept at least float32's smallest normal."""
-    dev = generator.device
+def make_draws(key: torch.Tensor, batch: int, config: CoTMConfig) -> TrainDraws:
+    """One step's draws for ``batch`` samples from the step's key, on its
+    device: the reference's ``split(key, batch)``, then per sample
+    ``split(k, 7)`` into the patch, negative-class, target, negative,
+    Type Ia increment, Type Ia decrement and Type Ib keys, each drawn as
+    ``sample_deltas_literals`` draws it (Gumbel noise ``[P, C]``, the
+    negative class in ``[0, m - 1)``, uniforms ``[C]`` and ``[C, 2o]``)."""
     p, c, n, m = (config.patch.n_patches, config.n_clauses, config.n_literals,
                   config.n_classes)
-
-    def rand(*shape):
-        return torch.rand(shape, generator=generator, device=dev)
-
-    u = rand(batch, p, c).clamp_(min=torch.finfo(torch.float32).tiny)
-    return TrainDraws(
-        gumbel=-torch.log(-torch.log(u)),
-        neg=torch.randint(0, m - 1, (batch,), generator=generator, device=dev),
-        u_t=rand(batch, c),
-        u_q=rand(batch, c),
-        u_ia1=rand(batch, c, n),
-        u_ia0=rand(batch, c, n),
-        u_ib=rand(batch, c, n),
-    )
+    keys = prng.split(prng.split(key, batch), 7)
+    # Keys of one shape draw in one call: each key's numbers are its own.
+    u_t, u_q = prng.uniform(keys[:, 2:4], (c,)).unbind(1)
+    u_ia1, u_ia0, u_ib = prng.uniform(keys[:, 4:7], (c, n)).unbind(1)
+    return TrainDraws(gumbel=prng.gumbel(keys[:, 0], (p, c)),
+                      neg=prng.randint(keys[:, 1], (), 0, m - 1),
+                      u_t=u_t, u_q=u_q, u_ia1=u_ia1, u_ia0=u_ia0, u_ib=u_ib)
 
 
 def _train_patch_outputs(lits: torch.Tensor, include: torch.Tensor,

@@ -39,7 +39,7 @@ CSRC = _PKG / "csrc"
 BUILD = _PKG / "build"
 
 #: The kernel sources, by library name.
-SOURCES = ("ingress_pack", "fused_infer", "clause_eval", "class_sum")
+SOURCES = ("ingress_pack", "fused_infer", "clause_eval", "class_sum", "threefry")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -140,13 +140,19 @@ def entry(name: str, symbol: str, argtypes: Sequence) -> ctypes._CFuncPtr:
 @contextlib.contextmanager
 def libraries_from(directory: Path):
     """Inside the block, :func:`library` returns ``directory/lib<name>.so``
-    for every source (another build of the same C interface, such as the
-    parent commit's) in place of this tree's, and so every wrapper
-    launches that build's kernels; after it, this tree's again."""
+    for every source built there (another build of the same C interface,
+    such as the parent commit's) in place of this tree's, and so every
+    wrapper launches that build's kernels (a source it lacks, this
+    tree's); after it, this tree's again."""
     directory = Path(directory)
     libs = _foreign.get(directory)
     if libs is None:
-        libs = _foreign[directory] = {n: _open(directory / f"lib{n}.so") for n in SOURCES}
+        libs = {}
+        for n in SOURCES:
+            path = directory / f"lib{n}.so"
+            if path.exists():        # a source the other build lacks: this tree's
+                libs[n] = _open(path)
+        _foreign[directory] = libs
     with _lock:
         saved = dict(_loaded)
         _loaded.clear()

@@ -15,6 +15,9 @@ The active-pool entry points (``clause_eval_sparse``, ``fused_infer_sparse``,
 ``matmul_sparse_infer``) take the image of ``serve.servable.analyze_sparsity``;
 an empty active pool (``C_a == 0``) returns before any launch, since a grid
 of 0 blocks is an invalid launch.
+
+``threefry`` is the counter hash of ``core/prng.py``'s keys (no TPU kernel:
+it stands in for XLA's lowering of ``jax.random``'s generator).
 """
 
 from __future__ import annotations
@@ -39,6 +42,7 @@ from repro_torch.kernels.fused_infer import (
 )
 from repro_torch.kernels.ingress import ingress_pack_cuda, ingress_pack_plain
 from repro_torch.kernels.shapes import BLOCK_C, check_block_c
+from repro_torch.kernels.threefry import threefry_cuda, threefry_plain
 
 __all__ = [
     "class_sum",
@@ -49,6 +53,7 @@ __all__ = [
     "fused_infer_sparse",
     "ingress_pack",
     "matmul_sparse_infer",
+    "threefry",
 ]
 
 
@@ -187,3 +192,21 @@ def matmul_sparse_infer(
     every = torch.ones(include_active.shape[0], dtype=torch.bool, device=literals.device)
     fired = cl.eval_clauses_matmul(literals, include_active, every)
     return cl.class_sums(fired, weights_active)
+
+
+def threefry(
+    keys: torch.Tensor,
+    n: int,
+    mode: str = "bits",
+    *,
+    start: int = 0,
+    minval: float = 0.0,
+    maxval: float = 1.0,
+    backend: Optional[str] = None,
+) -> torch.Tensor:
+    """Threefry2x32-20 of int32 keys ``[K, 2]`` at counters ``start ..
+    start + n - 1``: ``"bits"`` int32 ``[K, n]``, ``"uniform"`` float32
+    ``[K, n]`` in ``[minval, maxval)``, or ``"pairs"`` int32 ``[K, n, 2]``."""
+    if _use_kernel(keys, backend):
+        return threefry_cuda(keys, n, mode, start=start, minval=minval, maxval=maxval)
+    return threefry_plain(keys, n, mode, start=start, minval=minval, maxval=maxval)

@@ -28,6 +28,7 @@ from repro_torch.kernels.fused_infer import (
     fused_infer_sparse_plain,
 )
 from repro_torch.kernels.ingress import ingress_pack_cuda, ingress_pack_plain
+from repro_torch.kernels.threefry import threefry_cuda, threefry_plain
 
 __all__ = ["KERNELS", "Kernel", "launch_counts", "reset_launches"]
 
@@ -92,6 +93,14 @@ KERNELS: Dict[str, Kernel] = {
             jax_oracle="class_sum_ref",
             source="src/repro_torch/csrc/class_sum.cu",
             replaces="src/repro/kernels/class_sum.py:49 class_sum_pallas",
+        ),
+        Kernel(
+            name="threefry",
+            cuda=threefry_cuda,
+            plain=threefry_plain,
+            jax_oracle="jax.random.bits",
+            source="src/repro_torch/csrc/threefry.cu",
+            replaces="(none: XLA's lowering of jax.random's threefry2x32)",
         ),
     )
 }

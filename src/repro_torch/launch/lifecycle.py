@@ -6,8 +6,8 @@ swap lifecycle:
 
   1. **train**    — ``TrainerEngine.fit`` advances the candidate a round
      of epochs from the checkpointable cursor; the draws come from a
-     ``torch.Generator`` (or any draw source the trainer takes), which
-     each round takes and returns as the reference's key;
+     ``jax.random`` key (or any draw source the trainer takes), which
+     each round takes and returns advanced, as the reference's does;
   2. **freeze**   — ``TrainerEngine.freeze_servable`` stamps the frozen
      image with a :class:`~repro_torch.serve.servable.ServableVersion`
      (epoch/step from the cursor, content digest);
@@ -36,7 +36,6 @@ import dataclasses
 from typing import List, Optional, Tuple
 
 import numpy as np
-import torch
 
 from repro_torch.core.cotm import CoTMModel
 from repro_torch.data.pipeline import PipelineState
@@ -281,6 +280,7 @@ def main(argv=None) -> None:
 
     from repro_torch.configs.convcotm import BOOLEANIZE_METHOD, COTM_CONFIGS
     from repro_torch.core.cotm import init_boundary_model
+    from repro_torch.core.prng import prng_key
     from repro_torch.data import get_dataset
 
     cfg = COTM_CONFIGS[args.arch]
@@ -297,9 +297,8 @@ def main(argv=None) -> None:
     trainer = TrainerEngine(cfg, batch_size=args.batch_size, device=args.device)
     train_ds = trainer.prepare(tx, ty, booleanize_method=method)
     engine = ServingEngine(max_batch=args.max_batch, device=trainer.device)
-    boundary = init_boundary_model(torch.Generator().manual_seed(args.seed), cfg)
-    model = CoTMModel(ta_state=boundary.ta_state.to(trainer.device),
-                      weights=boundary.weights.to(trainer.device))
+    key = prng_key(args.seed, trainer.device)
+    model = init_boundary_model(key, cfg)
     engine.register(args.arch, trainer.freeze_servable(model), booleanize_method=method)
     engine.warmup(args.arch, forms=("raw",))
     print(f"{args.arch}: live v{engine.version_id(args.arch)} ({source} data, "
@@ -316,11 +315,10 @@ def main(argv=None) -> None:
         ckpt_dir=args.ckpt_dir,
         booleanize_method=method,
     )
-    gen = trainer.draws_generator(args.seed)
     state = PipelineState()
     for r in range(args.rounds):
-        gen, model, state, rep = driver.run_round(
-            gen, model, train_ds, np.asarray(vx), np.asarray(vy),
+        key, model, state, rep = driver.run_round(
+            key, model, train_ds, np.asarray(vx), np.asarray(vy),
             epochs=args.epochs, state=state,
         )
         acc = (f" | acc live {rep.live_accuracy:.4f} -> cand {rep.candidate_accuracy:.4f}"

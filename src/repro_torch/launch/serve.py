@@ -59,6 +59,7 @@ from repro_torch import resolve_device
 from repro_torch.configs import get_config, list_archs, reduced_config
 from repro_torch.configs.convcotm import BOOLEANIZE_METHOD, COTM_CONFIGS
 from repro_torch.core.cotm import init_boundary_model
+from repro_torch.core.prng import prng_key, split
 from repro_torch.data import get_dataset
 from repro_torch.launch.specs import model_decls
 from repro_torch.models import encdec as ed
@@ -90,7 +91,9 @@ def generate(
 
     The prompt runs through the decode path token by token (teacher
     forcing), so the cache fills as continuous serving fills it; then each
-    sampled token is decoded in turn.  ``frontend_embeds`` feed the
+    sampled token is decoded in turn; with a ``temperature`` each token is
+    drawn from the reference's key chain, ``key, k = split(key)`` from
+    ``prng_key(seed)``.  ``frontend_embeds`` feed the
     encoder of an encoder-decoder arch.  With a ``mesh`` the parameters
     and the caches are laid out on it once (the caches as the reference's
     ``cache_shardings`` lay them out) and every step runs over its data
@@ -107,7 +110,7 @@ def generate(
         cache = ed.init_self_cache(b, cfg, max_seq, dev, mesh=mesh)
     else:
         cache = tfm.init_decode_cache(b, cfg, max_seq, dev, mesh=mesh)
-    generator = torch.Generator(device=dev).manual_seed(seed)
+    key = prng_key(seed, dev)
 
     def step(tokens, cache, i):
         logits, cache = decode(params, tokens, cache, i, cfg, cross_cache=cross, mesh=mesh)
@@ -120,7 +123,8 @@ def generate(
     out = []
     done = torch.zeros((b,), dtype=torch.bool, device=dev)
     for i in range(plen, plen + gen_len):
-        tok, done = sample_tokens(generator, logits, temperature=temperature, done=done)
+        key, k = split(key).unbind(0)
+        tok, done = sample_tokens(k, logits, temperature=temperature, done=done)
         out.append(tok)
         logits, cache = step(tok[:, None], cache, i)
     return torch.stack(out, dim=1)
@@ -137,7 +141,7 @@ def serve_lm(arch: str, *, reduced: bool = False, batch: int = 4, prompt_len: in
         cfg = reduced_config(cfg)
     if dtype is not None:
         cfg = dataclasses.replace(cfg, dtype=getattr(torch, dtype))
-    params = init_params(model_decls(cfg), torch.Generator(device=dev).manual_seed(seed))
+    params = init_params(model_decls(cfg), prng_key(seed, dev))
     rng = np.random.default_rng(seed)
     prompts = torch.from_numpy(
         rng.integers(0, cfg.vocab_size, (batch, prompt_len)).astype(np.int32)).to(dev)
@@ -203,7 +207,7 @@ def _tm_engine(arch: str, *, max_batch: int, eval_path: str | None, ckpt_dir: st
         engine.load_checkpoint(arch, ckpt_dir, cfg, booleanize_method=method, path=eval_path)
         print(f"{arch}: restored model from {ckpt_dir}")
     else:
-        model = init_boundary_model(torch.Generator().manual_seed(seed), cfg)
+        model = init_boundary_model(prng_key(seed), cfg)
         engine.register(arch, model, cfg, booleanize_method=method, path=eval_path)
         print(f"{arch}: serving a boundary-initialised model ({source} data)")
     return engine, vx, vy, source

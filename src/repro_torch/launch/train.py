@@ -7,8 +7,9 @@
     PYTHONPATH=src python -m repro_torch.launch.train --arch convcotm-mnist \
         --epochs 2 [--batch 100] [--mode batch] [--ckpt-dir DIR] [--device cpu]
 
-LM archs: the model drawn from a CPU generator seeded with the run's seed
-(so the card and the CPU start from the same weights), the train step
+LM archs: the model drawn from ``prng_key(seed)`` as the reference draws
+it (so the card, the CPU and the reference start from the same weights),
+the train step
 (``train.train_step``) on the run's device over the learnable synthetic
 token stream, a checkpoint of the whole train state in the reference's
 layout every ``checkpoint_every`` steps and at the end, and a straggler
@@ -21,13 +22,13 @@ reference's, trains on one device.
 ConvCoTM archs: the dataset is the arch's (MNIST, FMNIST or KMNIST in IDX
 form under ``$REPRO_DATA_DIR``), or the synthetic glyphs when those files
 are absent.  Training runs through ``train.tm_engine.TrainerEngine``: the
-dataset's literals frozen once on the device, one draw generator on the
-same device seeded from ``--seed``, a checkpoint (model, cursor,
-generator state) after every epoch.  A restarted run resumes from the
-newest checkpoint and finishes the requested epochs with the draws an
-uninterrupted run would have used; a checkpoint written with another
-batch size, mode or seed, or on another device type (whose generator
-draws other numbers), is refused.
+dataset's literals frozen once on the device, the model and the draws
+from ``prng_key(--seed)`` as the reference's launcher takes them, a
+checkpoint (model, cursor, the key as the reference's ``uint32[2]``)
+after every epoch.  A restarted run resumes from the newest checkpoint,
+written by either package on any device, and finishes the requested
+epochs with the draws an uninterrupted run would have used; a checkpoint
+written with another batch size, mode or seed is refused.
 
 Both run on the CUDA card unless ``--device`` names another device; with
 no card and no ``--device`` they raise.
@@ -49,6 +50,7 @@ from repro_torch.checkpoint.checkpointer import Checkpointer, latest_step, resto
 from repro_torch.configs import ARCHS, TrainConfig, get_config, reduced_config
 from repro_torch.configs.convcotm import BOOLEANIZE_METHOD, COTM_CONFIGS
 from repro_torch.convert import lm_state_from_arrays, lm_state_to_arrays
+from repro_torch.core.prng import key_data, key_from_data, prng_key
 from repro_torch.data import PipelineState, get_dataset
 from repro_torch.distributed.fault_tolerance import StragglerPolicy
 from repro_torch.launch.specs import abstract_model, model_decls
@@ -168,7 +170,7 @@ def run_training(
               f"host peak {_host_peak_gib():.2f} GiB")
     else:
         saved = None
-        params = init_params(model_decls(cfg), torch.Generator().manual_seed(tcfg.seed), device)
+        params = init_params(model_decls(cfg), prng_key(tcfg.seed, device), device)
         state = init_train_state(params, tcfg)
     if mesh is not None:
         state = shard_train_state(state, cfg, mesh)
@@ -204,27 +206,6 @@ def run_training(
     return out
 
 
-def _generator_state(extra: Dict, gen: torch.Generator, device: torch.device,
-                     ckpt_dir: str) -> torch.Tensor:
-    """The saved draw-generator state, if ``gen`` can take it.  A CUDA and
-    a CPU generator keep different states and draw different numbers, so a
-    checkpoint written on another device type is refused.  A checkpoint
-    that names no device is taken only when its state has the length of
-    ``gen``'s."""
-    state = torch.tensor(extra["generator"], dtype=torch.uint8)
-    saved = extra.get("generator_device")
-    if saved is None and state.numel() == gen.get_state().numel():
-        return state
-    if saved != device.type:
-        raise ValueError(
-            f"checkpoint at {ckpt_dir} holds the draw generator of a "
-            f"{saved or 'different'} device; resuming on {device.type} would break "
-            f"the draw sequence: resume on {saved or 'the device it was trained on'} "
-            f"or use a fresh directory"
-        )
-    return state
-
-
 def run_tm_training(
     arch: str,
     *,
@@ -250,8 +231,8 @@ def run_tm_training(
     train_ds = engine.prepare(tx, ty, booleanize_method=method)
     eval_ds = engine.prepare(vx, vy, booleanize_method=method)
 
-    gen = engine.draws_generator(seed)
-    model = engine.init_model(torch.Generator().manual_seed(seed))
+    key = prng_key(seed, engine.device)
+    model = engine.init_model(key)
     state = PipelineState(seed=seed)
     trainer_meta = {"batch_size": batch, "mode": mode, "seed": seed}
     if ckpt_dir and latest_step(ckpt_dir) is not None:
@@ -266,22 +247,21 @@ def run_tm_training(
                 f"matching flags or a fresh directory"
             )
         state = PipelineState.from_dict(extra["pipeline"])
-        gen.set_state(_generator_state(extra, gen, engine.device, ckpt_dir))
+        key = key_from_data(extra["key"], engine.device)
         print(f"{arch}: resumed from epoch {state.epoch} (step {step})")
 
     ckpt = Checkpointer(ckpt_dir) if ckpt_dir else None
     reports = []
     while state.epoch < epochs:
-        gen, model, state, reps = engine.fit(
-            gen, model, train_ds, epochs=1, eval_ds=eval_ds, state=state,
+        key, model, state, reps = engine.fit(
+            key, model, train_ds, epochs=1, eval_ds=eval_ds, state=state,
             log=lambda s: print(f"{arch}: {s}"),
         )
         reports.extend(reps)
         if ckpt:
             ckpt.save(model, state.epoch, extra={
                 "pipeline": state.as_dict(),
-                "generator": gen.get_state().tolist(),
-                "generator_device": gen.device.type,
+                "key": key_data(key).tolist(),
                 "trainer": trainer_meta,
             })
     if ckpt:

@@ -7,7 +7,8 @@ turn a declaration tree into
 
   * a :class:`ParamTree`, an ``nn.Module`` whose children and
     ``nn.Parameter``s carry the declarations' names, shapes and dtypes,
-    drawn by :func:`init_params` or left on the meta device by
+    drawn by :func:`init_params` from a ``jax.random`` key as the
+    reference draws them, or left on the meta device by
     :func:`abstract_params` (the counterpart of ``ShapeDtypeStruct``);
   * the spec of each parameter on a mesh (:func:`pspec_tree`);
   * counts of parameters and bytes (:func:`param_count`,
@@ -23,9 +24,11 @@ import dataclasses
 import math
 from typing import Any, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 
+from repro_torch.core import prng
 from repro_torch.sharding.partition import axes_of
 from repro_torch.sharding.partition import spec as logical_spec
 
@@ -49,6 +52,11 @@ class ParamDecl:
     dtype: Any = torch.bfloat16
     init: str = "normal"                  # normal | zeros | ones | embed
     scale: Optional[float] = None         # stddev override
+    #: Where the reference draws a layer's parameter: its leaf's key path
+    #: in the reference's tree and the layer's index along that leaf's
+    #: stacked leading axis (None: not stacked).  Unset, the parameter is
+    #: drawn at its own path.
+    drawn_at: Optional[Tuple[Tuple[str, ...], Optional[int]]] = None
 
     def __post_init__(self):
         if len(self.shape) != len(self.axes):
@@ -102,7 +110,7 @@ def _param_at(tree: nn.Module, path) -> nn.Parameter:
 
 
 @torch.no_grad()
-def _init_one(t: torch.Tensor, decl: ParamDecl, generator: torch.Generator) -> None:
+def _init_one(t: torch.Tensor, decl: ParamDecl, key: torch.Tensor, start: int) -> None:
     if decl.init == "zeros":
         t.zero_()
         return
@@ -114,25 +122,41 @@ def _init_one(t: torch.Tensor, decl: ParamDecl, generator: torch.Generator) -> N
         std = decl.scale if decl.scale is not None else 1.0
     else:
         std = decl.scale if decl.scale is not None else 1.0 / math.sqrt(max(fan_in, 1))
-    draw = torch.randn(decl.shape, generator=generator, dtype=torch.float32,
-                       device=generator.device)
-    t.copy_((draw * std).to(decl.dtype))
+    draw = prng.normal(key, decl.shape, start=start)
+    t.copy_(draw.mul_(float(np.float32(std))).to(decl.dtype))
 
 
-def init_params(decls: Dict, generator: torch.Generator, device=None) -> ParamTree:
-    """A :class:`ParamTree` on ``device`` (the generator's by default; the
-    draws are made on the generator's device and copied) with
-    the reference's distributions: normal with std ``1/sqrt(fan_in)``
-    (``fan_in`` the first dim), ``embed`` 1.0, ``scale`` where given,
-    zeros, ones.  A layer the reference draws inside a stacked ``[n, ...]``
-    array carries that array's std as its decls' ``scale``
-    (``transformer._cycle_decls``).  Leaves draw in sorted path order from
-    ``generator``; the draws are torch's, not ``jax.random``'s."""
-    device = generator.device if device is None else torch.device(device)
+def init_params(decls: Dict, key: torch.Tensor, device=None) -> ParamTree:
+    """A :class:`ParamTree` on ``device`` (the key's by default; the draws
+    are made on the key's device and copied) drawn as the reference's
+    ``init_params`` draws its tree from ``key``: ``split(key, n_leaves)``
+    over the reference's leaves in sorted path order, then
+    ``normal(k, shape) * std`` cast to the leaf's dtype, std
+    ``1/sqrt(fan_in)`` (``fan_in`` the first dim), ``embed`` 1.0, ``scale``
+    where given; zeros and ones take their key too.  A layer the reference
+    stacks (``ParamDecl.drawn_at``) draws its slice of the stacked leaf's
+    normal: the elements from ``index * size`` of its flat order, with the
+    stack's std (``transformer._cycle_decls``)."""
+    device = key.device if device is None else torch.device(device)
     tree = ParamTree(decls, device)
+    groups: Dict[Tuple[str, ...], list] = {}
     for path, d in _leaves(decls):
-        _init_one(_param_at(tree, path), d, generator)
+        at, index = d.drawn_at or (tuple(map(str, path)), None)
+        groups.setdefault(at, []).append((index or 0, path, d))
+    keys = prng.split(key, max(len(groups), 1))
+    for k, at in zip(keys, sorted(groups)):
+        for index, path, d in groups[at]:
+            _init_one(_param_at(tree, path), d, k, index * math.prod(d.shape))
     return tree
+
+
+def drawn_as_stack(tree, at: Tuple[str, ...], index: Optional[int]):
+    """``tree`` (a layer's declarations) marked as drawn at the reference's
+    path ``at`` (each parameter under its own sub-path) and ``index`` along
+    the stacked leading axis (None: a layer the reference keeps alone)."""
+    if isinstance(tree, ParamDecl):
+        return dataclasses.replace(tree, drawn_at=(at, index))
+    return {k: drawn_as_stack(v, at + (k,), index) for k, v in tree.items()}
 
 
 def abstract_params(decls: Dict) -> ParamTree:

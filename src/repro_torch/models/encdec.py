@@ -35,6 +35,7 @@ from repro_torch.models.layers import (
     rmsnorm_decls,
     token_xent,
 )
+from repro_torch.models.base import drawn_as_stack
 from repro_torch.models.transformer import _cycle_decls, meshed_decode, remat_call
 from repro_torch.sharding.blocks import join_rows, lay_out_cache, shard_views, split_rows
 
@@ -74,14 +75,16 @@ def encdec_decls(cfg: ModelConfig, fan_in: bool = False) -> Dict:
     with ``fan_in`` as declared, with its own fan-in."""
     n_enc = cfg.n_encoder_layers or cfg.n_layers
 
-    def stacked(d, n):
+    def stacked(d, group, i, n):
+        d = drawn_as_stack(d, (group,), i)
         return d if fan_in else _cycle_decls(d, n)
 
     return {
         "embed": embed_decls(cfg),
-        "enc": [stacked(_enc_layer_decls(cfg), n_enc) for _ in range(n_enc)],
+        "enc": [stacked(_enc_layer_decls(cfg), "enc", i, n_enc) for i in range(n_enc)],
         "enc_norm": rmsnorm_decls(cfg.d_model),
-        "dec": [stacked(_dec_layer_decls(cfg), cfg.n_layers) for _ in range(cfg.n_layers)],
+        "dec": [stacked(_dec_layer_decls(cfg), "dec", i, cfg.n_layers)
+                for i in range(cfg.n_layers)],
         "dec_norm": rmsnorm_decls(cfg.d_model),
     }
 

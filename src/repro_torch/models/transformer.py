@@ -40,7 +40,7 @@ from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.models.base import ParamDecl
+from repro_torch.models.base import ParamDecl, drawn_as_stack
 from repro_torch.models.layers import (
     embed_decls,
     embed_lookup,
@@ -124,13 +124,19 @@ def layer_split(cfg: ModelConfig) -> Tuple[Tuple[str, ...], int, Tuple[str, ...]
 
 def model_decls(cfg: ModelConfig, fan_in: bool = False) -> Dict:
     """Layers of the full cycles draw as the reference's stacked cycles
-    draw (:func:`_cycle_decls` over ``n_full``); the tail's as declared.
-    With ``fan_in`` every layer draws as declared, with its own fan-in."""
+    draw (:func:`_cycle_decls` over ``n_full``, from the stack's key); the
+    tail's as declared.  With ``fan_in`` every layer draws as declared,
+    with its own fan-in, from the same keys."""
     pattern, n_full, _ = layer_split(cfg)
-    n_cyc = 0 if fan_in else n_full * len(pattern)
+    lp = len(pattern)
+    n_cyc = 0 if fan_in else n_full * lp
     layers = []
     for i in range(cfg.n_layers):
         d = _block_decls(cfg.pattern_for_layer(i), cfg)
+        if i < n_full * lp:
+            d = drawn_as_stack(d, ("layers", "cyc", str(i % lp)), i // lp)
+        else:
+            d = drawn_as_stack(d, ("layers", "tail", str(i - n_full * lp)), None)
         layers.append(_cycle_decls(d, n_full) if i < n_cyc else d)
     return {
         "embed": embed_decls(cfg),

@@ -10,8 +10,10 @@ the ConvCoTM classify step closed over a frozen servable.
 
 ``prefill``, ``decode`` and ``make_serve_fns`` take a ``mesh``, as the
 reference's do.  Greedy decoding matches the reference token for token
-(both argmaxes take the first maximum).  Temperature sampling draws Gumbel noise from a
-``torch.Generator``, so its tokens are not ``jax.random.categorical``'s.
+(both argmaxes take the first maximum).  Temperature sampling is
+``jax.random.categorical`` of a key (``core/prng.py``), so from one key it
+emits the reference's tokens wherever its Gumbel noise's last-place
+rounding does not decide the argmax.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ from typing import Dict, List, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import prng
 from repro_torch.models import encdec as ed
 from repro_torch.models import transformer as tfm
 from repro_torch.models.layers import lm_logits, softcap
@@ -69,7 +72,7 @@ def decode(
 
 @torch.no_grad()
 def sample_tokens(
-    generator: Optional[torch.Generator],
+    key: Optional[torch.Tensor],
     logits: torch.Tensor,
     *,
     temperature: float = 0.0,
@@ -80,14 +83,11 @@ def sample_tokens(
     """Greedy/temperature sampling with latched EOS masking.
 
     Returns (tokens [B] int32, done [B]); once done latches, the sequence
-    emits ``pad_id``.  Temperature sampling takes the argmax of
-    ``logits / temperature`` plus Gumbel noise drawn from ``generator``
-    (on the logits' device)."""
+    emits ``pad_id``.  Temperature sampling is
+    ``categorical(key, logits / temperature)`` in the logits' dtype, drawn
+    on the key's device (the logits' device); greedy needs no key."""
     if temperature > 0.0:
-        u = torch.rand(logits.shape, generator=generator, dtype=torch.float32,
-                       device=logits.device)
-        gumbel = -torch.log(-torch.log(u.clamp_min(torch.finfo(torch.float32).tiny)))
-        nxt = torch.argmax(logits / temperature + gumbel, dim=-1)
+        nxt = prng.categorical(key.to(logits.device), logits / temperature, axis=-1)
     else:
         nxt = torch.argmax(logits, dim=-1)
     nxt = nxt.to(torch.int32)

@@ -14,11 +14,12 @@ the model through epochs:
   * the shuffle is ``data.pipeline.epoch_permutation`` and the cursor a
     checkpointable ``PipelineState``, so a run resumes where ``batches()``
     would;
-  * the random numbers come from a *source*: a ``torch.Generator`` (one
-    :func:`~repro_torch.core.train.make_draws` per step, on the
-    generator's device), or any iterator of
-    :class:`~repro_torch.core.train.TrainDraws`, one per step (the tests
-    feed the reference's draws through it);
+  * the random numbers come from a *source*: a ``jax.random`` key
+    (``core/prng.py``), advanced by the reference's ``key, k = split(key)``
+    chain, one :func:`~repro_torch.core.train.make_draws` of ``k`` a step
+    on the engine's device, so from one key both packages train the same
+    model; or any iterator of :class:`~repro_torch.core.train.TrainDraws`,
+    one per step (draws built elsewhere, as tests build them);
   * with a mesh (:class:`~repro_torch.launch.mesh.DeviceMesh`), batch
     mode is data-parallel: each step's literals, labels and draws are
     split over the devices along ``data_axis``, each shard computes its
@@ -39,6 +40,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.core import clauses as cl
+from repro_torch.core import prng
 from repro_torch.core.cotm import CoTMConfig, CoTMModel, init_model
 from repro_torch.core.ingress import IngressSpec, device_ingress
 from repro_torch.core.train import TrainDraws, _step_literals, make_draws
@@ -47,8 +49,8 @@ from repro_torch.launch.mesh import DeviceMesh
 
 __all__ = ["EpochReport", "TMDataset", "TrainerEngine"]
 
-#: Where a step's draws come from: a generator, or one TrainDraws per step.
-DrawSource = Union[torch.Generator, Iterator[TrainDraws]]
+#: Where a step's draws come from: a key, or one TrainDraws per step.
+DrawSource = Union[torch.Tensor, Iterator[TrainDraws]]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -166,22 +168,19 @@ class TrainerEngine:
         y = torch.from_numpy(np.asarray(labels).astype(np.int32)).to(self.device)
         return TMDataset(literals=lits.to(torch.uint8), labels=y)
 
-    def init_model(self, generator: torch.Generator) -> CoTMModel:
+    def init_model(self, key: torch.Tensor) -> CoTMModel:
         """The reference's initial model (TAs at N-1, weights random +-1)
-        from ``generator``, on the engine's device."""
-        m = init_model(generator, self.config)
-        return CoTMModel(ta_state=m.ta_state.to(self.device), weights=m.weights.to(self.device))
-
-    def draws_generator(self, seed: int) -> torch.Generator:
-        """A generator on the engine's device, seeded."""
-        return torch.Generator(device=self.device).manual_seed(seed)
+        from ``key``, on the engine's device."""
+        return init_model(key.to(self.device), self.config)
 
     # --- epochs -----------------------------------------------------------
 
-    def _draws(self, source: DrawSource) -> TrainDraws:
-        if isinstance(source, torch.Generator):
-            return make_draws(source, self.batch_size, self.config)
-        return next(source).to(self.device)
+    def _draws(self, source: DrawSource) -> Tuple[DrawSource, TrainDraws]:
+        """(the advanced source, one step's draws)."""
+        if isinstance(source, torch.Tensor):
+            source, k = prng.split(source.to(self.device)).unbind(0)
+            return source, make_draws(k, self.batch_size, self.config)
+        return source, next(source).to(self.device)
 
     def run_epoch(
         self,
@@ -195,7 +194,8 @@ class TrainerEngine:
         A mid-epoch cursor skips the steps already trained; a cursor past
         the epoch's last step trains the next epoch, as ``batches()`` does.
         Returns ``(source, model, rolled-over cursor, samples trained)``;
-        the source has advanced by one draw per step.
+        the source has advanced by one step's draws per step (a key is
+        returned advanced, as the reference's ``run_epoch`` returns it).
         """
         state = state or PipelineState()
         b = self.batch_size
@@ -214,7 +214,7 @@ class TrainerEngine:
         ).to(self.device)
         for s in range(steps):
             with torch.profiler.record_function("train.draws"):
-                draws = self._draws(source)
+                source, draws = self._draws(source)
             ix = idx[s]
             model = _step_literals(draws, model, ds.literals[ix], ds.labels[ix],
                                    self.config, self.mode, self.mesh, self.data_axis)

@@ -9,6 +9,7 @@ card by ``chip_smoke.py``.
 
 import ctypes
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -502,15 +503,23 @@ def test_missing_nvcc_raises(monkeypatch, tmp_path):
 
 
 def test_registry_names_every_kernel():
+    """The six TPU kernels' counterparts, each naming its ``kernels/ref.py``
+    oracle and the Pallas kernel it replaces, and the port-only threefry
+    kernel, whose oracle is ``jax.random``'s and which replaces no Pallas
+    kernel (XLA lowers the reference's generator)."""
     names = {"ingress_pack", "fused_infer", "fused_infer_sparse", "clause_eval",
-             "clause_eval_sparse", "class_sum"}
+             "clause_eval_sparse", "class_sum", "threefry"}
     assert set(registry.KERNELS) == names
     repo = _build.CSRC.parents[2]
     for k in registry.KERNELS.values():
-        assert hasattr(ref, k.jax_oracle)
         assert k.cuda.launches >= 0 and callable(k.plain)
         assert (repo / k.source).exists() and k.source.endswith(".cu")
         assert (repo / k.source).stem in _build.SOURCES
+        if k.name == "threefry":
+            assert k.jax_oracle == "jax.random.bits" and callable(jax.random.bits)
+            assert k.replaces.startswith("(none")
+            continue
+        assert hasattr(ref, k.jax_oracle)
         path, line = k.replaces.split()[0].split(":")
         assert k.replaces.split()[1] in (repo / path).read_text().splitlines()[int(line) - 1]
     registry.reset_launches()
@@ -565,6 +574,7 @@ def test_libraries_from_swaps_the_wrappers_entry_points(monkeypatch, tmp_path, m
                         {n: _FakeLib(f"tree/lib{n}.so") for n in _build.SOURCES})
     monkeypatch.setattr(_build, "_entries", {})
     monkeypatch.setattr(_build, "_foreign", {})
+    _other_build(tmp_path / "parent", _build.SOURCES)
     symbol = args[0] if args else library
     before = module._entry(*args)
     assert (before.path, before.symbol) == (f"tree/lib{library}.so", symbol)
@@ -576,3 +586,46 @@ def test_libraries_from_swaps_the_wrappers_entry_points(monkeypatch, tmp_path, m
             assert inside.symbol == symbol and inside.argtypes == before.argtypes
         assert module._entry(*args) is before
     assert len(_build._foreign) == 1
+
+
+def _other_build(directory, names):
+    """Stand-in files for another build's libraries of ``names``."""
+    directory.mkdir(parents=True, exist_ok=True)
+    for n in names:
+        (directory / f"lib{n}.so").write_bytes(b"")
+
+
+def test_libraries_from_keeps_this_trees_library_where_the_other_build_has_none(
+        monkeypatch, tmp_path):
+    """A source the other build lacks (an earlier commit without the
+    threefry kernel) keeps this tree's library inside the block."""
+    _other_build(tmp_path / "parent", [n for n in _build.SOURCES if n != "threefry"])
+    monkeypatch.setattr(_build, "_open", _FakeLib)
+    monkeypatch.setattr(_build, "_loaded",
+                        {n: _FakeLib(f"tree/lib{n}.so") for n in _build.SOURCES})
+    monkeypatch.setattr(_build, "_entries", {})
+    monkeypatch.setattr(_build, "_foreign", {})
+    with _build.libraries_from(tmp_path / "parent") as libs:
+        assert "threefry" not in libs and "class_sum" in libs
+        assert _build.library("class_sum").path == str(tmp_path / "parent" / "libclass_sum.so")
+        monkeypatch.setattr(_build, "build_all",
+                            lambda names: {n: f"tree/lib{n}.so" for n in names})
+        assert _build.library("threefry").path == "tree/libthreefry.so"
+
+
+def test_libraries_from_raises_where_the_other_builds_library_fails_to_load(
+        monkeypatch, tmp_path):
+    """A library the other build has but that does not load (a bad build, a
+    missing symbol) raises: its kernels' times are never this tree's."""
+    def fake_open(path):
+        if "class_sum" in str(path):
+            raise OSError(f"{path}: undefined symbol")
+        return _FakeLib(path)
+
+    _other_build(tmp_path / "parent", _build.SOURCES)
+    monkeypatch.setattr(_build, "_open", fake_open)
+    monkeypatch.setattr(_build, "_foreign", {})
+    with pytest.raises(OSError, match="undefined symbol"):
+        with _build.libraries_from(tmp_path / "parent"):
+            pass
+    assert _build._foreign == {}

@@ -32,6 +32,9 @@ from repro_torch.models import moe as tmoe
 from repro_torch.models import rglru as trg
 from repro_torch.models import ssm as tssm
 from repro_torch.models.base import ParamTree
+from test_torch_prng import one_thread_module  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread_module")
 
 TOL = 1e-5
 REC_TOL = 1e-4

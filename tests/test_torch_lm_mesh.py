@@ -38,6 +38,7 @@ import pytest
 import torch
 
 from repro_torch.configs import TrainConfig, get_config, list_archs, reduced_config
+from repro_torch.core.prng import prng_key
 from repro_torch.launch import train as tlaunch
 from repro_torch.launch.mesh import DeviceMesh, make_test_mesh
 from repro_torch.launch.serve import generate
@@ -56,6 +57,9 @@ from repro_torch.train.train_step import (
     make_train_step,
     shard_train_state,
 )
+from test_torch_prng import one_thread_module  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread_module")
 
 ARCHS = list_archs()
 LOSS_RTOL = 1e-6
@@ -129,7 +133,7 @@ class Witness:
 
 def _model(cfg, seed=0):
     """Weights of each layer's own fan-in (well conditioned in float32)."""
-    return init_params(model_decls(cfg, fan_in=True), torch.Generator().manual_seed(seed))
+    return init_params(model_decls(cfg, fan_in=True), prng_key(seed))
 
 
 def _tcfg(**changes):
@@ -306,7 +310,7 @@ def _hold_bf16_batch_of_one(cfg, mesh):
     """bfloat16, batch 1: the unmeshed loss and gradient in the parameters'
     dtype, bit for bit (under a split profile: or within the witness)."""
     bf = dataclasses.replace(cfg, dtype=torch.bfloat16)
-    model = init_params(model_decls(bf, fan_in=True), torch.Generator().manual_seed(0))
+    model = init_params(model_decls(bf, fan_in=True), prng_key(0))
     b = synthetic_lm_batch(bf, 1, 16, 0, "cpu")
 
     def errs(got, want):
@@ -400,7 +404,7 @@ def test_meshed_prefill_and_decode_in_float64_hold_the_tolerances(arch, profile)
 def _hold_served(cfg, profile, strict=False):
     profile("serve_tp")
     mesh = make_test_mesh(2, 4, device="cpu")
-    model = init_params(model_decls(cfg), torch.Generator().manual_seed(1))
+    model = init_params(model_decls(cfg), prng_key(1))
     store = shard_params(model, cfg, mesh)
     rng = np.random.default_rng(2)
     batch = {}
@@ -472,7 +476,7 @@ def _decode_errs(got, want):
 def _hold_recurrentgemma_decode(cfg, profile, strict=False):
     profile("serve_tp")
     mesh = make_test_mesh(2, 4, device="cpu")
-    model = init_params(model_decls(cfg), torch.Generator().manual_seed(4))
+    model = init_params(model_decls(cfg), prng_key(4))
     store = shard_params(model, cfg, mesh)
     assert {s.spec for s in param_shardings(cfg, mesh).values()} >= {(None, "model")}
     with torch.no_grad():

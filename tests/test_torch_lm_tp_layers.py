@@ -25,6 +25,7 @@ from repro.models import layers as jlayers
 from repro.models import moe as jmoe
 from repro.models import rglru as jrglru
 from repro.models import ssm as jssm
+from repro_torch.core.prng import prng_key
 from repro_torch.launch.mesh import make_test_mesh
 from repro_torch.launch.specs import model_decls
 from repro_torch.models import attention as tattn
@@ -35,6 +36,9 @@ from repro_torch.models import ssm as tssm
 from repro_torch.models.base import init_params
 from repro_torch.sharding import partition as tpart
 from repro_torch.sharding.blocks import ModelBlocks, lay_out_cache, model_group, shard_params
+from test_torch_prng import one_thread_module  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread_module")
 
 TOL = 1e-5
 
@@ -52,7 +56,7 @@ def _split(arch, m, **changes):
     """(reference config, port config, port model, the model's store on a
     (1, m) mesh) for ``arch`` reduced, fp32, fan-in weights."""
     jc, tc = configs(arch, **changes)
-    model = init_params(model_decls(tc, fan_in=True), torch.Generator().manual_seed(0))
+    model = init_params(model_decls(tc, fan_in=True), prng_key(0))
     return jc, tc, model, shard_params(model, tc, make_test_mesh(1, m, device="cpu"))
 
 

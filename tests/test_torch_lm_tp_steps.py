@@ -25,6 +25,7 @@ from test_torch_lm_mesh import XLSTM_SHALLOW, _cfg, _hold_grads, _hold_steps, _m
 from test_torch_lm_train import j_value_and_grad
 from repro_torch.configs import ShapeConfig, list_archs
 from repro_torch.convert import lm_state_to_arrays
+from repro_torch.core.prng import prng_key
 from repro_torch.launch import dryrun
 from repro_torch.launch.mesh import make_test_mesh
 from repro_torch.launch.specs import cache_shardings, cache_specs, model_decls
@@ -34,6 +35,9 @@ from repro_torch.sharding import partition as tpart
 from repro_torch.sharding.blocks import shard_params
 from repro_torch.train.serve_step import decode
 from repro_torch.train.train_step import loss_and_grads
+from test_torch_prng import one_thread_module  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread_module")
 
 
 @pytest.fixture
@@ -53,7 +57,7 @@ def _grads_both(arch, shape):
     batch of 4 x 16 under ``tp`` on a ``shape`` mesh, at the unmeshed
     microbatch count that adds the same per-shard sums."""
     cfg = _cfg(arch, **_split_arch(arch))
-    model = init_params(model_decls(cfg, fan_in=True), torch.Generator().manual_seed(0))
+    model = init_params(model_decls(cfg, fan_in=True), prng_key(0))
     mesh = make_test_mesh(*shape, device="cpu")
     store = shard_params(model, cfg, mesh)
     data = to_torch(np_batch(cfg, b=4, s=16, seed=3), cfg)
@@ -114,7 +118,7 @@ def test_tp_gathers_across_model_only_what_does_not_split(arch, shape, profile):
     (one kv head) and the sLSTM's ``w_in`` (its ``[z, i, f, o]`` columns)."""
     profile("tp")
     cfg = _cfg(arch, **_split_arch(arch))
-    model = init_params(model_decls(cfg, fan_in=True), torch.Generator().manual_seed(0))
+    model = init_params(model_decls(cfg, fan_in=True), prng_key(0))
     mesh = make_test_mesh(*shape, device="cpu")
     store = shard_params(model, cfg, mesh)
     data = to_torch(np_batch(cfg, b=4, s=16, seed=3), cfg)
@@ -154,7 +158,7 @@ def test_serve_tp_decode_with_a_cache_laid_out_by_cache_shardings(profile):
     profile("serve_tp")
     cfg = _cfg("recurrentgemma-2b")
     mesh = make_test_mesh(2, 4, device="cpu")
-    model = init_params(model_decls(cfg), torch.Generator().manual_seed(4))
+    model = init_params(model_decls(cfg), prng_key(4))
     store = shard_params(model, cfg, mesh)
     cache = tfm.init_decode_cache(4, cfg, 8, mesh=mesh)
     shape = ShapeConfig("decode", 8, 4, "decode")

@@ -53,10 +53,14 @@ from repro.train.train_step import make_train_step as j_make_train_step
 from repro_torch.checkpoint.checkpointer import Checkpointer, restore_pytree, save_pytree
 from repro_torch.configs import TrainConfig
 from repro_torch.convert import lm_state_from_arrays, lm_state_to_arrays
+from repro_torch.core.prng import prng_key
 from repro_torch.launch import train as tlaunch
 from repro_torch.launch.specs import model_decls
 from repro_torch.models.base import init_params
 from repro_torch.train.train_step import init_train_state, make_loss_fn, make_train_step
+from test_torch_prng import one_thread_module  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread_module")
 
 LOSS_RTOL = 1e-5
 GRAD_TOL = 1e-4            # max |dg| <= GRAD_TOL * max |g_ref|, per leaf
@@ -120,7 +124,7 @@ def _fan_in_pair(arch, dtype="float32"):
     """(configs, reference params, port model) on port draws with each
     layer's own fan-in (std ``1/sqrt(d_in)``), carried to the reference."""
     jc, tc = _configs(arch, dtype)
-    model = init_params(model_decls(tc, fan_in=True), torch.Generator().manual_seed(0))
+    model = init_params(model_decls(tc, fan_in=True), prng_key(0))
     return jc, tc, jax.tree.map(jnp.asarray, ref_params(model, tc)), model
 
 
@@ -322,7 +326,7 @@ def test_compression_quantizes_the_references_stacked_leaves(arch, dtype):
 
     _, tc = _configs(arch, dtype)
     rng = np.random.default_rng(11)
-    model = init_params(model_decls(tc), torch.Generator().manual_seed(0))
+    model = init_params(model_decls(tc), prng_key(0))
     grads, residual = {}, {}
     for name, p in model.named_parameters():
         scale = 10.0 ** rng.integers(-3, 2, p.shape[:1] + (1,) * (p.dim() - 1))
@@ -457,7 +461,7 @@ def test_state_export_is_a_fresh_host_copy():
     export), and a state on the meta device exports meta tensors."""
     cfg = _reduced_danube()
     tcfg = TrainConfig(grad_compression=True)
-    state = init_train_state(init_params(model_decls(cfg), torch.Generator().manual_seed(0)),
+    state = init_train_state(init_params(model_decls(cfg), prng_key(0)),
                              tcfg)
     tree = lm_state_to_arrays(state, cfg)
     before = [(n, t.clone()) for n, t in _flat(tree)]

@@ -27,6 +27,7 @@ from repro.serve import make_serve_mesh as j_make_serve_mesh
 from repro_torch.convert import model_from_arrays
 from repro_torch.core.cotm import CoTMConfig, init_boundary_model
 from repro_torch.core.patches import PatchSpec
+from repro_torch.core.prng import prng_key
 from repro_torch.launch import serve as launch_serve
 from repro_torch.launch.mesh import DeviceMesh, make_serve_device_mesh, make_test_mesh
 from repro_torch.serve import autotune as tat
@@ -150,7 +151,7 @@ def test_serve_mesh_geometry_errors(models):
     with pytest.raises(TypeError, match="DeviceMesh"):
         ServeMesh(object())
     cfg = dataclasses.replace(TCFG, n_clauses=7)
-    odd = init_boundary_model(torch.Generator().manual_seed(0), cfg)
+    odd = init_boundary_model(prng_key(0), cfg)
     with pytest.raises(ValueError, match="does not divide"):
         ServingEngine(8, mesh=ServeMesh(make_test_mesh(1, 2), True)).register("m", odd, cfg)
     ServingEngine(1, mesh=make_test_mesh(1, 1))            # 1 divides everything

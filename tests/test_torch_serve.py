@@ -32,6 +32,7 @@ from repro_torch.core import clauses as tcl
 from repro_torch.core.cotm import CoTMConfig, init_boundary_model, init_model
 from repro_torch.core.ingress import IngressSpec, apply_ingress, raw_trailing_shape
 from repro_torch.core.patches import PatchSpec
+from repro_torch.core.prng import prng_key
 from repro_torch.launch.serve import serve_tm
 from repro_torch.serve import paths as tpaths
 from repro_torch.serve.engine import ServingEngine
@@ -80,7 +81,7 @@ def test_freeze_matches_reference():
 
 def test_freeze_clamps_weights_to_int8():
     cfg = CoTMConfig(n_clauses=4, n_classes=2, patch=PatchSpec(**EDGE))
-    tm = init_model(torch.Generator().manual_seed(0), cfg)
+    tm = init_model(prng_key(0), cfg)
     tm.weights = torch.tensor([[300, -300, 5, -127], [127, 128, -128, 0]], dtype=torch.int32)
     assert freeze(tm, cfg).weights.tolist() == [[127, -127, 5, -127], [127, 127, -127, 0]]
 
@@ -289,8 +290,8 @@ def test_engine_without_cuda_raises(monkeypatch):
 
 def test_port_init_is_seeded_and_in_range():
     cfg = COTM_CONFIGS["convcotm-mnist"]
-    a = init_boundary_model(torch.Generator().manual_seed(3), cfg)
-    b = init_boundary_model(torch.Generator().manual_seed(3), cfg)
+    a = init_boundary_model(prng_key(3), cfg)
+    b = init_boundary_model(prng_key(3), cfg)
     assert torch.equal(a.ta_state, b.ta_state) and torch.equal(a.weights, b.weights)
     assert a.ta_state.shape == (128, 272) and a.ta_state.dtype == torch.uint8
     assert int(a.ta_state.min()) >= 118 and int(a.ta_state.max()) < 138

@@ -17,7 +17,6 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
 
 from repro.core.cotm import CoTMConfig as JCoTMConfig
 from repro.core.cotm import CoTMModel as JCoTMModel
@@ -33,6 +32,7 @@ from repro_torch.configs.convcotm import COTM_CONFIGS
 from repro_torch.convert import model_from_arrays
 from repro_torch.core.cotm import CoTMConfig, init_boundary_model
 from repro_torch.core.patches import PatchSpec
+from repro_torch.core.prng import prng_key
 from repro_torch.launch import serve as launch_serve
 from repro_torch.serve import scheduler as tsched
 from repro_torch.serve.engine import ServingEngine
@@ -409,7 +409,7 @@ def test_launcher_service_and_checkpoint_run_on_cpu(tmp_path, capsys):
     mode drains every request, and a restored model serves and reports
     accuracy on the test split."""
     cfg = COTM_CONFIGS["convcotm-mnist"]
-    model = init_boundary_model(torch.Generator().manual_seed(3), cfg)
+    model = init_boundary_model(prng_key(3), cfg)
     save_servable(freeze(model, cfg), str(tmp_path), 1)
     launch_serve.main(["--arch", "convcotm-mnist", "--service", "--requests", "24",
                        "--rate", "4000", "--max-batch", "8", "--device", "cpu",

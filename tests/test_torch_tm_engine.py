@@ -2,11 +2,16 @@
 hand-off.
 
 The reference engine draws each step's key from its ``_chain_keys``
-chain (``key, k = split(key)``) and each sample's from ``split(k, B)``;
-the tests export those draws (``chain_draws``) and feed them to the
-port's engine as its draw source, so both engines must end with
-``array_equal`` models.  With the port's own generator the two trainers
-are compared for accuracy on the same glyph split instead.
+chain (``key, k = split(key)``) and each sample's from ``split(k, B)``.
+The port's engine takes a key too and walks the same chain, so from one
+seed both engines (and both launchers, and a checkpoint moved between
+them) must end with ``array_equal`` models, unless a patch choice is
+decided by the last place of the Gumbel noise's logs
+(:func:`assert_same_or_explained` then shows that it was).  Tests of the
+engine's mechanics feed it the reference's exported draws
+(``chain_draws``), a quicker source; with draws of its own (a test-side
+``torch.Generator``) the two trainers are compared for accuracy on the
+same glyph split instead.
 """
 
 import gzip
@@ -20,6 +25,8 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs.convcotm import COTM_CONFIGS as J_CONFIGS
+from repro.core import train as jt
 from repro.core.cotm import CoTMConfig as JCoTMConfig
 from repro.core.cotm import init_model as j_init_model
 from repro.core.patches import PatchSpec as JPatchSpec
@@ -27,17 +34,27 @@ from repro.data import PipelineState as JPipelineState
 from repro.data import batches as j_batches
 from repro.data import datasets as j_datasets
 from repro.data import synthetic_glyphs as j_glyphs
+from repro.launch.train import run_tm_training as j_run_tm_training
 from repro.train.tm_engine import TrainerEngine as JTrainerEngine
-from repro_torch.checkpoint.checkpointer import latest_step
+from repro_torch.checkpoint.checkpointer import latest_step, restore_pytree
+from repro_torch.configs.convcotm import COTM_CONFIGS
 from repro_torch.convert import draws_from_arrays, model_from_arrays, model_to_arrays
-from repro_torch.core.cotm import CoTMConfig
+from repro_torch.core import prng
+from repro_torch.core import train as tt
+from repro_torch.core.cotm import CoTMConfig, init_model
 from repro_torch.core.patches import PatchSpec
+from repro_torch.core.prng import prng_key
+from repro_torch.core.train import TrainDraws
 from repro_torch.data import DoubleBufferedLoader, PipelineState, batches, synthetic_glyphs
 from repro_torch.data import datasets as t_datasets
+from repro_torch.data.pipeline import epoch_permutation
 from repro_torch.launch.mesh import make_test_mesh
 from repro_torch.launch.train import run_tm_training
 from repro_torch.serve.engine import ServingEngine
 from repro_torch.train.tm_engine import TrainerEngine
+from test_torch_prng import assert_gumbel_close, one_thread_module  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread_module")
 
 PATCH = dict(image_x=8, image_y=8, window_x=3, window_y=3)
 
@@ -79,6 +96,75 @@ def _same_model(tm, jm):
     ta, w = model_to_arrays(tm)
     np.testing.assert_array_equal(ta, np.asarray(jm.ta_state))
     np.testing.assert_array_equal(w, np.asarray(jm.weights))
+
+
+def _equal(tm, jm) -> bool:
+    ta, w = model_to_arrays(tm)
+    return np.array_equal(ta, np.asarray(jm.ta_state)) and np.array_equal(
+        w, np.asarray(jm.weights))
+
+
+def torch_draws(seed, b, cfg):
+    """Draws of the port's own, from a test-side ``torch.Generator``: one
+    TrainDraws per step, without end."""
+    g = torch.Generator().manual_seed(seed)
+    p, c, n, m = cfg.patch.n_patches, cfg.n_clauses, cfg.n_literals, cfg.n_classes
+    while True:
+        u = torch.rand((b, p, c), generator=g).clamp_(min=torch.finfo(torch.float32).tiny)
+        yield TrainDraws(gumbel=-torch.log(-torch.log(u)),
+                         neg=torch.randint(0, m - 1, (b,), generator=g),
+                         u_t=torch.rand((b, c), generator=g), u_q=torch.rand((b, c), generator=g),
+                         **{k: torch.rand((b, c, n), generator=g)
+                            for k in ("u_ia1", "u_ia0", "u_ib")})
+
+
+def assert_same_or_explained(jcfg, tcfg, key_seed, literals, labels, steps_idx, m0):
+    """Replay a run step by step from ``prng_key(key_seed)`` in both
+    packages (batch mode, the engine's ``key, k = split(key)`` chain over
+    the step index rows ``steps_idx``), from the port model ``m0``.  Every
+    step's models are equal, or at the first step where they part some
+    fired clause chose another patch, and at each such choice the two
+    packages' top scores lie within their Gumbel noise's last places
+    (:func:`assert_gumbel_close`'s bound at both patches)."""
+    tm = m0
+    jm = jt.CoTMModel(ta_state=jnp.asarray(m0.ta_state.numpy()),
+                      weights=jnp.asarray(m0.weights.numpy()))
+    tkey, jkey = prng_key(key_seed), jax.random.PRNGKey(key_seed)
+    tiny = np.finfo(np.float32).tiny
+    for ix in steps_idx:
+        tkey, tk = prng.split(tkey).unbind(0)
+        jkey, jk = jax.random.split(jkey)
+        lits, y = literals[ix], labels[ix]
+        draws = tt.make_draws(tk, len(ix), tcfg)
+        want = chain_draws_one(jk, len(ix), jcfg)
+        nxt_t = tt.update_batch_literals(draws, tm, torch.from_numpy(lits),
+                                         torch.from_numpy(y), tcfg)
+        nxt_j = jt.update_batch_literals(jk, jm, jnp.asarray(lits), jnp.asarray(y), jcfg)
+        if _equal(nxt_t, nxt_j):
+            tm, jm = nxt_t, nxt_j
+            continue
+        cp = tt._train_patch_outputs(torch.from_numpy(lits), tm.include, tcfg) > 0
+        fired = cp.any(dim=1)                                        # [B, C]
+        g_t, g_j = draws.gumbel, want.gumbel
+        pick_t = torch.where(cp, g_t, -np.inf).argmax(dim=1)
+        pick_j = torch.where(cp, g_j, -np.inf).argmax(dim=1)
+        parted = (pick_t != pick_j) & fired
+        assert parted.any(), "the models part with every patch choice equal"
+        k_patch = prng.split(prng.split(tk, len(ix)), 7)[:, 0]
+        u = prng.uniform(k_patch, tuple(g_t.shape[1:]), minval=tiny)
+        for b, c in parted.nonzero().tolist():
+            p1, p2 = int(pick_t[b, c]), int(pick_j[b, c])
+            for p in (p1, p2):
+                assert_gumbel_close(g_t[b, p, c:c + 1].numpy(), g_j[b, p, c:c + 1].numpy(),
+                                    u[b, p, c:c + 1].numpy())
+        return
+    raise AssertionError("the replayed runs never part, but the compared runs did")
+
+
+def chain_draws_one(k, b, cfg):
+    """One step's draws of the reference from its step key ``k``."""
+    arrs = jax.vmap(lambda s: _sample_draws(s, cfg))(jax.random.split(k, b))
+    return draws_from_arrays(*[np.asarray(a) for a in arrs])
 
 
 @pytest.mark.parametrize("mode", ["batch", "scan"])
@@ -208,12 +294,12 @@ def test_engine_refuses_mesh_bad_mode_and_small_datasets():
     eng = TrainerEngine(tcfg, batch_size=100, device="cpu")
     ds = eng.prepare(*_data(n=10), booleanize_method="none")
     with pytest.raises(ValueError, match="batch_size"):
-        eng.run_epoch(torch.Generator(), eng.init_model(torch.Generator()), ds)
+        eng.run_epoch(prng_key(0), eng.init_model(prng_key(0)), ds)
 
 
 def test_glyph_accuracy_parity_with_own_generator():
-    """Both trainers, each with its own random numbers, on one glyph split
-    and config (the paper's 10x10 window at stride 2, 64 clauses): the
+    """Both trainers, each with its own random numbers (the port's from a
+    test-side ``torch.Generator``), on one glyph split and config (the paper's 10x10 window at stride 2, 64 clauses): the
     port's accuracy, averaged over the last three of eight epochs (single
     epochs swing by several points), is within 5 points of the
     reference's."""
@@ -228,9 +314,9 @@ def test_glyph_accuracy_parity_with_own_generator():
     _, _, _, jrep = jeng.fit(key, jeng.init_model(key), jeng.prepare(tx, ty), epochs=8,
                              eval_ds=jeng.prepare(vx, vy))
     eng = TrainerEngine(tcfg, batch_size=25, device="cpu")
-    _, _, _, rep = eng.fit(torch.Generator().manual_seed(0),
-                           eng.init_model(torch.Generator().manual_seed(0)),
-                           eng.prepare(tx, ty), epochs=8, eval_ds=eng.prepare(vx, vy))
+    m0 = init_model(prng_key(0), tcfg)
+    _, _, _, rep = eng.fit(torch_draws(0, 25, tcfg), m0, eng.prepare(tx, ty), epochs=8,
+                           eval_ds=eng.prepare(vx, vy))
     acc = np.mean([r.accuracy for r in rep[-3:]])
     jacc = np.mean([r.accuracy for r in jrep[-3:]])
     assert jacc > 0.8, jacc                               # the task is learnt at all
@@ -253,27 +339,84 @@ def test_launcher_trains_checkpoints_and_resumes_on_cpu(tmp_path, capsys):
     assert done["samples_per_s"] == 0.0 and done["accuracy"] == two["accuracy"]
 
 
-@pytest.mark.parametrize("saved", ["cuda", None], ids=["named_cuda", "unnamed"])
-def test_launcher_refuses_a_resume_on_another_device(tmp_path, saved):
-    """A checkpoint whose draw generator lived on the card (its state is 16
-    bytes, a CPU generator's 5,056) is refused on the CPU before the
-    generator takes its state, whether the checkpoint names the card or
-    names no device."""
-    kw = dict(n_train=100, n_test=50, batch=50, device="cpu", ckpt_dir=str(tmp_path))
-    run_tm_training("convcotm-mnist", epochs=1, **kw)
-    step = latest_step(str(tmp_path))
-    manifest = tmp_path / f"step_{step:08d}" / "manifest.json"
-    meta = json.loads(manifest.read_text())
-    assert meta["extra"]["generator_device"] == "cpu"
-    meta["extra"]["generator"] = list(range(16))
-    if saved is None:
-        del meta["extra"]["generator_device"]
-    else:
-        meta["extra"]["generator_device"] = saved
-    manifest.write_text(json.dumps(meta))
-    with pytest.raises(ValueError, match="resuming on cpu") as e:
-        run_tm_training("convcotm-mnist", epochs=2, **kw)
-    assert saved is None or "cuda" in str(e.value)
+def _trained(ckpt_dir):
+    """The model of the newest checkpoint in ``ckpt_dir`` (either
+    package's), with its key and cursor."""
+    template = init_model(prng_key(0), COTM_CONFIGS["convcotm-mnist"])
+    model, step, extra = restore_pytree(template, str(ckpt_dir), device="cpu")
+    return model, step, extra
+
+
+@pytest.mark.parametrize("writer", ["reference", "port"])
+def test_tm_resume_across_packages(tmp_path, writer):
+    """A checkpoint written after one epoch by one package resumes in the
+    other: the key (``extra["key"]``, the reference's ``uint32[2]``) and
+    the cursor carry the run on, and epoch 2 ends where an uninterrupted
+    two-epoch run of the resuming package ends."""
+    kw = dict(n_train=100, n_test=50, batch=50)
+    port = lambda epochs, d: run_tm_training("convcotm-mnist", epochs=epochs, device="cpu",
+                                             ckpt_dir=str(d), **kw)
+    ref = lambda epochs, d: j_run_tm_training("convcotm-mnist", epochs=epochs,
+                                              ckpt_dir=str(d), **kw)
+    first, second = (ref, port) if writer == "reference" else (port, ref)
+    first(1, tmp_path / "run")
+    one, _, extra = _trained(tmp_path / "run")
+    assert np.asarray(extra["key"]).dtype.kind in "iu" and len(extra["key"]) == 2
+    resumed = second(2, tmp_path / "run")
+    whole = second(2, tmp_path / "whole")
+    got, step, extra_got = _trained(tmp_path / "run")
+    want, _, extra_want = _trained(tmp_path / "whole")
+    assert step == 2 and extra_got["key"] == extra_want["key"]
+    assert extra_got["pipeline"] == extra_want["pipeline"]
+    np.testing.assert_array_equal(got.ta_state.numpy(), want.ta_state.numpy())
+    np.testing.assert_array_equal(got.weights.numpy(), want.weights.numpy())
+    assert resumed["accuracy"] == whole["accuracy"]
+    assert not torch.equal(got.ta_state, one.ta_state)
+
+
+def test_launcher_epoch_equals_the_references_from_one_seed(tmp_path):
+    """``run_tm_training`` for one epoch at the paper's width (P=361,
+    2o=272, C=128; 2 steps of 50) in both packages from one seed: the
+    same key, and the same model and accuracy."""
+    kw = dict(epochs=1, n_train=100, n_test=50, batch=50, seed=3)
+    got = run_tm_training("convcotm-mnist", device="cpu", ckpt_dir=str(tmp_path / "t"), **kw)
+    want = j_run_tm_training("convcotm-mnist", ckpt_dir=str(tmp_path / "j"), **kw)
+    tm, _, textra = _trained(tmp_path / "t")
+    jm, _, jextra = _trained(tmp_path / "j")
+    assert textra["key"] == jextra["key"] and textra["trainer"] == jextra["trainer"]
+    if torch.equal(tm.ta_state, jm.ta_state) and torch.equal(tm.weights, jm.weights):
+        assert got["accuracy"] == want["accuracy"]
+        return
+    cfg = COTM_CONFIGS["convcotm-mnist"]
+    x, y, _, _, _ = t_datasets.get_dataset("mnist", n_train=100, n_test=50)
+    ds = TrainerEngine(cfg, batch_size=50, device="cpu").prepare(x, y)
+    assert_same_or_explained(J_CONFIGS["convcotm-mnist"], cfg, 3, ds.literals.numpy(),
+                             ds.labels.numpy(), epoch_permutation(3, 0, 100).reshape(2, 50),
+                             init_model(prng_key(3), cfg))
+
+
+@pytest.mark.parametrize("steps,batch", [(2, 20), (3, 8)])
+def test_fit_from_one_key_equals_the_reference_at_paper_width(steps, batch):
+    """``TrainerEngine.fit`` from ``prng_key(s)`` against the reference's
+    ``fit`` from ``PRNGKey(s)`` at the paper's width, batch mode: the same
+    advanced key, and the same model."""
+    tx, ty, _, _ = synthetic_glyphs(n_train=steps * batch, n_test=0, seed=steps)
+    cfg, jcfg = COTM_CONFIGS["convcotm-mnist"], J_CONFIGS["convcotm-mnist"]
+    jeng = JTrainerEngine(jcfg, batch_size=batch)
+    jds = jeng.prepare(tx, ty)
+    jkey, jm, _, _ = jeng.fit(jax.random.PRNGKey(steps),
+                              jeng.init_model(jax.random.PRNGKey(steps)), jds, epochs=1,
+                              state=JPipelineState(seed=steps))
+    eng = TrainerEngine(cfg, batch_size=batch, device="cpu")
+    ds = eng.prepare(tx, ty)
+    m0 = eng.init_model(prng_key(steps))
+    key, tm, _, _ = eng.fit(prng_key(steps), m0, ds, epochs=1, state=PipelineState(seed=steps))
+    np.testing.assert_array_equal(prng.key_data(key), np.asarray(jkey))
+    assert (tm.ta_state != m0.ta_state).any()
+    if not _equal(tm, jm):
+        assert_same_or_explained(jcfg, cfg, steps, ds.literals.numpy(), ds.labels.numpy(),
+                                 epoch_permutation(steps, 0, steps * batch).reshape(steps, batch),
+                                 m0)
 
 
 @pytest.mark.parametrize("cursor", [(0, 0, 0), (1, 2, 7), (2, 4, 3)],

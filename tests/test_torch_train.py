@@ -1,11 +1,15 @@
-"""Port vs reference: the training step, fed the reference's own draws.
+"""Port vs reference: the training step and its draws.
 
 The reference draws a step's random numbers from ``jax.random`` keys:
 per sample ``split(key, 7)`` (``repro/core/train.py``), a Gumbel patch
 noise, the negative class, and the uniforms behind each ``bernoulli``.
-The tests export exactly those arrays (``jax_step_draws``), carry them
-into the port with ``repro_torch.convert.draws_from_arrays``, and hold
-the port's deltas and updated models with ``array_equal``.
+The port's ``make_draws`` draws the same numbers from the same key
+(``core/prng.py``): the uniforms and the negative class bit for bit, the
+Gumbel noise within its logs' last places.  The step tests export the
+reference's arrays (``jax_step_draws``), carry them into the port with
+``repro_torch.convert.draws_from_arrays``, and hold the port's deltas and
+updated models with ``array_equal``; the initial models from a key are
+equal too.
 """
 
 import dataclasses
@@ -20,12 +24,18 @@ from repro.core import clauses as jcl
 from repro.core import train as jt
 from repro.core.cotm import CoTMConfig as JCoTMConfig
 from repro.core.cotm import init_boundary_model as j_init_boundary
+from repro.core.cotm import init_model as j_init_model
 from repro.core.patches import PatchSpec as JPatchSpec
 from repro_torch.convert import draws_from_arrays, model_from_arrays, model_to_arrays
 from repro_torch.core import clauses as tcl
+from repro_torch.core import prng
 from repro_torch.core import train as tt
-from repro_torch.core.cotm import CoTMConfig, CoTMModel
+from repro_torch.core.cotm import CoTMConfig, CoTMModel, init_boundary_model, init_model
 from repro_torch.core.patches import PatchSpec
+from repro_torch.core.prng import prng_key
+from test_torch_prng import assert_gumbel_close, one_thread_module  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread_module")
 
 PATCH = dict(image_x=8, image_y=8, window_x=3, window_y=3)
 
@@ -140,7 +150,7 @@ def test_scan_differs_from_batch_and_unknown_mode_is_refused():
     jcfg, tcfg = _configs()
     _, tm = _model(jcfg)
     imgs, labels = _data(n=8)
-    draws = tt.make_draws(torch.Generator().manual_seed(3), 8, tcfg)
+    draws = tt.make_draws(prng_key(3), 8, tcfg)
     args = (tm, torch.from_numpy(imgs), torch.from_numpy(labels), tcfg)
     a = tt.update_batch(draws, *args, mode="batch")
     b = tt.update_batch(draws, *args, mode="scan")
@@ -159,7 +169,7 @@ def test_dense_and_matmul_train_eval_give_the_same_deltas(kw):
                    .to(torch.uint8), weights=torch.randint(-3, 4, (4, 12), generator=g)
                    .to(torch.int32))
     imgs, labels = _data(n=10, seed=3)
-    draws = tt.make_draws(g, 10, tcfg)
+    draws = tt.make_draws(prng_key(0), 10, tcfg)
     x, y = torch.from_numpy(imgs), torch.from_numpy(labels)
     a = tt.sample_deltas(draws, tm, x, y, tcfg)
     b = tt.sample_deltas(draws, tm, x, y, dense)
@@ -201,7 +211,7 @@ def test_apply_clamps_states_and_weights():
 
 def test_make_draws_shapes_ranges_and_slicing():
     _, tcfg = _configs()
-    d = tt.make_draws(torch.Generator().manual_seed(1), 5, tcfg)
+    d = tt.make_draws(prng_key(1), 5, tcfg)
     p, c, n = tcfg.patch.n_patches, tcfg.n_clauses, tcfg.n_literals
     assert d.gumbel.shape == (5, p, c) and d.gumbel.dtype == torch.float32
     assert torch.isfinite(d.gumbel).all()
@@ -212,11 +222,55 @@ def test_make_draws_shapes_ranges_and_slicing():
         assert float(u.min()) >= 0.0 and float(u.max()) < 1.0
     one = d[2]
     assert one.neg.shape == (1,) and torch.equal(one.u_ib[0], d.u_ib[2])
-    again = tt.make_draws(torch.Generator().manual_seed(1), 5, tcfg)
+    again = tt.make_draws(prng_key(1), 5, tcfg)
     assert torch.equal(again.gumbel, d.gumbel)
     with pytest.raises(TypeError, match="float32"):
         draws_from_arrays(np.zeros((1, p, c)), [0], *[np.zeros((1, c), np.float32)] * 2,
                           *[np.zeros((1, c, n), np.float32)] * 3)
+
+
+PAPER = dict(image_x=28, image_y=28, window_x=10, window_y=10)
+
+
+def _paper_configs():
+    """The paper's geometry (P=361, 2o=272, C=128, m=10) in both packages."""
+    return (JCoTMConfig(patch=JPatchSpec(**PAPER)), CoTMConfig(patch=PatchSpec(**PAPER)))
+
+
+@pytest.mark.parametrize("seed,batch,geometry", [(0, 6, "small"), (2**31 + 5, 1, "small"),
+                                                 (7, 3, "paper")])
+def test_make_draws_equal_the_references_per_sample_draws(seed, batch, geometry):
+    """``make_draws(key)`` against the reference's ``split(key, B)`` then
+    ``split(k, 7)`` per sample: uniforms and the negative class bit for
+    bit, the Gumbel noise within its logs' last places."""
+    jcfg, tcfg = _paper_configs() if geometry == "paper" else _configs()
+    want = jax_step_draws(jax.random.PRNGKey(seed), batch, jcfg)
+    got = tt.make_draws(prng_key(seed), batch, tcfg)
+    for name in ("neg", "u_t", "u_q", "u_ia1", "u_ia0", "u_ib"):
+        np.testing.assert_array_equal(getattr(got, name).numpy(), getattr(want, name).numpy())
+    k_patch = prng.split(prng.split(prng_key(seed), batch), 7)[:, 0]
+    u = prng.uniform(k_patch, (tcfg.patch.n_patches, tcfg.n_clauses),
+                     minval=np.finfo(np.float32).tiny)
+    assert_gumbel_close(got.gumbel.numpy(), want.gumbel.numpy(), u.numpy())
+
+
+@pytest.mark.parametrize("seed", [0, 3, 2**32 + 9])
+@pytest.mark.parametrize("geometry", ["small", "paper"])
+def test_initial_models_equal_reference_from_a_key(seed, geometry):
+    """``init_model`` (weights from ``bernoulli(key, 0.5)``) and
+    ``init_boundary_model`` (``split``, then ``randint`` states) from one
+    key equal the reference's."""
+    jcfg, tcfg = _paper_configs() if geometry == "paper" else _configs()
+    jk, tk = jax.random.PRNGKey(seed), prng_key(seed)
+    pairs = [(init_model(tk, tcfg), j_init_model(jk, jcfg))]
+    for spread in (10, 4):
+        pairs.append((init_boundary_model(tk, tcfg, spread),
+                      j_init_boundary(jk, jcfg, spread=spread)))
+    for tm, jm in pairs:
+        ta, w = model_to_arrays(tm)
+        np.testing.assert_array_equal(ta, np.asarray(jm.ta_state))
+        np.testing.assert_array_equal(w, np.asarray(jm.weights))
+        assert tm.ta_state.dtype == torch.uint8 and tm.weights.dtype == torch.int32
 
 
 def test_accuracy_matches_reference():
