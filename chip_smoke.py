@@ -379,18 +379,11 @@ def fused_word_tests(lit, inc, ne) -> int:
 
 def device_rows(rows):
     """The profiler's rows of work on the card (kernels, copies, memsets).
-    An operator's row repeats its kernels' device time, and an annotation
-    spans them, so the busy time sums these rows only."""
+    An operator's row repeats its kernels' device time, so the busy time
+    sums these rows only."""
     from torch.autograd import DeviceType
 
-    return [e for e in rows if getattr(e, "device_type", None) == DeviceType.CUDA
-            and not e.key.startswith("train.")]
-
-
-def dev_us(e) -> float:
-    """A profiler row's device time, its children's included."""
-    v = getattr(e, "device_time_total", None)
-    return v if v is not None else e.cuda_time_total
+    return [e for e in rows if getattr(e, "device_type", None) == DeviceType.CUDA]
 
 
 def self_dev_us(e) -> float:
@@ -728,14 +721,16 @@ def trainer_card_equals_cpu(dev) -> None:
 def profile_train_steps(trainer, model, ds, key, steps: int, card: str) -> None:
     """Where a training step's time goes on the card: ``torch.profiler`` over
     ``steps`` batch-mode steps, each drawing from the key chain as ``fit``
-    does, split by the step's annotations (draws, matmul, feedback,
-    apply), with the draws' share of the step and the threefry kernel's
-    device time."""
+    does, with the host time of each part of the step (the trainer's
+    spans: draws, matmul, feedback, apply; host ranges, with no device
+    range on the card), the draws' share of the step and the threefry
+    kernel's device time."""
     import torch
-    from torch.profiler import ProfilerActivity, profile, record_function
+    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.core import prng
     from repro_torch.core.train import _step_literals, make_draws
+    from repro_torch.spans import span
 
     b, cfg = trainer.batch_size, trainer.config
     ix = torch.arange(b, device=ds.literals.device)
@@ -743,7 +738,7 @@ def profile_train_steps(trainer, model, ds, key, steps: int, card: str) -> None:
     chain = [key]
 
     def step(m):
-        with record_function("train.draws"):
+        with span("train.draws"):
             chain[0], k = prng.split(chain[0]).unbind(0)
             d = make_draws(k, b, cfg)
         return _step_literals(d, m, lits, labels, cfg, "batch")
@@ -763,18 +758,15 @@ def profile_train_steps(trainer, model, ds, key, steps: int, card: str) -> None:
     parts = {}
     for e in rows:
         if e.key.startswith("train."):
-            cpu_us, gpu_us = parts.get(e.key, (0.0, 0.0))
-            parts[e.key] = (cpu_us + e.cpu_time_total, max(gpu_us, dev_us(e)))
+            parts[e.key] = parts.get(e.key, 0.0) + e.cpu_time_total
     print(f"[profile] train step (batch 100, full width): {steps} steps, wall "
           f"{wall_us / steps:.1f} us/step, device busy {busy / steps:.1f} us/step "
           f"({100 * busy / wall_us:.1f}% of wall), idle {100 * (1 - busy / wall_us):.1f}% | "
           f"{card}")
     for name in ("train.draws", "train.matmul", "train.feedback", "train.apply"):
-        cpu_us, gpu_us = parts.get(name, (0.0, 0.0))
-        gpu = f"{gpu_us / steps:.1f} us" if gpu_us else "not measured"
-        print(f"[profile] train step {name[6:]}: host {cpu_us / steps:.1f} us/step, device "
-              f"range {gpu}/step")
-    host_draws = parts.get("train.draws", (0.0, 0.0))[0]
+        print(f"[profile] train step {name[6:]}: host {parts.get(name, 0.0) / steps:.1f} "
+              f"us/step")
+    host_draws = parts.get("train.draws", 0.0)
     print(f"[profile] train step draws' share: host {100 * host_draws / wall_us:.1f}% of the "
           f"wall; threefry kernel {threefry_us / steps:.1f} us/step of device time "
           f"({100 * threefry_us / max(busy, 1e-9):.1f}% of busy) | {card}")

@@ -35,6 +35,7 @@ from repro_torch.core.patches import (
     pack_bits,
 )
 from repro_torch.kernels.ops import ingress_pack
+from repro_torch.spans import span
 
 __all__ = [
     "IngressSpec",
@@ -139,13 +140,15 @@ def _with_feature_axes(bits: torch.Tensor, patch: PatchSpec) -> torch.Tensor:
 def apply_ingress(spec: IngressSpec, raw: torch.Tensor) -> torch.Tensor:
     """Raw pixels -> dense uint8 ``[B, P, 2o]`` or packed int32 ``[B, P, W]``
     literals, on ``raw``'s device."""
-    bits = _with_feature_axes(apply_booleanize(spec, raw), spec.patch)
-    if spec.packed and spec.patch.channels == 1 and spec.patch.therm_bits == 1:
-        return ingress_pack(bits[..., 0, 0].contiguous(), spec.patch)
-    lits = make_literals(extract_patch_features(bits, spec.patch))
-    if spec.packed:
-        return pack_bits(lits, spec.patch.n_words)
-    return lits
+    with span("ingress.booleanize"):
+        bits = _with_feature_axes(apply_booleanize(spec, raw), spec.patch)
+    with span("ingress.pack"):
+        if spec.packed and spec.patch.channels == 1 and spec.patch.therm_bits == 1:
+            return ingress_pack(bits[..., 0, 0].contiguous(), spec.patch)
+        lits = make_literals(extract_patch_features(bits, spec.patch))
+        if spec.packed:
+            return pack_bits(lits, spec.patch.n_words)
+        return lits
 
 
 #: The standalone ingress of the reference (raw -> literals in one call),

@@ -42,13 +42,13 @@ import dataclasses
 from typing import Tuple
 
 import torch
-from torch.profiler import record_function
 
 from repro_torch.core import clauses as cl
 from repro_torch.core import prng
 from repro_torch.core.cotm import TA_HALF, WEIGHT_MAX, WEIGHT_MIN, CoTMConfig, CoTMModel
 from repro_torch.core.patches import extract_patch_features, make_literals
 from repro_torch.distributed.collectives import tree_psum_batch
+from repro_torch.spans import span
 
 __all__ = [
     "TrainDraws",
@@ -146,9 +146,9 @@ def sample_deltas_literals(
     b = lits.shape[0]
     dev = lits.device
     include = model.include                                          # [C, 2o]
-    with record_function("train.matmul"):
+    with span("train.matmul"):
         cp = _train_patch_outputs(lits, include, config)             # [B, P, C]
-    with record_function("train.feedback"):
+    with span("train.feedback"):
         fired = (cp > 0).any(dim=1)                                  # bool [B, C]
         # Uniform choice among matching patches: the first maximum of the
         # Gumbel scores (patch 0 for a clause that matched nowhere, which
@@ -249,11 +249,11 @@ def _step_literals(
     if mode == "batch":
         if mesh is None:
             ta_d, w_d = sample_deltas_literals(draws, model, lits, labels, config)
-            with record_function("train.apply"):
+            with span("train.apply"):
                 return _apply(model, ta_d.sum(dim=0, dtype=torch.int32),
                               w_d.sum(dim=0, dtype=torch.int32))
         deltas = _shard_deltas(draws, model, lits, labels, config, mesh.along(data_axis))
-        with record_function("train.apply"):
+        with span("train.apply"):
             ta_sum, w_sum = tree_psum_batch(deltas, mesh=mesh, axis=data_axis)
             return _apply(model, ta_sum.to(model.ta_state.device),
                           w_sum.to(model.weights.device))
@@ -266,7 +266,7 @@ def _step_literals(
         for i in range(lits.shape[0]):
             ta_d, w_d = sample_deltas_literals(draws[i], model, lits[i : i + 1],
                                                labels[i : i + 1], config)
-            with record_function("train.apply"):
+            with span("train.apply"):
                 model = _apply(model, ta_d[0], w_d[0])
         return model
     raise ValueError(f"unknown mode: {mode}")

@@ -339,6 +339,14 @@ async def serve_tm_service(
         f"{st.device_us_per_image:,.0f} us/img | mean occupancy {st.mean_occupancy:.2f} | "
         f"occupancy hist {st.occupancy_hist}"
     )
+    print(
+        f"{arch}: queue wait p50 {st.p50_queue_wait_us:,.0f} us p99 "
+        f"{st.p99_queue_wait_us:,.0f} us | per microbatch: dispatch thread "
+        f"{st.dispatch_us_per_batch:,.0f} us, completion thread "
+        f"{st.complete_us_per_batch:,.0f} us | collections by generation "
+        f"{st.gc_collections}, pauses {[round(p) for p in st.gc_pause_us]} us, longest "
+        f"gen-2 {st.gc_max_gen2_pause_us:,.0f} us"
+    )
     health = service.health()
     print(f"{arch}: health {health.state}, path {engine.resolved_path(arch)}, "
           f"fallback_path {health.fallback_path}, dispatch failures "

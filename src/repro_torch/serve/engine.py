@@ -101,6 +101,7 @@ from repro_torch.serve.servable import (
     freeze,
     servable_digest,
 )
+from repro_torch.spans import span
 
 __all__ = [
     "ClassifyResult",
@@ -226,7 +227,8 @@ class _Entry:
 
 
 def _packed_result(v: torch.Tensor) -> torch.Tensor:
-    return torch.cat([cl.argmax_predict(v)[:, None], v], dim=1)
+    with span("classify.argmax"):
+        return torch.cat([cl.argmax_predict(v)[:, None], v], dim=1)
 
 
 @torch.inference_mode()
@@ -276,28 +278,31 @@ class InFlightClassify:
     def result(self) -> ClassifyResult:
         if self._result is not None:
             return self._result
-        for event in self._done:
-            event.synchronize()
-        self._servable = None
-        t2 = time.perf_counter()
-        out = np.concatenate([h.numpy()[:ni] for h, ni, _ in self._parts])
-        ingress_s = self._t_dispatch - self._t0
-        device_s = t2 - self._t_dispatch
-        st = self._entry.stats
-        st.requests += 1
-        st.images += self._n
-        st.total_latency_s += t2 - self._t0
-        st.ingress_s += ingress_s
-        st.device_s += device_s
-        self._result = ClassifyResult(
-            predictions=np.ascontiguousarray(out[:, 0]),
-            class_sums=np.ascontiguousarray(out[:, 1:]),
-            latency_s=t2 - self._t0,
-            bucket=max(b for _, _, b in self._parts),
-            ingress_s=ingress_s,
-            device_s=device_s,
-            version=self.version,
-        )
+        with span("engine.result"):
+            with span("engine.wait"):
+                for event in self._done:
+                    event.synchronize()
+            self._servable = None
+            t2 = time.perf_counter()
+            with span("engine.unpack"):
+                out = np.concatenate([h.numpy()[:ni] for h, ni, _ in self._parts])
+                ingress_s = self._t_dispatch - self._t0
+                device_s = t2 - self._t_dispatch
+                st = self._entry.stats
+                st.requests += 1
+                st.images += self._n
+                st.total_latency_s += t2 - self._t0
+                st.ingress_s += ingress_s
+                st.device_s += device_s
+                self._result = ClassifyResult(
+                    predictions=np.ascontiguousarray(out[:, 0]),
+                    class_sums=np.ascontiguousarray(out[:, 1:]),
+                    latency_s=t2 - self._t0,
+                    bucket=max(b for _, _, b in self._parts),
+                    ingress_s=ingress_s,
+                    device_s=device_s,
+                    version=self.version,
+                )
         return self._result
 
 
@@ -778,30 +783,31 @@ class ServingEngine:
         n = arr.shape[0]
         bucket = self.bucket_for(n)
         on_card = self.device.type == "cuda"
-        host = torch.empty((bucket,) + arr.shape[1:], dtype=_torch_dtype(arr.dtype),
-                           pin_memory=on_card)
-        buf = host.numpy()
-        buf[:n] = arr
-        buf[n:] = 0
+        with span("engine.stage_in"):
+            host = torch.empty((bucket,) + arr.shape[1:], dtype=_torch_dtype(arr.dtype),
+                               pin_memory=on_card)
+            buf = host.numpy()
+            buf[:n] = arr
+            buf[n:] = 0
+            x = (self.mesh.place_batch(host) if self.mesh is not None
+                 else host.to(self.device, non_blocking=True))
         path_name, params = entry.resolve(form, bucket)
         ingress = entry.ingress if form == "raw" else None
         if self.mesh is not None:
-            outs = classify_step_meshed(entry.servable, self.mesh.place_batch(host), self.mesh,
-                                        path_name, ingress, params)
+            outs = classify_step_meshed(entry.servable, x, self.mesh, path_name, ingress, params)
         elif ingress is not None:
-            outs = [classify_raw_step(entry.servable, host.to(self.device, non_blocking=True),
-                                      path_name, ingress, params)]
+            outs = [classify_raw_step(entry.servable, x, path_name, ingress, params)]
         else:
-            outs = [classify_step(entry.servable, host.to(self.device, non_blocking=True),
-                                  path_name, params)]
-        if on_card:
-            host_out = torch.empty((bucket, outs[0].shape[1]), dtype=torch.int32,
-                                   pin_memory=True)
-            rows = bucket // len(outs)
-            for d, out in enumerate(outs):
-                host_out[d * rows:(d + 1) * rows].copy_(out, non_blocking=True)
-        else:
-            host_out = outs[0] if len(outs) == 1 else torch.cat(outs)
+            outs = [classify_step(entry.servable, x, path_name, params)]
+        with span("engine.stage_out"):
+            if on_card:
+                host_out = torch.empty((bucket, outs[0].shape[1]), dtype=torch.int32,
+                                       pin_memory=True)
+                rows = bucket // len(outs)
+                for d, out in enumerate(outs):
+                    host_out[d * rows:(d + 1) * rows].copy_(out, non_blocking=True)
+            else:
+                host_out = outs[0] if len(outs) == 1 else torch.cat(outs)
         st = entry.stats
         if record_hit:
             st.bucket_hits[bucket] = st.bucket_hits.get(bucket, 0) + 1
@@ -872,28 +878,30 @@ class ServingEngine:
         if self.faults is not None:
             # Chaos seam: may raise before any host or device work.
             self.faults.on_engine_dispatch(name)
-        t0 = time.perf_counter()
-        if preprocessed or ingress == "host":
-            arr = self.preprocess(name, images, preprocessed=preprocessed)
-            form = "literals"
-        else:
-            arr = self.validate_raw(name, images)
-            form = "raw"
-        t1 = time.perf_counter()
-        n = arr.shape[0]
-        with self._lock:
-            ver, servable = entry.version.version, entry.servable
-            parts: List = [
-                self._submit_bucket(entry, arr[i : i + self.max_batch], form=form)
-                for i in range(0, n, self.max_batch)
-            ]
-            # One event per distinct card, after that card's copies back.
-            done = []
-            for card in self._cards():
-                done.append(torch.cuda.Event())
-                done[-1].record(torch.cuda.current_stream(card))
-        return InFlightClassify(entry, parts, n, t0, t1, tuple(done), version=ver,
-                                servable=servable)
+        with span("engine.dispatch"):
+            t0 = time.perf_counter()
+            if preprocessed or ingress == "host":
+                arr = self.preprocess(name, images, preprocessed=preprocessed)
+                form = "literals"
+            else:
+                arr = self.validate_raw(name, images)
+                form = "raw"
+            t1 = time.perf_counter()
+            n = arr.shape[0]
+            with self._lock:
+                ver, servable = entry.version.version, entry.servable
+                parts: List = [
+                    self._submit_bucket(entry, arr[i : i + self.max_batch], form=form)
+                    for i in range(0, n, self.max_batch)
+                ]
+                # One event per distinct card, after that card's copies back.
+                done = []
+                with span("engine.stage_out"):
+                    for card in self._cards():
+                        done.append(torch.cuda.Event())
+                        done[-1].record(torch.cuda.current_stream(card))
+            return InFlightClassify(entry, parts, n, t0, t1, tuple(done), version=ver,
+                                    servable=servable)
 
     def classify(self, name: str, images, *, preprocessed: bool = False,
                  ingress: str = "device") -> ClassifyResult:

@@ -41,6 +41,7 @@ import torch
 from repro_torch.core import clauses as cl
 from repro_torch.core.ingress import IngressSpec, apply_ingress
 from repro_torch.kernels import ops as kops
+from repro_torch.spans import span
 
 __all__ = [
     "DENSE",
@@ -218,7 +219,8 @@ def run_path(
     )
     if path.needs_sparsity:
         args += (servable.sparsity,)
-    return path.fn(*args, **dict(params))
+    with span("classify.clauses"):
+        return path.fn(*args, **dict(params))
 
 
 def run_path_raw(

@@ -19,7 +19,9 @@ figure includes the DMA/frame system overhead, not just the datapath:
   * graceful drain (``stop(drain=True)`` flushes every queued request
     before shutdown) and per-model :class:`ServiceStats` snapshots
     (queue depth, batch-occupancy histogram, p50/p99 latency, and the
-    ingress vs device latency split).
+    ingress vs device latency split; beside them queue wait, the
+    dispatch and completion threads' time per microbatch, and the
+    collector's runs and pauses, also as ``gc.gen<n>`` spans in a trace).
 
 Raw-pixel fast path
 -------------------
@@ -101,6 +103,8 @@ import asyncio
 import collections
 import dataclasses
 import functools
+import gc
+import time
 from concurrent.futures import BrokenExecutor, ThreadPoolExecutor
 from typing import Dict, List, Optional, Set, Tuple
 
@@ -122,6 +126,7 @@ from repro_torch.serve.scheduler import (
     QueueFull,
     SchedulerConfig,
 )
+from repro_torch.spans import span
 
 __all__ = [
     "ServiceConfig",
@@ -203,6 +208,7 @@ class ServiceResult:
     batch_images: int         # images in that microbatch
     version: int = 0          # model version id that computed it
     batch_id: int = 0         # service-wide microbatch sequence number
+    queue_wait_s: float = 0.0  # enqueue -> popped into its microbatch
 
 
 @dataclasses.dataclass
@@ -232,6 +238,18 @@ class ServiceStats:
     # Service-wide ServiceHealth snapshot (serve/faults.py): state,
     # last fault, fallback path, restart/fault counters.
     health: Dict = dataclasses.field(default_factory=dict)
+    # Beside the reference's fields: queue wait (enqueue -> popped into a
+    # microbatch, over the same ring as the latencies), the dispatch
+    # thread's and the completion thread's host time per microbatch, and
+    # the collector's runs and pauses (per generation 0, 1, 2) while the
+    # service ran, process-wide.
+    p50_queue_wait_us: float = 0.0
+    p99_queue_wait_us: float = 0.0
+    dispatch_us_per_batch: float = 0.0
+    complete_us_per_batch: float = 0.0
+    gc_collections: List[int] = dataclasses.field(default_factory=lambda: [0, 0, 0])
+    gc_pause_us: List[float] = dataclasses.field(default_factory=lambda: [0.0, 0.0, 0.0])
+    gc_max_gen2_pause_us: float = 0.0
 
     def as_dict(self) -> Dict:
         return dataclasses.asdict(self)
@@ -251,10 +269,62 @@ class _ModelStats:
     busy_s: float = 0.0
     ingress_s: float = 0.0
     device_s: float = 0.0
+    dispatch_s: float = 0.0     # dispatch thread, summed over microbatches
+    complete_s: float = 0.0     # completion thread, summed over microbatches
     occupancy_hist: Dict[int, Dict[str, int]] = dataclasses.field(
         default_factory=dict
     )
     latencies: Optional[object] = None   # collections.deque, set on init
+    queue_waits: Optional[object] = None  # collections.deque, set on init
+
+
+class _CollectorWatch:
+    """A ``gc.callbacks`` hook: counts the collector's runs and sums their
+    pauses per generation, keeps the longest gen-2 pause, and opens a
+    ``gc.gen<n>`` span over each pause so a stall shows in a trace."""
+
+    def __init__(self):
+        self.collections = [0, 0, 0]
+        self.pause_s = [0.0, 0.0, 0.0]
+        self.max_gen2_pause_s = 0.0
+        self._open = None     # (generation, start, span) of the pause under way
+
+    def __call__(self, phase: str, info: Dict) -> None:
+        if phase == "start":
+            gen = info["generation"]
+            rng = span(f"gc.gen{gen}")
+            rng.__enter__()
+            self._open = (gen, time.perf_counter(), rng)
+        elif self._open is not None:
+            gen, t, rng = self._open
+            self._open = None
+            rng.__exit__(None, None, None)
+            pause = time.perf_counter() - t
+            self.collections[gen] += 1
+            self.pause_s[gen] += pause
+            if gen == 2:
+                self.max_gen2_pause_s = max(self.max_gen2_pause_s, pause)
+
+    def install(self) -> None:
+        if self not in gc.callbacks:
+            gc.callbacks.append(self)
+
+    def remove(self) -> None:
+        if self in gc.callbacks:
+            gc.callbacks.remove(self)
+
+
+def _timed(name: str, batch_id: int, fn):
+    """``fn`` under the span ``name`` (carrying ``batch_id``), as a callable
+    that returns ``(fn's result, host seconds it took)``."""
+
+    def run():
+        t = time.perf_counter()
+        with span(name, batch_id=batch_id):
+            out = fn()
+        return out, time.perf_counter() - t
+
+    return run
 
 
 class ServingService:
@@ -317,6 +387,7 @@ class ServingService:
         self._stopping = False
         self._draining = False
         self._batch_seq = 0          # microbatch sequence (ServiceResult.batch_id)
+        self._gc = _CollectorWatch()
 
     # --- lifecycle --------------------------------------------------------
 
@@ -342,6 +413,7 @@ class ServingService:
         self._ingress = ThreadPoolExecutor(
             max_workers=1, thread_name_prefix="serve-ingress"
         )
+        self._gc.install()
         self._task = asyncio.create_task(self._run(), name="serving-service")
 
     async def stop(self, *, drain: bool = True) -> None:
@@ -376,6 +448,7 @@ class ServingService:
         # flowing while this one drains.
         if self._task is task:
             self._task = None
+            self._gc.remove()
             for ex in (self._executor, self._completer, self._ingress):
                 await asyncio.to_thread(ex.shutdown, True)
             self._executor = None
@@ -436,40 +509,41 @@ class ServingService:
         resolves with a :class:`ServiceResult` once the request's
         microbatch executes.
         """
-        if self._task is None or not self._accepting:
-            raise ServiceStopped("service is not accepting requests")
-        if deadline_s is not None and deadline_s <= 0:
-            raise ValueError("deadline_s must be > 0 (or None)")
-        # Admission first, on the image count alone: a rejected request
-        # must not pay any per-image work (backpressure has to shed load,
-        # not just refuse it after the expensive part).
-        self._check_admission(name, len(images))
-        if preprocessed:
-            arr = self.engine.preprocess(name, images, preprocessed=True)
-        else:
-            arr = self.engine.validate_raw(name, images)
-        ms = self._model_stats(name)
-        ms.submitted += 1
-        loop = asyncio.get_running_loop()
-        now = loop.time()
-        req = PendingRequest(
-            model=name,
-            literals=arr,
-            n=int(arr.shape[0]),
-            enqueue_t=now,
-            payload=loop.create_future(),
-            preprocessed=preprocessed,
-            # Admission-time version id: pop_batch never coalesces across
-            # a version boundary, so a swap landing mid-queue splits the
-            # queue into per-version microbatches instead of mixing them.
-            version=self.engine.version_id(name),
-            deadline_t=None if deadline_s is None else now + deadline_s,
-        )
-        # No await between _check_admission above and this enqueue, so the
-        # scheduler's own re-check cannot fail here.
-        self._sched.submit(req)
-        self._arrival.set()
-        return req.payload
+        with span("service.admit"):
+            if self._task is None or not self._accepting:
+                raise ServiceStopped("service is not accepting requests")
+            if deadline_s is not None and deadline_s <= 0:
+                raise ValueError("deadline_s must be > 0 (or None)")
+            # Admission first, on the image count alone: a rejected request
+            # must not pay any per-image work (backpressure has to shed load,
+            # not just refuse it after the expensive part).
+            self._check_admission(name, len(images))
+            if preprocessed:
+                arr = self.engine.preprocess(name, images, preprocessed=True)
+            else:
+                arr = self.engine.validate_raw(name, images)
+            ms = self._model_stats(name)
+            ms.submitted += 1
+            loop = asyncio.get_running_loop()
+            now = loop.time()
+            req = PendingRequest(
+                model=name,
+                literals=arr,
+                n=int(arr.shape[0]),
+                enqueue_t=now,
+                payload=loop.create_future(),
+                preprocessed=preprocessed,
+                # Admission-time version id: pop_batch never coalesces across
+                # a version boundary, so a swap landing mid-queue splits the
+                # queue into per-version microbatches instead of mixing them.
+                version=self.engine.version_id(name),
+                deadline_t=None if deadline_s is None else now + deadline_s,
+            )
+            # No await between _check_admission above and this enqueue, so the
+            # scheduler's own re-check cannot fail here.
+            self._sched.submit(req)
+            self._arrival.set()
+            return req.payload
 
     def _check_admission(self, name: str, n: int) -> None:
         """Depth pre-check; converts QueueFull to ServiceOverloaded and
@@ -566,6 +640,7 @@ class ServingService:
             self.engine.servable(name)   # KeyError on unknown models
         ms = self._model_stats(name)
         lat = np.asarray(ms.latencies, np.float64) if ms.latencies else None
+        wait = np.asarray(ms.queue_waits, np.float64) if ms.queue_waits else None
         occ_w = sum(
             h["batches"] * b for b, h in ms.occupancy_hist.items()
         )
@@ -595,6 +670,21 @@ class ServingService:
                 ms.device_s / ms.images * 1e6 if ms.images else 0.0
             ),
             health=self._health.as_dict(),
+            p50_queue_wait_us=(
+                float(np.percentile(wait, 50) * 1e6) if wait is not None else 0.0
+            ),
+            p99_queue_wait_us=(
+                float(np.percentile(wait, 99) * 1e6) if wait is not None else 0.0
+            ),
+            dispatch_us_per_batch=(
+                ms.dispatch_s / ms.batches * 1e6 if ms.batches else 0.0
+            ),
+            complete_us_per_batch=(
+                ms.complete_s / ms.batches * 1e6 if ms.batches else 0.0
+            ),
+            gc_collections=list(self._gc.collections),
+            gc_pause_us=[p * 1e6 for p in self._gc.pause_s],
+            gc_max_gen2_pause_us=self._gc.max_gen2_pause_s * 1e6,
         )
 
     def health(self) -> ServiceHealth:
@@ -606,7 +696,8 @@ class ServingService:
         ms = self._mstats.get(name)
         if ms is None:
             ms = _ModelStats(
-                latencies=collections.deque(maxlen=self.config.latency_window)
+                latencies=collections.deque(maxlen=self.config.latency_window),
+                queue_waits=collections.deque(maxlen=self.config.latency_window),
             )
             self._mstats[name] = ms
         return ms
@@ -748,7 +839,9 @@ class ServingService:
 
         t0 = loop.time()
         try:
-            inflights = await loop.run_in_executor(self._executor, _dispatch)
+            inflights, dispatch_s = await loop.run_in_executor(
+                self._executor, _timed("service.dispatch", batch_id, _dispatch)
+            )
         except (WorkerCrashed, BrokenExecutor) as e:
             # The worker died with this batch in flight: the requests were
             # never computed — fail them with a structured error, then
@@ -772,7 +865,7 @@ class ServingService:
             self._health.device_losses += 1
             self._health.degrade(e)
             await asyncio.to_thread(self.engine.shrink_mesh)
-            await self._dispatch_isolated(loop, model, batch)
+            await self._dispatch_isolated(loop, model, batch, now)
             return
         except Exception as e:
             self._inflight.release()
@@ -788,18 +881,19 @@ class ServingService:
             # Quarantine: the failure could belong to ONE member of the
             # coalesced batch (poisoned/malformed input) — retry each
             # request alone so only the culprit fails.
-            await self._dispatch_isolated(loop, model, batch)
+            await self._dispatch_isolated(loop, model, batch, now)
             return
         self._consec_failures.pop(model, None)
         task = loop.create_task(
-            self._complete(loop, model, batch, inflights, t0, batch_id),
+            self._complete(loop, model, batch, inflights, t0, batch_id,
+                           popped_t=now, dispatch_s=dispatch_s),
             name=f"serve-complete-{model}",
         )
         self._completions.add(task)
         task.add_done_callback(self._completions.discard)
 
     async def _dispatch_isolated(
-        self, loop, model: str, batch: List[PendingRequest]
+        self, loop, model: str, batch: List[PendingRequest], popped_t: float
     ) -> None:
         """Dispatch each member of a failed microbatch alone.
 
@@ -810,7 +904,8 @@ class ServingService:
         ``on_service_dispatch`` counter — an injection plan is a script
         over the primary dispatch sequence, not a feedback loop over its
         own retries — but still honor payload poison (a property of the
-        request, not of the schedule).
+        request, not of the schedule).  ``popped_t`` is when the failed
+        microbatch left the queue, which ends its members' queue wait.
         """
         for r in batch:
             if r.payload.done():
@@ -836,7 +931,9 @@ class ServingService:
 
             t0 = loop.time()
             try:
-                inflights = await loop.run_in_executor(self._executor, _one)
+                inflights, dispatch_s = await loop.run_in_executor(
+                    self._executor, _timed("service.dispatch", batch_id, _one)
+                )
             except Exception as e:
                 self._inflight.release()
                 ms = self._model_stats(model)
@@ -847,7 +944,8 @@ class ServingService:
                     r.payload.set_exception(e)
                 continue
             task = loop.create_task(
-                self._complete(loop, model, [r], inflights, t0, batch_id),
+                self._complete(loop, model, [r], inflights, t0, batch_id,
+                               popped_t=popped_t, dispatch_s=dispatch_s),
                 name=f"serve-complete-{model}",
             )
             self._completions.add(task)
@@ -923,13 +1021,17 @@ class ServingService:
         inflights: List[Tuple[List[PendingRequest], InFlightClassify]],
         t0: float,
         batch_id: int = 0,
+        *,
+        popped_t: float,
+        dispatch_s: float,
     ) -> None:
         """Block on device results (completion thread) and slice them back
         to the member requests."""
         try:
-            results = await loop.run_in_executor(
+            results, complete_s = await loop.run_in_executor(
                 self._completer,
-                lambda: [(reqs, h.result()) for reqs, h in inflights],
+                _timed("service.complete", batch_id,
+                       lambda: [(reqs, h.result()) for reqs, h in inflights]),
             )
         except Exception as e:
             self._health.note_fault(e)
@@ -946,6 +1048,8 @@ class ServingService:
         ms.batches += 1
         ms.images += n
         ms.busy_s += t1 - t0
+        ms.dispatch_s += dispatch_s
+        ms.complete_s += complete_s
         for reqs, res in results:
             ms.ingress_s += res.ingress_s
             ms.device_s += res.device_s
@@ -971,9 +1075,11 @@ class ServingService:
                     batch_images=n,
                     version=res.version,
                     batch_id=batch_id,
+                    queue_wait_s=popped_t - r.enqueue_t,
                 )
                 off += r.n
                 ms.completed += 1
                 ms.latencies.append(out.latency_s)
+                ms.queue_waits.append(out.queue_wait_s)
                 if not r.payload.done():
                     r.payload.set_result(out)

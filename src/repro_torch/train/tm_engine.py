@@ -46,6 +46,7 @@ from repro_torch.core.ingress import IngressSpec, device_ingress
 from repro_torch.core.train import TrainDraws, _step_literals, make_draws
 from repro_torch.data.pipeline import PipelineState, epoch_permutation
 from repro_torch.launch.mesh import DeviceMesh
+from repro_torch.spans import span
 
 __all__ = ["EpochReport", "TMDataset", "TrainerEngine"]
 
@@ -213,7 +214,7 @@ class TrainerEngine:
             perm[state.step * b : n_steps * b].reshape(steps, b).astype(np.int64)
         ).to(self.device)
         for s in range(steps):
-            with torch.profiler.record_function("train.draws"):
+            with span("train.draws"):
                 source, draws = self._draws(source)
             ix = idx[s]
             model = _step_literals(draws, model, ds.literals[ix], ds.labels[ix],

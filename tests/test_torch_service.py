@@ -160,6 +160,42 @@ def test_results_match_reference_under_concurrent_mixed_forms_and_drain():
     assert held.stats("glyphs").batches == 1 and drained[0].batch_requests == 4
 
 
+def test_queue_wait_thread_times_and_collections_in_the_stats():
+    """Each request's queue wait is at most its latency; the dispatch and
+    completion threads' time per microbatch is counted; a collection
+    forced while the service runs is counted and shows its pause, and the
+    collector hook is gone after stop."""
+    import gc
+
+    engine, ref = _pair()
+    batches = [_raw(n, seed=40 + i) for i, n in enumerate((1, 2, 5, 1, 3, 4))]
+
+    async def run():
+        service = ServingService(engine, ServiceConfig(max_delay_us=300.0))
+        await service.start()
+        hooks = [cb for cb in gc.callbacks if cb not in before]
+        first = await asyncio.gather(*(service.submit("glyphs", b) for b in batches[:3]))
+        counted = sum(service.stats("glyphs").gc_collections)
+        gc.collect()
+        after = service.stats("glyphs")
+        rest = await asyncio.gather(*(service.submit("glyphs", b) for b in batches[3:]))
+        await service.stop(drain=True)
+        return service, hooks, first + rest, counted, after
+
+    before = list(gc.callbacks)
+    service, hooks, results, counted, after = asyncio.run(run())
+    assert len(hooks) == 1 and gc.callbacks == before
+    assert after.gc_collections[2] >= 1 and sum(after.gc_collections) > counted
+    assert after.gc_max_gen2_pause_us > 0 and after.gc_pause_us[2] >= after.gc_max_gen2_pause_us
+    for b, r in zip(batches, results):
+        _same(r, ref.classify("glyphs", b))
+        assert 0.0 <= r.queue_wait_s <= r.latency_s
+    st = service.stats("glyphs")
+    assert 0.0 < st.p50_queue_wait_us <= st.p99_queue_wait_us <= st.p99_latency_us
+    assert st.dispatch_us_per_batch > 0 and st.complete_us_per_batch > 0
+    assert st.as_dict()["gc_collections"] == st.gc_collections
+
+
 def test_coalesced_microbatch_fills_one_bucket():
     engine, ref = _pair()
 
@@ -417,6 +453,7 @@ def test_launcher_service_and_checkpoint_run_on_cpu(tmp_path, capsys):
                        "--deadline-s", "30"])
     out = capsys.readouterr().out
     assert "restored model from" in out and "accuracy" in out and "malformed" in out
+    assert "queue wait p50" in out and "longest gen-2" in out
     stats = launch_serve.serve_tm("convcotm-mnist", n_requests=2, max_batch=8,
                                   ckpt_dir=str(tmp_path), ingress="host", device="cpu")
     assert stats["requests"] == 2 and stats["compiled_buckets"]
