@@ -17,7 +17,9 @@ this file and builds the CUDA kernels from ``src/repro_torch/csrc``).
      ``torch.equal`` after a synchronise (every output is an integer):
      the ingress kernel over six geometries (one with rows and windows
      wider than 32 columns, one whose words exceed the kernel's shared
-     tile); the fused, clause-eval, sparse clause-eval
+     tile), in both modes (the adaptive one on raw pixels at five
+     windows, each also at c 0, against the adaptive booleanize and the
+     plain pack); the fused, clause-eval, sparse clause-eval
      and sparse fused kernels over the reference's kernel sweep with
      CSRF on and off, both density extremes, a saturating pool and the
      envelope corner, and at the autotuner's ``block_c`` 32 and 64 (CSRF
@@ -53,7 +55,8 @@ this file and builds the CUDA kernels from ``src/repro_torch/csrc``).
      ``kernel`` path's class sums.  Then the adaptive and trainer paths,
      each drive in a launch window of its own: ``convcotm-fmnist`` (adaptive Gaussian
      ingress, block 11, c 2) on ``fused`` and ``fused_sparse`` with
-     requests of 1, 3, 256 and 300 images, equal to the CPU plain
+     requests of 1, 3, 256 and 300 images, through the ingress kernel's
+     adaptive mode (none of its bits mode), equal to the CPU plain
      composition and to the host ingress; the trainer at full width (6
      batch-mode steps of 100) on the card and on the CPU from one key
      (the first step's draws equal but for the Gumbel noise's logs, equal
@@ -111,7 +114,9 @@ this file and builds the CUDA kernels from ``src/repro_torch/csrc``).
      warm-up; a spin kernel holds the card while the host enqueues each
      window, so the times are the card's): the launch floor (a kernel
      that does nothing, ``torch.cuda._sleep(0)``, before and after the
-     kernels), the ingress kernel, each tile kernel on the boundary and
+     kernels), the ingress kernel in both modes (the adaptive one also
+     beside the composition it replaces: the booleanize's torch
+     operations, then the bits mode), each tile kernel on the boundary and
      the few-include pool, and the class sums on the few-include pool's
      fired bits (C=128, M=10) and at the envelope (C=1024, M=64, seeded
      bits, int8 weights over the full range), each beside its plain
@@ -241,6 +246,10 @@ MAX_HOLD_CYCLES = 1 << 26
 #: The eval paths of the second drive, and the kernels of the first.
 SLICE2_PATHS = ("kernel", "sparse", "fused_sparse", "matmul_sparse")
 SLICE1_KERNELS = ("ingress_pack", "fused_infer")
+#: (block_size, c) of the adaptive ingress kernel's checks: the paper's
+#: window, and windows that take the 2- and 4-blocks, a 16-block chained
+#: with fused multiply-adds, and 32 chained taps.
+ADAPTIVE_WINDOWS = ((11, 2.0), (3, 0.5), (13, 1.5), (17, 2.0), (41, 2.0))
 #: Clauses per tile that the autotuner sweeps beside the default 128.
 TUNED_BLOCK_C = (32, 64)
 #: The tile kernel each kernel path launches.
@@ -515,6 +524,7 @@ def adaptive_serving(engine, cpu, pools, registry, dev) -> dict:
     from repro_torch.configs.convcotm import BOOLEANIZE_METHOD, COTM_CONFIGS
     from repro_torch.core.booleanize import adaptive_gaussian_booleanize
     from repro_torch.data import synthetic_glyphs
+    from repro_torch.kernels import ops
 
     arch = "convcotm-fmnist"
     cfg, method = COTM_CONFIGS[arch], BOOLEANIZE_METHOD[arch]
@@ -541,8 +551,10 @@ def adaptive_serving(engine, cpu, pools, registry, dev) -> dict:
     launches = registry.launch_counts()
     print(f"[engine] launches during classify of {arch} (adaptive ingress) on "
           f"{list(names)}: {launches}")
-    for name in ("ingress_pack", "fused_infer", "fused_infer_sparse"):
+    for name in ("ingress_pack_adaptive", "fused_infer", "fused_infer_sparse"):
         check(launches[name] > 0, f"kernel {name} was not launched on the adaptive paths")
+    check(launches["ingress_pack"] == 0,
+          f"the adaptive paths launched the bits mode: {launches['ingress_pack']}")
     for path in names:
         for i, (n, r) in enumerate(zip(sizes, requests)):
             res = served[path, i]
@@ -553,16 +565,20 @@ def adaptive_serving(engine, cpu, pools, registry, dev) -> dict:
             check(same_result(res, cpu.classify(f"{arch}/{path}", r, ingress="host")),
                   f"{arch} request of {n}: {path} differs from the host ingress")
         check(bool(served[path, 2].class_sums.any()), f"{arch}/{path}: every class sum is 0")
-    # The adaptive bits themselves, card against CPU, on every request.
+    # The adaptive bits themselves, card against CPU, and the kernel's words
+    # against its twin's, on every request.
     for r in requests:
         x = torch.from_numpy(r)
         check(torch.equal(adaptive_gaussian_booleanize(x.to(dev)).cpu(),
                           adaptive_gaussian_booleanize(x)),
               "adaptive booleanize on the card differs from the CPU")
+        check(torch.equal(ops.ingress_pack_adaptive(x.to(dev), cfg.patch),
+                          ops.ingress_pack_adaptive(x.to(dev), cfg.patch, backend="plain")),
+              f"ingress_pack_adaptive differs from its twin on a request of {len(r)}")
     ones = float(adaptive_gaussian_booleanize(torch.from_numpy(requests[2])).float().mean())
     print(f"[engine] {arch}: fused, fused_sparse == plain (CPU) == host ingress (CPU) on "
           f"requests of {list(sizes)} (glyphs and noise); adaptive bits card == CPU "
-          f"({ones:.3f} of the bits set)")
+          f"({ones:.3f} of the bits set); ingress_pack_adaptive == its twin on each")
     return launches
 
 
@@ -3485,7 +3501,7 @@ def main() -> int:
     import numpy as np
 
     from repro_torch.configs.convcotm import BOOLEANIZE_METHOD, COTM_CONFIGS
-    from repro_torch.core.booleanize import threshold_booleanize
+    from repro_torch.core.booleanize import adaptive_gaussian_booleanize, threshold_booleanize
     from repro_torch.core.cotm import init_boundary_model
     from repro_torch.core.ingress import apply_ingress
     from repro_torch.core.patches import PatchSpec, pack_bits
@@ -3579,6 +3595,27 @@ def main() -> int:
             torch.cuda.synchronize()
             check(torch.equal(got, want), f"ingress_pack differs from plain: {name} B={b}")
         print(f"[kernel] ingress_pack == plain: {name} (B=1,5,256)")
+    # The adaptive mode: raw pixels (integer planes, on which the exact
+    # local mean is the pixel itself, so at c = 0 its last bit decides, and
+    # noise) against the plain twin, at windows that take each branch of
+    # the window sum.
+    for name, spec in ingress_specs.items():
+        yy, xx = torch.meshgrid(torch.arange(spec.image_y, device=dev),
+                                torch.arange(spec.image_x, device=dev), indexing="ij")
+        raw = torch.randint(0, 256, (256, spec.image_y, spec.image_x), generator=gen,
+                            device=dev, dtype=torch.uint8)
+        raw[0], raw[1], raw[2] = (yy + 2 * xx) % 256, (200 - 3 * yy // 2 - xx) % 256, 77
+        for block_size, c in ADAPTIVE_WINDOWS:
+            for cc in (c, 0.0):
+                for b in (1, 5, 256):
+                    got = ops.ingress_pack_adaptive(raw[:b], spec, block_size, cc)
+                    want = ops.ingress_pack_adaptive(raw[:b], spec, block_size, cc,
+                                                     backend="plain")
+                    torch.cuda.synchronize()
+                    check(torch.equal(got, want), f"ingress_pack_adaptive differs from plain: "
+                          f"{name} B={b} block {block_size} c {cc}")
+        print(f"[kernel] ingress_pack_adaptive == plain: {name} (B=1,5,256; (block, c) "
+              f"{ADAPTIVE_WINDOWS}, each also at c 0)")
 
     def fused_inputs(b, p, c, nlit, m=10, include_p=None, lit_p=0.5):
         lits = pack_bits(rand_bits((b, p, nlit), lit_p))
@@ -3884,10 +3921,21 @@ def main() -> int:
     # one per output word (ingress), one LOP3 per word test these inputs
     # need (tile kernels), one multiply-add per (image, class, clause)
     # (class sums, over the int8 tensor-core ceiling).
+    # The adaptive mode reads the raw pixels where the bits mode reads the
+    # booleanized ones: the same bytes and words; its float work (2 x 21
+    # operations a pixel at 11 taps) is 0.13 us at 67 TFLOP/s, below both.
     cases = [("ingress_pack", None,
               lambda: ops.ingress_pack(bool_imgs, spec),
               lambda: ops.ingress_pack(bool_imgs, spec, backend="plain"),
+              (b * spec.image_y * spec.image_x + lit_bytes, b * p * w)),
+             ("ingress_pack_adaptive", None,
+              lambda: ops.ingress_pack_adaptive(raw, spec),
+              lambda: ops.ingress_pack_adaptive(raw, spec, backend="plain"),
               (b * spec.image_y * spec.image_x + lit_bytes, b * p * w))]
+    # The route the adaptive mode replaces on the card: the booleanize as
+    # torch operations, then the bits mode.
+    compositions = {"ingress_pack_adaptive": lambda: ops.ingress_pack(
+        adaptive_gaussian_booleanize(raw), spec)}
     c_as = {}
     # The dense tile kernels at the autotuner's other block_c, timed in the
     # same windows beside their default (128).
@@ -3959,20 +4007,27 @@ def main() -> int:
     rows = []
     for name, pool, fn, plain_fn, (nbytes, nops) in cases:
         got, want = fn(), plain_fn()
-        if parent_dir:
+        # The parent's turns, where its build has this kernel's entry point.
+        parent = parent_dir
+        if parent:
             with _build.libraries_from(parent_dir):
-                old_out = fn()
-            torch.cuda.synchronize()
-            check(torch.equal(old_out, want), f"the parent's {name} differs from plain ({pool})")
+                try:
+                    old_out = fn()
+                except AttributeError:          # ctypes: no such symbol there
+                    parent = None
+            if parent:
+                torch.cuda.synchronize()
+                check(torch.equal(old_out, want),
+                      f"the parent's {name} differs from plain ({pool})")
         torch.cuda.synchronize()
         err = int((got.long() - want.long()).abs().max()) if want.numel() else 0
         check(err == 0, f"{name} ({pool}) differs from plain at B=256: {err}")
         # Turns: parent, this tree, this tree, parent.
         t_new, t_old, unheld = [], [], []
         for turn in ("parent", "new", "new", "parent"):
-            if turn == "parent" and not parent_dir:
+            if turn == "parent" and not parent:
                 continue
-            with (_build.libraries_from(parent_dir) if turn == "parent"
+            with (_build.libraries_from(parent) if turn == "parent"
                   else contextlib.nullcontext()):
                 t, held = time_ms(fn, inner=20)
             (t_old if turn == "parent" else t_new).append(t)
@@ -3992,6 +4047,13 @@ def main() -> int:
                                               inner=20)[0]
             print(f"[time] {name} B={b} {pool} pool by block_c: "
                   f"{', '.join(f'{k} {v:.5f} ms' for k, v in block_c_ms.items())}")
+        composition_ms = None
+        if name in compositions:
+            check(torch.equal(compositions[name](), want),
+                  f"{name}: the composition it replaces differs from plain")
+            composition_ms, held = time_ms(compositions[name], inner=20)
+            if not held:
+                unheld.append("composition_ms")
         plain_ms, plain_held = time_ms(plain_fn, inner=3, repeats=5, warmup=1)
         matmul_fn, int_mm_fn = libraries.get((name, pool), (None, None))
         library_ms, lib_held = time_ms(matmul_fn, inner=20) if matmul_fn else (None, True)
@@ -4036,6 +4098,10 @@ def main() -> int:
             # torch._int_mm on the same bits (class sums; null where it
             # refuses the shape or for the other kernels).
             "int_mm_ms": int_mm_ms,
+            # The route the kernel replaces, on the same inputs (the
+            # adaptive ingress: the booleanize's torch operations, then
+            # the bits mode; else null).
+            "composition_ms": composition_ms,
             # A kernel that does nothing, in the same windows (mean of the
             # readings before and after the kernels; set below).
             "launch_floor_ms": None,
@@ -4046,7 +4112,9 @@ def main() -> int:
             "host_gaps_in": sorted(set(unheld)),
         })
         lib = (f", torch.matmul {library_ms:.5f} ms" if library_ms is not None else "") + (
-            f", torch._int_mm {int_mm_ms:.5f} ms" if int_mm_ms is not None else "")
+            f", torch._int_mm {int_mm_ms:.5f} ms" if int_mm_ms is not None else "") + (
+            f", composition (booleanize ops + bits mode) {composition_ms:.5f} ms"
+            if composition_ms is not None else "")
         old = (f", parent {parent_ms:.5f} ms (turns {', '.join(f'{x:.5f}' for x in t_old)}; "
                f"this tree {', '.join(f'{x:.5f}' for x in t_new)})" if t_old else "")
         where = (f" envelope (C={env_c} M={env_m})" if pool == "envelope"

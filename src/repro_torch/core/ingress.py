@@ -6,7 +6,10 @@ H2D copy of raw uint8 pixels feeds the whole classify step.  On the
 packed route of a Z=U=1 geometry a CUDA tensor goes through the CUDA
 ingress-pack kernel, which writes only the packed words to device memory
 (as the reference drops into its Pallas kernel on the TPU); a CPU tensor
-takes the plain composition.
+takes the plain composition.  Raw uint8 pixels on a card under the
+adaptive method skip the separate booleanize too: the kernel's adaptive
+mode takes them to packed words in one launch
+(:func:`uses_adaptive_kernel`).
 
 Methods: ``threshold`` (MNIST), ``adaptive`` (alias
 ``adaptive_gaussian``; FMNIST/KMNIST), ``thermometer`` (scaled-up
@@ -34,7 +37,8 @@ from repro_torch.core.patches import (
     make_literals,
     pack_bits,
 )
-from repro_torch.kernels.ops import ingress_pack
+from repro_torch.kernels.ingress import MAX_TAPS
+from repro_torch.kernels.ops import ingress_pack, ingress_pack_adaptive
 from repro_torch.spans import span
 
 __all__ = [
@@ -43,6 +47,7 @@ __all__ = [
     "apply_ingress",
     "device_ingress",
     "raw_trailing_shape",
+    "uses_adaptive_kernel",
 ]
 
 #: Method aliases: the paper's FMNIST/KMNIST preprocessing is OpenCV's
@@ -137,9 +142,23 @@ def _with_feature_axes(bits: torch.Tensor, patch: PatchSpec) -> torch.Tensor:
     )
 
 
+def uses_adaptive_kernel(spec: IngressSpec, raw: torch.Tensor) -> bool:
+    """Whether :func:`apply_ingress` hands ``raw`` whole to the ingress-pack
+    kernel's adaptive mode: raw uint8 pixels on a card, the adaptive method,
+    the packed form of a Z=U=1 geometry, and a window the launch holds.
+    Any other input booleanizes first, as the reference does."""
+    p = spec.patch
+    return (raw.is_cuda and raw.dtype == torch.uint8 and spec.resolved_method == "adaptive"
+            and spec.packed and p.channels == 1 and p.therm_bits == 1
+            and spec.block_size <= MAX_TAPS)
+
+
 def apply_ingress(spec: IngressSpec, raw: torch.Tensor) -> torch.Tensor:
     """Raw pixels -> dense uint8 ``[B, P, 2o]`` or packed int32 ``[B, P, W]``
     literals, on ``raw``'s device."""
+    if uses_adaptive_kernel(spec, raw):
+        with span("ingress.pack"):
+            return ingress_pack_adaptive(raw, spec.patch, spec.block_size, spec.c)
     with span("ingress.booleanize"):
         bits = _with_feature_axes(apply_booleanize(spec, raw), spec.patch)
     with span("ingress.pack"):

@@ -40,7 +40,12 @@ from repro_torch.kernels.fused_infer import (
     fused_infer_sparse_cuda,
     fused_infer_sparse_plain,
 )
-from repro_torch.kernels.ingress import ingress_pack_cuda, ingress_pack_plain
+from repro_torch.kernels.ingress import (
+    ingress_pack_adaptive_cuda,
+    ingress_pack_adaptive_plain,
+    ingress_pack_cuda,
+    ingress_pack_plain,
+)
 from repro_torch.kernels.shapes import BLOCK_C, check_block_c
 from repro_torch.kernels.threefry import threefry_cuda, threefry_plain
 
@@ -52,6 +57,7 @@ __all__ = [
     "fused_infer_from_images",
     "fused_infer_sparse",
     "ingress_pack",
+    "ingress_pack_adaptive",
     "matmul_sparse_infer",
     "threefry",
 ]
@@ -74,6 +80,19 @@ def ingress_pack(
     if _use_kernel(bool_images, backend):
         return ingress_pack_cuda(bool_images, spec)
     return ingress_pack_plain(bool_images, spec)
+
+
+def ingress_pack_adaptive(
+    images: torch.Tensor, spec, block_size: int = 11, c: float = 2.0, *,
+    backend: Optional[str] = None,
+) -> torch.Tensor:
+    """Packed patch literals int32 ``[B, P, W]`` from raw uint8 ``[B, Y, X]``
+    pixels under the adaptive Gaussian booleanize; on the card one launch,
+    and neither the booleanized bits nor the local mean reach device
+    memory."""
+    if _use_kernel(images, backend):
+        return ingress_pack_adaptive_cuda(images, spec, block_size, c)
+    return ingress_pack_adaptive_plain(images, spec, block_size, c)
 
 
 def fused_infer(

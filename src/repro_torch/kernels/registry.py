@@ -27,7 +27,12 @@ from repro_torch.kernels.fused_infer import (
     fused_infer_sparse_cuda,
     fused_infer_sparse_plain,
 )
-from repro_torch.kernels.ingress import ingress_pack_cuda, ingress_pack_plain
+from repro_torch.kernels.ingress import (
+    ingress_pack_adaptive_cuda,
+    ingress_pack_adaptive_plain,
+    ingress_pack_cuda,
+    ingress_pack_plain,
+)
 from repro_torch.kernels.threefry import threefry_cuda, threefry_plain
 
 __all__ = ["KERNELS", "Kernel", "launch_counts", "reset_launches"]
@@ -50,6 +55,17 @@ KERNELS: Dict[str, Kernel] = {
             name="ingress_pack",
             cuda=ingress_pack_cuda,
             plain=ingress_pack_plain,
+            jax_oracle="ingress_pack_ref",
+            source="src/repro_torch/csrc/ingress_pack.cu",
+            replaces="src/repro/kernels/ingress.py:94 ingress_pack_pallas",
+        ),
+        # The same kernel in its adaptive mode: the reference booleanizes
+        # with XLA's operations, then packs in the Pallas kernel; its
+        # oracle is ingress_pack_ref over adaptive_gaussian_booleanize.
+        Kernel(
+            name="ingress_pack_adaptive",
+            cuda=ingress_pack_adaptive_cuda,
+            plain=ingress_pack_adaptive_plain,
             jax_oracle="ingress_pack_ref",
             source="src/repro_torch/csrc/ingress_pack.cu",
             replaces="src/repro/kernels/ingress.py:94 ingress_pack_pallas",

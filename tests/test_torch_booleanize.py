@@ -8,14 +8,17 @@ to OpenCV's outputs in ``tests/data/adaptive_golden.npz`` with the same
 checks ``tests/test_booleanize_golden.py`` makes of the reference.
 """
 
+import contextlib
 import importlib
 import os
 from fractions import Fraction
+from types import SimpleNamespace
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from _near_mean import ADAPTIVE_CASES, near_mean_images
 
 from repro.core.ingress import IngressSpec as JIngressSpec
 from repro.core.ingress import apply_ingress as j_apply_ingress
@@ -24,11 +27,13 @@ from repro.core.patches import PatchSpec as JPatchSpec
 from repro.data import pipeline as jpipe
 from repro_torch.convert import words_to_uint32
 from repro_torch.core import booleanize as tb
+from repro_torch.core import ingress as t_ingress
 from repro_torch.core.ingress import (
     IngressSpec,
     apply_ingress,
     device_ingress,
     raw_trailing_shape,
+    uses_adaptive_kernel,
 )
 from repro_torch.core.patches import PatchSpec
 from repro_torch.data import pipeline as tpipe
@@ -56,11 +61,7 @@ def test_gaussian_kernel_matches_reference(size):
     np.testing.assert_array_equal(tb.gaussian_kernel1d(size), jb.gaussian_kernel1d(size))
 
 
-# Sizes that take each branch of the window sum: one lane block of 1, 2, 4
-# or 8 products, a 16-block chained with fused multiply-adds, and 3 blocks
-# of 8 (a 16-block and an 8-block summed apart).
-@pytest.mark.parametrize("block_size,c", [(3, 0.5), (5, 2.0), (7, 3.0), (11, 2.0),
-                                          (13, 1.5), (17, 2.0), (25, 4.0), (41, 2.0)])
+@pytest.mark.parametrize("block_size,c", ADAPTIVE_CASES)
 @pytest.mark.parametrize("seed", [0, 1, 2])
 def test_adaptive_matches_reference_on_random_images(block_size, c, seed):
     rng = np.random.default_rng(seed)
@@ -91,6 +92,82 @@ def test_adaptive_batch_shapes_and_float_input():
         _adaptive(xf, 7, 0.3), np.asarray(jb.adaptive_gaussian_booleanize(xf, 7, 0.3)))
     with pytest.raises(ValueError, match="odd"):
         tb.adaptive_gaussian_booleanize(torch.zeros((1, 5, 5)), 4)
+
+
+def _kernel_window_sum(v, k, axis):
+    """Model of ``csrc/ingress_pack.cu``'s ``AdaptiveGaussian::window_sum``
+    at every position of ``axis`` at once: tap j of position i reads ``v``
+    at the clamped index ``clamp(i - taps // 2 + j)`` (no padded copy);
+    the first ``taps // 16 * 16`` taps go to 8 lanes (products, then one
+    fused multiply-add a tap per lane), then blocks of 8, 4, 2 and 1, each
+    product and sum a float32 op of its own, in the kernel's order."""
+    n, taps = v.shape[axis], len(k)
+    first = torch.arange(n) - taps // 2
+    kk = [float(t) for t in k]
+
+    def at(j):
+        return v.index_select(axis, (first + j).clamp(0, n - 1))
+
+    def prod(j):
+        return at(j) * kk[j]
+
+    def reduce8(p):
+        return ((p[0] + p[1]) + (p[4] + p[5])) + ((p[2] + p[3]) + (p[6] + p[7]))
+
+    parts = []
+    n16 = taps // 16 * 16
+    if n16:
+        lane = [prod(i) for i in range(8)]
+        for j in range(8, n16, 8):
+            lane = [tb._fma(at(j + i), kk[j + i], lane[i]) for i in range(8)]
+        parts.append(reduce8(lane))
+    j = n16
+    if taps - j >= 8:
+        parts.append(reduce8([prod(j + i) for i in range(8)]))
+        j += 8
+    if taps - j >= 4:
+        parts.append((prod(j) + prod(j + 1)) + (prod(j + 2) + prod(j + 3)))
+        j += 4
+    if taps - j >= 2:
+        parts.append(prod(j) + prod(j + 1))
+        j += 2
+    if taps - j >= 1:
+        parts.append(prod(j))
+    total = parts[0]
+    for part in parts[1:]:
+        total = total + part
+    return total
+
+
+def _kernel_model(images, block_size, c):
+    """The adaptive mode of the ingress-pack kernel up to its ballot: raw
+    pixels to float32, the Y pass, the X pass on its result, then
+    ``pixel > mean - c`` in float32."""
+    x = torch.from_numpy(images).to(torch.float32)
+    k = tb.gaussian_kernel1d(block_size)
+    mean = _kernel_window_sum(_kernel_window_sum(x, k, 1), k, 2)
+    return (x > mean - torch.tensor(c, dtype=torch.float32)).to(torch.uint8).numpy()
+
+
+# Image heights and widths of the kernels' geometries (tests/test_torch_kernels.py
+# and chip_smoke.py): the paper's, ``wide``, ``chunked`` and an 11x11 image.
+MODEL_IMAGES = {"paper": (28, 28), "wide": (20, 48), "chunked": (64, 64), "11x11": (11, 11),
+                "golden": None}
+
+
+@pytest.mark.parametrize("block_size,c", ADAPTIVE_CASES)
+@pytest.mark.parametrize("images", sorted(MODEL_IMAGES))
+def test_adaptive_kernel_model_matches_reference(images, block_size, c, golden):
+    """The kernel's arithmetic, modelled on the CPU, gives the reference's
+    bits bit for bit: clamped indices in place of padding, a fixed order a
+    pixel, fused multiply-adds in the 16-blocks.  At ``c = 0`` the planes
+    and the flat image are decided by the mean's last bit (a sum taken in
+    another order, or a multiply-add rounded twice, fails there)."""
+    shape = MODEL_IMAGES[images]
+    imgs = golden["images"] if shape is None else near_mean_images(7, *shape, seed=block_size)
+    for cc in (c, 0.0):
+        want = np.asarray(jb.adaptive_gaussian_booleanize(imgs, block_size, cc))
+        np.testing.assert_array_equal(_kernel_model(imgs, block_size, cc), want)
 
 
 def _round_f32(x):
@@ -231,3 +308,65 @@ def test_ingress_spec_validation_matches_reference():
     with pytest.raises(ValueError, match="unknown booleanization method"):
         IngressSpec(patch, method="gaussian")
     assert IngressSpec(patch, method="thermometer", levels=3).resolved_method == "thermometer"
+
+
+PAPER = dict(image_x=28, image_y=28, window_x=10, window_y=10)
+
+
+# (patch kwargs, spec kwargs, input device, input dtype, takes the kernel)
+ROUTES = {
+    "card_uint8_adaptive": (PAPER, dict(method="adaptive"), True, torch.uint8, True),
+    "card_uint8_alias": (PAPER, dict(method="adaptive_gaussian", block_size=41, c=0.5), True,
+                         torch.uint8, True),
+    "cpu": (PAPER, dict(method="adaptive"), False, torch.uint8, False),
+    "float_pixels": (PAPER, dict(method="adaptive"), True, torch.float32, False),
+    "dense": (PAPER, dict(method="adaptive", packed=False), True, torch.uint8, False),
+    "threshold": (PAPER, dict(method="threshold"), True, torch.uint8, False),
+    "none": (PAPER, dict(method="none"), True, torch.uint8, False),
+    "thermometer": (dict(PAPER, therm_bits=3), dict(method="thermometer", levels=3), True,
+                    torch.uint8, False),
+    "multichannel": (dict(PAPER, channels=2), dict(method="adaptive"), True, torch.uint8,
+                     False),
+    "window_past_the_taps": (PAPER, dict(method="adaptive", block_size=65), True, torch.uint8,
+                             False),
+}
+
+
+@pytest.mark.parametrize("case", sorted(ROUTES))
+def test_only_raw_uint8_adaptive_packed_card_input_takes_the_adaptive_kernel(case):
+    """The route rests on what the input shows: a CUDA uint8 tensor (a
+    stand-in here), the adaptive method, the packed form of a Z=U=1
+    geometry and a window the launch holds; anything else booleanizes
+    first."""
+    patch_kw, kw, is_cuda, dtype, fused = ROUTES[case]
+    spec = IngressSpec(PatchSpec(**patch_kw), **kw)
+    assert uses_adaptive_kernel(spec, SimpleNamespace(is_cuda=is_cuda, dtype=dtype)) is fused
+
+
+@pytest.mark.parametrize("fused", [False, True], ids=["booleanize_first", "adaptive_kernel"])
+def test_adaptive_route_gives_the_references_words_in_one_pack_span(monkeypatch, fused):
+    """With the route taken (the predicate forced on, the CPU running the
+    kernel's plain twin) one ``ingress.pack`` span covers the whole
+    ingress; without it the booleanize has its own span.  The words are
+    the reference's either way."""
+    spans, calls = [], []
+
+    @contextlib.contextmanager
+    def record(name, **_):
+        spans.append(name)
+        yield
+
+    adaptive = t_ingress.ingress_pack_adaptive
+    monkeypatch.setattr(t_ingress, "span", record)
+    monkeypatch.setattr(t_ingress, "uses_adaptive_kernel", lambda spec, raw: fused)
+    monkeypatch.setattr(t_ingress, "ingress_pack_adaptive",
+                        lambda *a: calls.append(a[2:]) or adaptive(*a))
+    kw = dict(image_x=12, image_y=12, window_x=4, window_y=4)
+    raw = np.random.default_rng(8).integers(0, 256, (3, 12, 12), dtype=np.uint8)
+    spec = IngressSpec(PatchSpec(**kw), method="adaptive", block_size=5, c=2.0)
+    want = j_apply_ingress(JIngressSpec(JPatchSpec(**kw), method="adaptive", block_size=5,
+                                        c=2.0), jnp.asarray(raw))
+    got = apply_ingress(spec, torch.from_numpy(raw))
+    np.testing.assert_array_equal(words_to_uint32(got), np.asarray(want))
+    assert spans == (["ingress.pack"] if fused else ["ingress.booleanize", "ingress.pack"])
+    assert calls == ([(5, 2.0)] if fused else [])

@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.core.booleanize import adaptive_gaussian_booleanize as j_adaptive
 from repro.core.patches import PatchSpec as JPatchSpec
 from repro.core.patches import pack_bits as jpack
 from repro.kernels import ops as jops
@@ -27,7 +28,7 @@ from repro_torch.kernels import (
 from repro_torch.kernels.class_sum import class_sum_cuda
 from repro_torch.kernels.clause_eval import clause_eval_cuda, clause_eval_sparse_cuda
 from repro_torch.kernels.fused_infer import fused_infer_cuda, fused_infer_sparse_cuda
-from repro_torch.kernels.ingress import ingress_pack_cuda
+from repro_torch.kernels.ingress import ingress_pack_adaptive_cuda, ingress_pack_cuda
 
 # (B, P, C, 2o): the reference's kernel sweep (tests/test_kernels.py).
 SHAPES = [
@@ -113,6 +114,21 @@ def test_ingress_pack_plain_matches_oracle(name):
     got = ops.ingress_pack(torch.from_numpy(imgs), ts)
     assert got.dtype == torch.int32 and got.shape == (5, ts.n_patches, ts.n_words)
     np.testing.assert_array_equal(np.asarray(want), words_to_uint32(got))
+
+
+@pytest.mark.parametrize("name", sorted(INGRESS_GEOMETRIES))
+def test_ingress_pack_adaptive_plain_matches_oracle(name):
+    """The adaptive mode's plain twin: raw pixels through the reference's
+    adaptive booleanize and its ``ingress_pack_ref`` give the same words."""
+    kw = INGRESS_GEOMETRIES[name]
+    js, ts = JPatchSpec(**kw), PatchSpec(**kw)
+    imgs = np.random.default_rng(7).integers(0, 256, (4, ts.image_y, ts.image_x),
+                                             dtype=np.uint8)
+    for block_size, c in ((11, 2.0), (3, 0.5)):
+        want = ref.ingress_pack_ref(j_adaptive(jnp.asarray(imgs), block_size, c), js)
+        got = ops.ingress_pack_adaptive(torch.from_numpy(imgs), ts, block_size, c)
+        assert got.dtype == torch.int32 and got.shape == (4, ts.n_patches, ts.n_words)
+        np.testing.assert_array_equal(np.asarray(want), words_to_uint32(got))
 
 
 def test_ingress_pack_plain_matches_interpreted_pallas():
@@ -493,6 +509,23 @@ def test_cuda_wrappers_refuse_cpu_tensors():
             call()
 
 
+def test_adaptive_wrapper_refuses_what_its_launch_cannot_take():
+    """The adaptive mode's wrapper raises, each with its message, on a
+    window past the taps its launch holds (or an even one), on images that
+    are not uint8, and on a CPU tensor; it never takes the plain twin."""
+    spec = PatchSpec(**INGRESS_GEOMETRIES["paper"])
+    raw = torch.zeros((2, 28, 28), dtype=torch.uint8)
+    for bad in (ingress.MAX_TAPS + 2, 12):
+        with pytest.raises(ValueError, match=f"odd and at most {ingress.MAX_TAPS}"):
+            ingress_pack_adaptive_cuda(raw, spec, bad, 2.0)
+    with pytest.raises(TypeError, match="uint8"):
+        ingress_pack_adaptive_cuda(raw.float(), spec, 11, 2.0)
+    with pytest.raises(ValueError, match="needs a CUDA tensor"):
+        ingress_pack_adaptive_cuda(raw, spec, 11, 2.0)
+    with pytest.raises(ValueError, match="backend"):
+        ops.ingress_pack_adaptive(raw, spec, backend="triton")
+
+
 def test_missing_nvcc_raises(monkeypatch, tmp_path):
     """With no toolkit the build raises; there is no silent plain fallback."""
     monkeypatch.setattr(_build.shutil, "which", lambda _: None)
@@ -504,11 +537,12 @@ def test_missing_nvcc_raises(monkeypatch, tmp_path):
 
 def test_registry_names_every_kernel():
     """The six TPU kernels' counterparts, each naming its ``kernels/ref.py``
-    oracle and the Pallas kernel it replaces, and the port-only threefry
+    oracle and the Pallas kernel it replaces, the ingress kernel's adaptive
+    mode (the same source and Pallas kernel), and the port-only threefry
     kernel, whose oracle is ``jax.random``'s and which replaces no Pallas
     kernel (XLA lowers the reference's generator)."""
-    names = {"ingress_pack", "fused_infer", "fused_infer_sparse", "clause_eval",
-             "clause_eval_sparse", "class_sum", "threefry"}
+    names = {"ingress_pack", "ingress_pack_adaptive", "fused_infer", "fused_infer_sparse",
+             "clause_eval", "clause_eval_sparse", "class_sum", "threefry"}
     assert set(registry.KERNELS) == names
     repo = _build.CSRC.parents[2]
     for k in registry.KERNELS.values():
@@ -539,6 +573,23 @@ def test_ingress_shared_bytes_follow_the_kernels_chunk_rule(geometry, chunk):
     assert chunk * spec.n_words <= max(ingress.TILE_WORDS, spec.n_words)
 
 
+@pytest.mark.parametrize("geometry", [
+    dict(image_x=28, image_y=28, window_x=10, window_y=10),
+    dict(image_x=64, image_y=64, window_x=10, window_y=10),
+    dict(image_x=48, image_y=20, window_x=36, window_y=6, stride_x=3, stride_y=2),
+])
+def test_ingress_shared_bytes_add_the_adaptive_modes_two_float_planes(geometry):
+    """The adaptive mode's launch adds two float32 Y x X planes (the pixels
+    and the Gaussian's Y pass) to the bits mode's rows and tile, as the C
+    entry point sizes it; 6,272 bytes at the paper's geometry."""
+    spec = PatchSpec(**geometry)
+    planes = 2 * 4 * spec.image_y * spec.image_x
+    assert ingress.shared_bytes(spec, adaptive=True) == ingress.shared_bytes(spec) + planes
+    assert ingress.shared_bytes(spec, adaptive=True) <= ingress.MAX_SHARED_BYTES
+    if spec.image_x == spec.image_y == 28:
+        assert planes == 6272
+
+
 class _FakeFn:
     def __init__(self, path, symbol):
         self.path, self.symbol = path, symbol
@@ -559,6 +610,7 @@ class _FakeLib:
 
 @pytest.mark.parametrize("module, args, library", [
     (ingress, (), "ingress_pack"),
+    (ingress, ("ingress_pack_adaptive",), "ingress_pack"),
     (fused_infer, ("fused_infer",), "fused_infer"),
     (fused_infer, ("fused_infer_sparse",), "fused_infer"),
     (clause_eval, ("clause_eval",), "clause_eval"),
