@@ -4,15 +4,21 @@
 
 For each seed, one process drives the cell's traffic at its own load for
 a short window (as a benchmark run does, without its metrics), judges
-every answer against the plain reference (the program's reading: answers
-that differ, plus answers that never came), then puts the control in the
-program's place: the reference computed one precision below what the
-configuration states, for the same answers.  Controls: ``int4`` (the
-int8 weights quantized to int4) in every cell, and ``bf16`` (the adaptive
-booleanize's float32 local mean in bfloat16) where the configuration
-booleanizes adaptively.  Prints one line per seed and a JSON summary
-(the largest program reading, the smallest control reading).  Run on the
-card; the benchmark's own runs do not run it.
+what the program answered against the plain reference (the program's
+readings: every number its system compares), then puts each control of
+the cell's system in the program's place for the same answers: the
+reference computed one precision below what the configuration states.
+ConvCoTM: ``int4`` (the int8 weights quantized to int4) in every cell,
+and ``bf16`` (the adaptive booleanize's float32 local mean in bfloat16)
+where the configuration booleanizes adaptively; the LM decode:
+``fp8_e4m3`` (every matrix and the embedding rounded to float8 e4m3).
+Each side's checks are those of the system's judge, and each side is
+judged by them as a run is (``correct``): the program has to pass on every
+seed, each control has to fail on every seed.  Prints one line per seed
+and a JSON summary (each number's largest program reading and each
+control's smallest; whether the program passed on every seed, and
+whether a control passed on any).  Run on the card; the benchmark's own
+runs do not run it.
 """
 
 import argparse
@@ -21,52 +27,39 @@ import sys
 import time
 from pathlib import Path
 
-import numpy as np
-
-
-def controls(cfg) -> list:
-    return ["int4"] + (["bf16"] if cfg["booleanize"]["method"] == "adaptive" else [])
-
-
-def control_reading(outcome, cfg, run, kind: str, ref_sums, ref_preds, device) -> int:
-    """Answers the control gives differently from the reference, over the
-    same pool images the program answered."""
-    from harness import reference
-
-    c_sums, c_preds, _ = reference.classify(run.pool, cfg, run.ta, run.weights, device=device,
-                                            control=kind)
-    bad = 0
-    for idx, _, _, times in outcome.answers:
-        idx = np.asarray(idx)
-        rows = (c_sums[idx] != ref_sums[idx]).any(axis=1) | (c_preds[idx] != ref_preds[idx])
-        bad += int(rows.sum()) * times
-    return bad
-
 
 def readings(workload: str, seeds, seconds: float, device, root: Path, overrides=None,
              log=print) -> dict:
-    from harness import reference
-    from harness.cell import execute, judge
+    """Per seed, the program's checks and each control's, each with
+    ``correct`` as the benchmark decides it (:func:`harness.cell.checks_pass`)."""
+    from harness.cell import checks_pass, execute
 
     out = {"workload": workload, "seconds": seconds, "program": {}, "control": {}}
     for seed in seeds:
         t = time.perf_counter()
         run = execute(workload, seed, seconds, False, proc_start=t, device=device, root=root,
                       overrides=overrides)
-        sums, preds, _ = reference.classify(run.pool, run.cfg, run.ta, run.weights,
-                                            device=run.device)
-        checks = judge(run.outcome, sums, preds)
-        out["program"][seed] = checks["bad_answers"]["value"]
-        row = {"seed": seed, "compared": checks["answers_compared"]["value"],
-               "program_bad": checks["bad_answers"]["value"]}
-        for kind in controls(run.cfg):
-            v = control_reading(run.outcome, run.cfg, run, kind, sums, preds, run.device)
-            out["control"].setdefault(kind, {})[seed] = v
-            row[f"control_{kind}_bad"] = v
+        checks, _ = run.system.judge(run, False, lambda s: None)
+        out["program"][seed] = {"correct": checks_pass(checks), "checks": checks}
+        row = {"seed": seed, "program": out["program"][seed]}
+        for kind in run.system.controls(run.cfg):
+            c = run.system.control_checks(run, kind)
+            out["control"].setdefault(kind, {})[seed] = {"correct": checks_pass(c), "checks": c}
+            row[f"control_{kind}"] = out["control"][kind][seed]
         row["wall_s"] = time.perf_counter() - t
         log("[control] " + json.dumps(row))
-    out["program_max"] = max(out["program"].values())
-    out["control_min"] = {k: min(v.values()) for k, v in out["control"].items()}
+
+    def values(per):
+        return [{k: c["value"] for k, c in r["checks"].items()} for r in per.values()]
+
+    progs = values(out["program"])
+    out["program_correct"] = all(r["correct"] for r in out["program"].values())
+    out["program_max"] = {k: max(p[k] for p in progs) for k in progs[0]}
+    out["control_min"], out["control_correct_on_any_seed"] = {}, {}
+    for kind, per in out["control"].items():
+        reads = values(per)
+        out["control_min"][kind] = {k: min(r[k] for r in reads) for k in reads[0]}
+        out["control_correct_on_any_seed"][kind] = any(r["correct"] for r in per.values())
     return out
 
 

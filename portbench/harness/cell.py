@@ -5,18 +5,42 @@ metrics.
 The parts are found by the names in ``BENCHMARK.json``, so a cell,
 configuration, traffic mix or metric is added with new files and entries:
 
-  * a configuration: the JSON file its entry names (``file``);
+  * a configuration: the JSON file its entry names (``file``); its
+    ``system`` key names the system that runs it (``convcotm`` when the
+    key is absent);
+  * a system: ``portbench/systems/<system>.py``;
   * a traffic mix: ``portbench/traffic/<traffic>.json``, whose ``kind``
     names its generator, ``portbench/loads/<kind>.py``;
   * a metric: ``portbench/metrics/<metric>.py``, whose ``read(rec)``
     returns the number, or None when the run holds nothing to read it
     from (the metric is then left out of the line).
 
+New files are enough for a configuration of a system that has its module.
+A system module defines
+
+  * ``make(cfg, streams, name, device) -> (engine, pool, inputs)``: the
+    inputs and the model from the seed's streams (:func:`rngs`), the
+    system under test built on ``device`` (``engine``), what the load
+    generator draws its requests from (``pool``, or None), and what the
+    judge needs (``inputs``: the model and the inputs, never the
+    program's own state);
+  * ``judge(run, trace, log) -> (checks, facts)``: the reference's
+    answers worked out from ``run.inputs`` and the numbers compared,
+    ``{name: {"value": v, "limit": l}}`` or ``{"min": m}`` (the result
+    is correct when every value is within its limit or at least its
+    min), and the facts its metric readers need besides the outcome's,
+    which join ``rec.facts``; it runs once the system under test is freed
+    and the memory peak read;
+  * for ``control.py``: ``controls(cfg)``, the names of its controls, and
+    ``control_checks(run, kind)``, the same checks as ``judge``'s with
+    that control in the program's place (:func:`checks_pass` says whether
+    it passes).
+
 A generator module defines ``run(ctx, seconds, trace) -> Outcome``: it
 warms up the shapes its traffic uses, stamps ``ctx.window_start`` when it
 sends the first timed request, drives the window, and with ``trace``
-drives a further :data:`TRACE_SECONDS` of the same traffic under the
-profiler.
+drives a further stretch of the same traffic under the profiler
+(:data:`TRACE_SECONDS`, or what the mix states).
 """
 
 from __future__ import annotations
@@ -26,15 +50,12 @@ import gc
 import importlib.util
 import json
 import sys
-import time
 from pathlib import Path
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 
-from harness import guard, reference
-from harness.glyphs import glyph_pool
-from harness.model_state import make_model
+from harness import guard
 
 __all__ = ["Context", "Outcome", "Record", "ROOT", "Run", "TRACE_SECONDS", "execute", "run_cell"]
 
@@ -52,24 +73,29 @@ STREAM_POOL, STREAM_MODEL, STREAM_TRAFFIC = 1, 2, 3
 
 @dataclasses.dataclass
 class Context:
-    """What a load generator gets: the system, the inputs, the traffic."""
+    """What a load generator gets: the system under test (``engine``), the
+    inputs its requests are drawn from (``pool``), the traffic."""
 
     engine: Any
     name: str
     cfg: Dict
     traffic: Dict
-    pool: np.ndarray
+    pool: Optional[np.ndarray]
     rng: np.random.Generator
     window_start: Optional[float] = None     # perf_counter at the first timed request
 
 
 @dataclasses.dataclass
 class Outcome:
-    """What a load generator measured.  ``answers`` are (pool indices,
-    class sums ``[n, M]``, predictions ``[n]``, how many times this answer
-    came) of every answer received; ``missing`` counts requests admitted
-    but never answered, ``inconsistent`` answer rows that differed from an
-    earlier answer to the same image."""
+    """What a load generator measured.  ``answers`` are every answer
+    received, in the form its system's judge reads (ConvCoTM: pool
+    indices, class sums ``[n, M]``, predictions ``[n]``, how many times
+    this answer came); ``missing`` counts requests admitted but never
+    answered, ``inconsistent`` answer rows that differed from an earlier
+    answer to the same image.  ``facts`` holds what a system's generator
+    measured for that system's judge and readers alone, by a name of its
+    own (the LM decode: ``tokens_in_window``, ``steps_in_window``, ...), so
+    that a new system adds a fact without a field here."""
 
     attempted: int
     failed: int
@@ -87,18 +113,19 @@ class Outcome:
     service_batches: Optional[int] = None
     trace: Any = None                               # trace.TraceData
     traced_calls: Optional[List[np.ndarray]] = None  # pool indices per traced engine call
+    facts: Dict[str, Any] = dataclasses.field(default_factory=dict)  # the system's own, by name
 
 
 @dataclasses.dataclass
 class Record(Outcome):
     """An outcome with what the readers need besides: set-up time, the
-    configuration, the card's ceilings and the reference's word tests per
-    pool image."""
+    configuration, the card's ceilings, and in ``facts`` what the system's
+    judge adds (ConvCoTM: ``word_tests``, the reference's word tests per
+    pool image, in traced runs)."""
 
     setup_s: float = 0.0
     cfg: Dict = dataclasses.field(default_factory=dict)
     card: Optional[Dict] = None
-    word_tests: Optional[np.ndarray] = None      # per pool image, in traced runs
 
 
 def load_benchmark(root: Path) -> Dict:
@@ -149,20 +176,9 @@ def rngs(seed: int) -> Dict[int, np.random.Generator]:
     return {k: np.random.default_rng([s, k]) for k in (STREAM_POOL, STREAM_MODEL, STREAM_TRAFFIC)}
 
 
-def judge(outcome: Outcome, ref_sums: np.ndarray, ref_preds: np.ndarray) -> Dict:
-    """The numbers compared and their limits: answers whose class sums or
-    prediction differ from the reference's (or from an earlier answer to
-    the same image), plus answers that never came (limit 0), and the
-    answers compared (at least 1)."""
-    bad, compared = outcome.missing + outcome.inconsistent, outcome.inconsistent
-    for idx, sums, preds, times in outcome.answers:
-        idx = np.asarray(idx)
-        rows = (np.asarray(sums, np.int64) != ref_sums[idx]).any(axis=1)
-        rows |= np.asarray(preds, np.int64) != ref_preds[idx]
-        bad += int(rows.sum()) * times
-        compared += len(idx) * times
-    return {"bad_answers": {"value": bad, "limit": 0},
-            "answers_compared": {"value": compared, "min": 1}}
+def system(root: Path, cfg: Dict):
+    """The module of the system that runs ``cfg``."""
+    return _module(root / "portbench" / "systems" / f"{cfg.get('system', 'convcotm')}.py")
 
 
 def checks_pass(checks: Dict) -> bool:
@@ -172,14 +188,14 @@ def checks_pass(checks: Dict) -> bool:
 
 @dataclasses.dataclass
 class Run:
-    """What one drive of a cell left: its metrics, inputs, model and outcome."""
+    """What one drive of a cell left: its metrics, its system's module, the
+    inputs and model (``inputs``, as the system made them) and the outcome."""
 
     cfg: Dict
     layer: List[Dict]
     e2e: List[Dict]
-    pool: np.ndarray
-    ta: np.ndarray
-    weights: np.ndarray
+    system: Any
+    inputs: Any
     outcome: Outcome
     setup_s: float
     memory_peak_bytes: int
@@ -199,14 +215,10 @@ def execute(workload: str, seed: int, seconds: float, trace: bool, *, proc_start
     cfg.update((overrides or {}).get("cfg", {}))
     traffic.update((overrides or {}).get("traffic", {}))
     e2e, layer = cell_metrics(bench, workload)
+    sysmod = system(root, cfg)
     r = rngs(seed)
-    pool = glyph_pool(r[STREAM_POOL], cfg["pool_images"])
-    ta, weights = make_model(r[STREAM_MODEL], cfg, pool)
-
-    from harness import program
-
     dev = torch.device(device)
-    engine = program.build_engine(cfg, workload, ta, weights, dev)
+    engine, pool, inputs = sysmod.make(cfg, r, workload, dev)
     ctx = Context(engine=engine, name=workload, cfg=cfg, traffic=traffic, pool=pool,
                   rng=r[STREAM_TRAFFIC])
     outcome = kind.run(ctx, seconds, trace)
@@ -216,8 +228,8 @@ def execute(workload: str, seed: int, seconds: float, trace: bool, *, proc_start
     gc.collect()
     if dev.type == "cuda":
         torch.cuda.empty_cache()
-    return Run(cfg=cfg, layer=layer, e2e=e2e, pool=pool, ta=ta, weights=weights,
-               outcome=outcome, setup_s=setup_s, memory_peak_bytes=int(peak), device=dev)
+    return Run(cfg=cfg, layer=layer, e2e=e2e, system=sysmod, inputs=inputs, outcome=outcome,
+               setup_s=setup_s, memory_peak_bytes=int(peak), device=dev)
 
 
 def run_cell(workload: str, seed: int, seconds: float, trace: bool, *, proc_start: float,
@@ -233,11 +245,7 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, *, proc_star
     readers = {m["name"]: reader(root, m["name"]) for m in wanted}
     on_card = dev.type == "cuda"
 
-    t = time.perf_counter()
-    sums, preds, tests = reference.classify(run.pool, cfg, run.ta, run.weights, device=dev,
-                                            want_word_tests=trace)
-    checks = judge(outcome, sums, preds)
-    log(f"reference over the {len(run.pool)} pool images: {time.perf_counter() - t:.3f} s")
+    checks, facts = run.system.judge(run, trace, log)
     card = None
     if on_card:
         from harness.card import card_facts
@@ -245,7 +253,8 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, *, proc_star
         card = card_facts()
         log(f"card: {card}")
     rec = Record(**{f.name: getattr(outcome, f.name) for f in dataclasses.fields(Outcome)},
-                 setup_s=run.setup_s, cfg=cfg, card=card, word_tests=tests)
+                 setup_s=run.setup_s, cfg=cfg, card=card)
+    rec.facts = {**outcome.facts, **facts}
     metrics = {}
     for m in wanted:
         v = readers[m["name"]](rec)

@@ -71,10 +71,11 @@ def _roofline(rec, kernel: str, nbytes, nops) -> Optional[float]:
 
 
 def fused_infer_roofline_pct(rec) -> Optional[float]:
-    if rec.word_tests is None:
+    tests = rec.facts.get("word_tests")
+    if tests is None:
         return None
     return _roofline(rec, FUSED_KERNEL, lambda idx: fused_infer_bytes(rec.cfg, len(idx)),
-                     lambda idx: int(rec.word_tests[np.asarray(idx)].sum()))
+                     lambda idx: int(tests[np.asarray(idx)].sum()))
 
 
 def ingress_pack_roofline_pct(rec) -> Optional[float]:
@@ -83,7 +84,8 @@ def ingress_pack_roofline_pct(rec) -> Optional[float]:
 
 
 def classify_mfu_pct(rec) -> Optional[float]:
-    if rec.word_tests is None or rec.window_pool_idx is None or rec.card is None:
+    tests = rec.facts.get("word_tests")
+    if tests is None or rec.window_pool_idx is None or rec.card is None:
         return None
-    tests = int(rec.word_tests[rec.window_pool_idx].sum())
-    return 100.0 * tests / (rec.window_s * rec.card["int_ops_per_s"])
+    window_tests = int(tests[rec.window_pool_idx].sum())
+    return 100.0 * window_tests / (rec.window_s * rec.card["int_ops_per_s"])

@@ -60,20 +60,14 @@ def main() -> int:
 
     torch.set_num_threads(1)     # one process, few threads: no host op of the run needs more
 
-    from harness import program
-    from harness.cell import (STREAM_MODEL, STREAM_POOL, STREAM_TRAFFIC, Context, find_cell,
-                              load_benchmark, rngs)
-    from harness.glyphs import glyph_pool
-    from harness.model_state import make_model
+    from harness.cell import STREAM_TRAFFIC, Context, find_cell, load_benchmark, rngs, system
 
     if not torch.cuda.is_available():
         print("no CUDA card", file=sys.stderr)
         return 3
     cell, cfg, traffic, kind = find_cell(load_benchmark(root), root, args.workload)
     r = rngs(args.seed)
-    pool = glyph_pool(r[STREAM_POOL], cfg["pool_images"])
-    ta, weights = make_model(r[STREAM_MODEL], cfg, pool)
-    engine = program.build_engine(cfg, args.workload, ta, weights, torch.device("cuda"))
+    engine, pool, _ = system(root, cfg).make(cfg, r, args.workload, torch.device("cuda"))
     import gc
 
     pauses = []

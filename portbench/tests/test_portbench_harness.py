@@ -60,6 +60,9 @@ def test_benchmark_json_keeps_to_the_contract():
         got_e2e, got_layer = cell_metrics(b, w["name"])
         assert "setup_s" in {m["name"] for m in got_e2e} and len(got_e2e) >= 2
         assert got_layer
+        # A per-layer metric's cell reports the end-to-end metric it moves.
+        for m in got_layer:
+            assert m["moves"] in {e["name"] for e in got_e2e}, (w["name"], m["name"])
     assert len(json.dumps(b)) <= 64 * 1024
 
 
@@ -81,6 +84,7 @@ def test_a_cell_config_mix_and_metric_are_added_as_files(tmp_path):
                          "why": "test"})
     b["workloads"].append({"name": "t100-bulk", "config": "convcotm-mnist-t100",
                            "traffic": "bulk-8x1", "chips": 1, "why": "test"})
+    next(m for m in b["end_to_end"] if m["name"] == "cls_per_s")["workloads"].append("t100-bulk")
     b["per_layer"].append({"name": "answers.per_call", "unit": "images", "better": "higher",
                            "source": "program_counter", "layer": "engine (serve/engine.py)",
                            "moves": "cls_per_s"})
@@ -162,8 +166,8 @@ def test_roofline_and_mfu_arithmetic():
                    device=[("fused_infer_kernel<false>", 0, 20), ("ingress_pack_kernel", 30, 40)],
                    host=[])
     tests = np.full(4096, 1000, np.int64)
-    rec = _rec(trace=tr, traced_calls=[np.arange(256)], card=card, cfg=cfg, word_tests=tests,
-               window_pool_idx=np.arange(4096), window_s=2.0)
+    rec = _rec(trace=tr, traced_calls=[np.arange(256)], card=card, cfg=cfg,
+               facts={"word_tests": tests}, window_pool_idx=np.arange(4096), window_s=2.0)
     b_fused = 4 * 256 * 361 * 9 + 4 * 128 * 9 + 128 + 10 * 128 + 4 * 256 * 10
     bound = max(b_fused / 3.35e12, 256 * 1000 / 1e13)
     assert readers.fused_infer_roofline_pct(rec) == pytest.approx(100 * bound / 20e-6)
@@ -195,3 +199,57 @@ def test_cells_on_the_card():
                            log=lambda s: None)
             assert out["correct"] and out["device"]["platform"] == "gpu"
             assert out["metrics"]
+
+
+def test_a_system_is_added_as_files(tmp_path):
+    """A configuration of a system the harness has never seen runs from new
+    files and entries alone: its module under ``systems/``, its generator,
+    its traffic, its metric; a fact of its own, measured by the generator
+    and another added by the judge, reaches the metric through
+    ``rec.facts`` with no field of the harness's."""
+    root = tmp_path / "checkout"
+    shutil.copytree(ROOT / "portbench", root / "portbench",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    pb = root / "portbench"
+    (pb / "systems/echo.py").write_text(
+        "from harness.cell import STREAM_POOL\n\n\n"
+        "def make(cfg, streams, name, device):\n"
+        "    pool = streams[STREAM_POOL].integers(0, 100, cfg['n'])\n"
+        "    return (lambda x: x * cfg['factor']), pool, {'pool': pool}\n\n\n"
+        "def judge(run, trace, log):\n"
+        "    want = run.inputs['pool'] * run.cfg['factor']\n"
+        "    bad = sum(int(got != want[i]) for i, got in run.outcome.answers)\n"
+        "    return ({'bad': {'value': bad, 'limit': 0},\n"
+        "             'answered': {'value': len(run.outcome.answers), 'min': 1}},\n"
+        "            {'echo_judged': len(run.outcome.answers)})\n")
+    (pb / "loads/echo_loop.py").write_text(
+        "import time\n\nfrom harness.cell import Outcome\n\n\n"
+        "def run(ctx, seconds, trace):\n"
+        "    ctx.window_start = t0 = time.perf_counter()\n"
+        "    answers = []\n"
+        "    while not answers or time.perf_counter() < t0 + seconds:\n"
+        "        i = int(ctx.rng.integers(0, len(ctx.pool)))\n"
+        "        answers.append((i, ctx.engine(ctx.pool[i])))\n"
+        "    return Outcome(attempted=len(answers), failed=0, missing=0, answers=answers,\n"
+        "                   window_s=seconds, facts={'echo_sent': len(answers)})\n")
+    (pb / "traffic/echo-1.json").write_text(json.dumps({"kind": "echo_loop"}))
+    (pb / "configs/echo.json").write_text(json.dumps({"system": "echo", "n": 16, "factor": 3}))
+    (pb / "metrics/echo_per_s.py").write_text(
+        "def read(rec):\n"
+        "    assert rec.facts['echo_judged'] == rec.facts['echo_sent'] == len(rec.answers)\n"
+        "    return rec.facts['echo_sent'] / rec.window_s\n")
+    b = load_benchmark(ROOT)
+    b["configs"].append({"name": "echo", "source": "test", "file": "portbench/configs/echo.json",
+                         "reduced": [], "why": "test"})
+    b["workloads"].append({"name": "echo-cell", "config": "echo", "traffic": "echo-1",
+                           "chips": 1, "why": "test"})
+    b["end_to_end"].append({"name": "echo_per_s", "unit": "1/s", "better": "higher",
+                            "bound": 0.25, "source": "host_clock", "workloads": ["echo-cell"]})
+    (root / "BENCHMARK.json").write_text(json.dumps(b))
+    e2e, layer = cell_metrics(b, "echo-cell")
+    assert {m["name"] for m in e2e} == {"echo_per_s", "setup_s"} and not layer
+    out = run_cell("echo-cell", 2**40 + 3, 0.05, False, proc_start=time.perf_counter(),
+                   device="cpu", root=root, log=lambda s: None)
+    assert out["correct"] and out["checks"]["bad"]["value"] == 0
+    assert out["metrics"]["echo_per_s"]["value"] > 0
+    assert "echo_per_s" not in {m["name"] for m in cell_metrics(b, "fmnist-bulk")[0]}
