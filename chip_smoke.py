@@ -2192,14 +2192,14 @@ def lm_card_against_cpu(dev, card: str) -> None:
 
     import torch
 
-    from repro_torch.configs import get_config, list_archs, reduced_config
+    from repro_torch.configs import get_config, paired_archs, reduced_config
 
     check(not torch.backends.cuda.matmul.allow_tf32
           and torch.get_float32_matmul_precision() == "highest",
           "fp32 matmuls must not run in TF32")
     print(f"[lm] fp32 matmuls: allow_tf32={torch.backends.cuda.matmul.allow_tf32}, "
           f"float32_matmul_precision={torch.get_float32_matmul_precision()!r}")
-    for arch in list_archs():
+    for arch in paired_archs():
         changes = XLSTM_SHALLOW if arch == "xlstm-350m" else {}
         cfg = dataclasses.replace(reduced_config(get_config(arch)), dtype=torch.float32,
                                   **changes)
@@ -2466,11 +2466,11 @@ def _train_cfgs(dtype):
     phase)."""
     import dataclasses
 
-    from repro_torch.configs import get_config, list_archs, reduced_config
+    from repro_torch.configs import get_config, paired_archs, reduced_config
     from repro_torch.launch.specs import model_decls
 
     for fan_in in (True, False):
-        for arch in list_archs():
+        for arch in paired_archs():
             extra = XLSTM_SHALLOW if arch == "xlstm-350m" and not fan_in else {}
             cfg = dataclasses.replace(reduced_config(get_config(arch)), dtype=dtype, **extra)
             yield arch, cfg, model_decls(cfg, fan_in=fan_in), fan_in
@@ -2998,7 +2998,7 @@ def lm_mesh_reduced(dev, card: str) -> None:
 
     import torch
 
-    from repro_torch.configs import TrainConfig, get_config, list_archs, reduced_config
+    from repro_torch.configs import TrainConfig, get_config, paired_archs, reduced_config
     from repro_torch.core.prng import prng_key
     from repro_torch.launch.mesh import make_test_mesh
     from repro_torch.launch.specs import model_decls
@@ -3012,14 +3012,14 @@ def lm_mesh_reduced(dev, card: str) -> None:
     mesh = make_test_mesh(*MESH_TRAIN, device=dev)
     f32, f64 = torch.float32, torch.float64
     # (profile, arch, compressed, config changes, dtype, held at the bounds alone)
-    cases = ([("tp", a, False, {}, f32, False) for a in list_archs()]
+    cases = ([("tp", a, False, {}, f32, False) for a in paired_archs()]
              + [("tp", "h2o-danube-1.8b", True, {}, f32, False),
                 ("tp", "qwen2-moe-a2.7b", True, {}, f32, False),
                 ("tp", "xlstm-350m", False, XLSTM_SHALLOW, f32, True),
                 ("tp", "h2o-danube-1.8b", True, {}, f64, True),
                 ("tp", "qwen2-moe-a2.7b", True, {}, f64, True),
                 ("tp", "phi3.5-moe-42b-a6.6b", False, {"n_experts": 16}, f32, True)]
-             + [("dp", a, False, {}, f32, True) for a in list_archs()])
+             + [("dp", a, False, {}, f32, True) for a in paired_archs()])
     for prof, arch, comp, changes, dtype, strict in cases:
         with _sharding_profile(prof):
             cfg = dataclasses.replace(reduced_config(get_config(arch)), dtype=dtype, **changes)

@@ -1,13 +1,14 @@
-"""Config registry: ``--arch <id>`` for the 10 LM archs (``ARCHS``) beside
-the paper's own ConvCoTM configurations (``configs.convcotm``).  The
-port's copy of ``repro/configs/__init__.py``."""
+"""Config registry: ``--arch <id>`` for the LM archs (``ARCHS``: the
+reference's 10 and ``PORT_ONLY_ARCHS``) beside the paper's own ConvCoTM
+configurations (``configs.convcotm``).  The port's copy of
+``repro/configs/__init__.py``."""
 
 from __future__ import annotations
 
 import dataclasses
 from typing import Dict
 
-from repro_torch.configs.archs import ARCHS
+from repro_torch.configs.archs import ARCHS, PORT_ONLY_ARCHS
 from repro_torch.configs.base import (
     SHAPES,
     ModelConfig,
@@ -18,6 +19,7 @@ from repro_torch.configs.base import (
 
 __all__ = [
     "ARCHS",
+    "PORT_ONLY_ARCHS",
     "SHAPES",
     "ModelConfig",
     "ShapeConfig",
@@ -25,6 +27,7 @@ __all__ = [
     "applicable_shapes",
     "get_config",
     "list_archs",
+    "paired_archs",
     "reduced_config",
 ]
 
@@ -39,10 +42,17 @@ def list_archs():
     return sorted(ARCHS)
 
 
+def paired_archs():
+    """The archs the reference holds too, sorted."""
+    return sorted(a for a in ARCHS if a not in PORT_ONLY_ARCHS)
+
+
 def reduced_config(cfg: ModelConfig) -> ModelConfig:
     """Tiny same-family config for CPU tests: few layers (full cycles plus
     a tail), width 64, 4 heads, 8 experts, a 512-token vocab; the same code
-    paths."""
+    paths.  Latent attention keeps its shape at nope 16, rope 8, v 16 and
+    a latent of 32; the sigmoid router takes 3 of its 8 experts, the shared
+    expert twice an expert's width; one leading dense layer of 256."""
     pattern = cfg.block_pattern
     n_layers = (2 * len(pattern) + 1) if pattern else 3  # cycles + tail coverage
     changes: Dict = dict(
@@ -61,6 +71,13 @@ def reduced_config(cfg: ModelConfig) -> ModelConfig:
             d_ff_shared=64 if cfg.n_shared_experts else 0,
             router_group_size=64,
         )
+    if cfg.router == "sigmoid":
+        changes.update(n_experts_per_token=3, d_ff_shared=2 * changes["d_ff"])
+    if cfg.first_k_dense:
+        changes.update(first_k_dense=1, d_ff_dense=256)
+    if cfg.is_mla:
+        changes.update(kv_lora_rank=32, qk_nope_head_dim=16, qk_rope_head_dim=8, v_head_dim=16,
+                       head_dim=24)
     if cfg.sliding_window:
         changes["sliding_window"] = 16
     if cfg.local_window:

@@ -1,5 +1,6 @@
 """The 10 assigned architecture configs (the same values as the reference's
-``repro/configs/archs.py``).
+``repro/configs/archs.py``), and the archs the port holds alone
+(:data:`PORT_ONLY_ARCHS`), which have no counterpart in the reference.
 
 ``--arch <id>`` resolves through the ``ARCHS`` dict via
 ``repro_torch.configs.get_config``.
@@ -9,7 +10,7 @@ from __future__ import annotations
 
 from repro_torch.configs.base import ModelConfig
 
-__all__ = ["ARCHS"]
+__all__ = ["ARCHS", "PORT_ONLY_ARCHS"]
 
 # xLSTM-350M: sLSTM + mLSTM blocks, d_ff=0 -> capacity inside blocks
 # (proj_factor).  7:1 mLSTM:sLSTM ratio (paper's xLSTM[7:1]); 24 layers =
@@ -171,6 +172,40 @@ QWEN2_VL_7B = ModelConfig(
     supports_long_context=False,
 )
 
+# Moonlight-16B-A3B (Moonshot AI, "Muon is Scalable for LLM Training", 2025;
+# huggingface.co/moonshotai/Moonlight-16B-A3B config.json, model_type
+# deepseek_v3): the DeepSeek-V3 block without multi-token prediction.  MLA
+# with no query low-rank (latent 512, nope 128, rope 64, v 128), a dense
+# SwiGLU of 11,264 in layer 0, then 64 routed experts of 1,408 (top 6 of
+# sigmoid + correction bias, normalised, x2.446; n_group 1) and 2 shared
+# experts as one ungated SwiGLU of 2,816.
+MOONLIGHT_16B_A3B = ModelConfig(
+    name="moonlight-16b-a3b",
+    family="moe",
+    n_layers=27,
+    d_model=2048,
+    n_heads=16,
+    n_kv_heads=16,
+    d_ff=1408,                    # routed expert hidden
+    vocab_size=163840,
+    head_dim=192,                 # qk_nope + qk_rope
+    rope_theta=50_000.0,
+    kv_lora_rank=512,
+    qk_nope_head_dim=128,
+    qk_rope_head_dim=64,
+    v_head_dim=128,
+    n_experts=64,
+    n_experts_per_token=6,
+    n_shared_experts=2,
+    d_ff_shared=2816,
+    first_k_dense=1,
+    d_ff_dense=11264,
+    router="sigmoid",
+    routed_scaling=2.446,
+    norm_eps=1e-5,
+    supports_long_context=False,
+)
+
 ARCHS = {
     c.name: c
     for c in [
@@ -184,5 +219,10 @@ ARCHS = {
         PHI35_MOE_42B,
         SEAMLESS_M4T_LARGE_V2,
         QWEN2_VL_7B,
+        MOONLIGHT_16B_A3B,
     ]
 }
+
+#: The registered archs the reference does not hold: tests that hold the
+#: port to the reference run over the others.
+PORT_ONLY_ARCHS = (MOONLIGHT_16B_A3B.name,)

@@ -1,7 +1,10 @@
 """Config dataclasses: model architecture, input shapes, run settings.
 
 The port's copy of ``repro/configs/base.py``: the same fields and values,
-with ``dtype`` a torch dtype (``torch.bfloat16`` by default).
+with ``dtype`` a torch dtype (``torch.bfloat16`` by default).  Fields the
+reference lacks (latent attention, leading dense layers, the sigmoid
+router) default to what the reference's archs
+compute, so every arch both packages hold is the same config.
 """
 
 from __future__ import annotations
@@ -35,6 +38,12 @@ class ModelConfig:
     mrope_sections: Optional[Tuple[int, int, int]] = None  # qwen2-vl M-RoPE
     logit_softcap: Optional[float] = None     # recurrentgemma final softcap
 
+    # --- latent attention (MLA, DeepSeek-V2/V3); head_dim is nope + rope ---
+    kv_lora_rank: int = 0             # > 0: one latent of this width a position is cached
+    qk_nope_head_dim: int = 0
+    qk_rope_head_dim: int = 0         # one rotary key shared by the heads
+    v_head_dim: int = 0
+
     # --- MoE ---
     n_experts: int = 0
     n_experts_per_token: int = 0
@@ -42,6 +51,14 @@ class ModelConfig:
     d_ff_shared: int = 0              # shared-expert hidden size
     router_group_size: int = 512      # dispatch group (tokens)
     capacity_factor: float = 1.25
+    first_k_dense: int = 0            # leading layers with a dense SwiGLU of d_ff_dense
+    d_ff_dense: int = 0
+    # softmax: top-k of the softmax, capacity-bounded dispatch, the shared
+    # expert behind a sigmoid mix gate (Qwen2-MoE, Phi-3.5-MoE); sigmoid:
+    # top-k of sigmoid + router_bias, the chosen scores normalised and scaled
+    # by routed_scaling, dropless, the shared expert ungated (DeepSeek-V3).
+    router: str = "softmax"
+    routed_scaling: float = 1.0
 
     # --- recurrent families ---
     block_pattern: Optional[Tuple[str, ...]] = None  # cycled: attn|mlstm|slstm|rglru
@@ -73,13 +90,24 @@ class ModelConfig:
     def is_moe(self) -> bool:
         return self.n_experts > 0
 
+    @property
+    def is_mla(self) -> bool:
+        return self.kv_lora_rank > 0
+
+    def is_moe_layer(self, i: int) -> bool:
+        """Whether layer ``i`` has experts (the leading dense ones have not)."""
+        return self.is_moe and i >= self.first_k_dense
+
     def pattern_for_layer(self, i: int) -> str:
+        if self.is_mla:
+            return "mla"
         if self.block_pattern is None:
             return "attn"
         return self.block_pattern[i % len(self.block_pattern)]
 
     def param_count(self) -> int:
-        """Analytic parameter count (matmul + embedding params)."""
+        """Analytic parameter count (matmul + embedding params; norms, the
+        shared expert's mix gate and the router's bias are not counted)."""
         d, hd = self.d_model, self.head_dim
         att = d * self.n_heads * hd + 2 * d * self.n_kv_heads * hd + self.n_heads * hd * d
         mlp = 3 * d * self.d_ff
@@ -92,6 +120,12 @@ class ModelConfig:
             kind = self.pattern_for_layer(i)
             if kind == "attn":
                 per_layer += att + mlp
+            elif kind == "mla":
+                h, r, rope = self.n_heads, self.kv_lora_rank, self.qk_rope_head_dim
+                per_layer += (d * h * hd + d * (r + rope)
+                              + r * h * (self.qk_nope_head_dim + self.v_head_dim)
+                              + h * self.v_head_dim * d)
+                per_layer += mlp if self.is_moe_layer(i) else 3 * d * self.d_ff_dense
             elif kind == "rglru":
                 w = self.rglru_lru_width or d
                 per_layer += 2 * d * w + w * d + self.conv_width * w + 2 * w + mlp
@@ -111,7 +145,8 @@ class ModelConfig:
             return self.param_count()
         d = self.d_model
         total = self.param_count()
-        inactive = (self.n_experts - self.n_experts_per_token) * 3 * d * self.d_ff * self.n_layers
+        moe_layers = self.n_layers - self.first_k_dense
+        inactive = (self.n_experts - self.n_experts_per_token) * 3 * d * self.d_ff * moe_layers
         return total - inactive
 
 

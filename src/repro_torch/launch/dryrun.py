@@ -7,7 +7,8 @@ over the ``meta`` device (``launch/mesh.py:make_production_mesh``): the
 train state and batch of a train cell, the parameters and batch of a
 prefill cell, the parameters, token, cache and position of a decode cell
 (``launch/specs.py``), each with its sharding.  Nothing is allocated, so
-all 68 cells run on a CPU in seconds.
+all 68 cells run on a CPU in seconds.  ``--arch all`` is the reference's archs
+(``configs.paired_archs``): a latent cache has no mesh layout yet.
 
 The result keeps the reference's JSON keys.  There is no XLA here, so:
 
@@ -48,7 +49,7 @@ from typing import Any, Dict, Iterable, Tuple
 
 import torch
 
-from repro_torch.configs import ARCHS, SHAPES, TrainConfig, applicable_shapes, get_config
+from repro_torch.configs import SHAPES, TrainConfig, applicable_shapes, get_config, paired_archs
 from repro_torch.launch import specs as S
 from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.roofline.analysis import model_flops, roofline_terms
@@ -193,7 +194,7 @@ def main(argv=None) -> None:
     args = ap.parse_args(argv)
 
     os.makedirs(out_dir(), exist_ok=True)
-    archs = sorted(ARCHS) if args.arch == "all" else [args.arch]
+    archs = paired_archs() if args.arch == "all" else [args.arch]
     meshes = [False, True] if args.both else [args.multi_pod]
 
     done = failed = 0

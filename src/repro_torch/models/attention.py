@@ -115,7 +115,7 @@ def chunked_attention(
     q_offset: int = 0,
     chunk: int = 512,
 ) -> torch.Tensor:
-    """Memory-bounded attention over query chunks; returns [B, H, Sq, hd].
+    """Memory-bounded attention over query chunks; returns [B, H, Sq, v's hd].
 
     ``q_offset`` is the absolute position of q[0] (prefill continuation).
     GQA grouping is derived from H against KV.  A length that ``chunk``
@@ -135,7 +135,7 @@ def chunked_attention(
         outs.append(_sdpa(qg[:, :, :, c0 : c0 + chunk], k, v,
                           _mask_bias(qpos, kpos, causal, window)))
     out = outs[0] if len(outs) == 1 else torch.cat(outs, dim=3)
-    return out.reshape(b, h, sq, hd)
+    return out.reshape(b, h, sq, v.shape[-1])
 
 
 def _heads_group(p, cfg: ModelConfig) -> Optional[ModelGroup]:

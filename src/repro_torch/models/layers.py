@@ -1,7 +1,7 @@
 """Shared layers: the port's copy of ``repro/models/layers.py``.
 
-RMSNorm, logit soft-capping, RoPE (GPT-NeoX half rotation) and Qwen2-VL's
-M-RoPE, the gated MLP (SwiGLU / GeGLU), the token embedding, the LM head
+RMSNorm, logit soft-capping, RoPE (GPT-NeoX half rotation; DeepSeek's
+rotation of adjacent pairs) and Qwen2-VL's M-RoPE, the gated MLP (SwiGLU / GeGLU), the token embedding, the LM head
 and its cross entropy.  Casts sit where the reference has them: norms,
 rotations and soft-capping compute in float32 (:func:`wide`: float64
 stays float64) and return the input's dtype.
@@ -36,6 +36,8 @@ __all__ = [
     "rmsnorm_decls",
     "rmsnorm",
     "rope",
+    "rope_pairs",
+    "rotate_pairs",
     "mrope",
     "mlp_decls",
     "mlp",
@@ -107,6 +109,25 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor
         positions = positions[None]
     sin, cos = _rope_angles(positions, x.shape[-1], theta)      # [B, S, hd/2]
     return _apply_rot(x, sin[:, :, None, :], cos[:, :, None, :])
+
+
+def rope_pairs(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """RoPE over adjacent pairs: ``(x[2i], x[2i+1])`` rotated by position times
+    ``theta^(-2i/hd)`` (DeepSeek's layout, HF's ``rope_interleave``, which
+    de-interleaves q and k alike first: the same scores).  x [B, S, H, hd];
+    positions [B, S] (or [S])."""
+    if positions.ndim == 1:
+        positions = positions[None]
+    sin, cos = _rope_angles(positions, x.shape[-1], theta)      # [B, S, hd/2]
+    return rotate_pairs(x, sin[:, :, None, :], cos[:, :, None, :])
+
+
+def rotate_pairs(x: torch.Tensor, sin: torch.Tensor, cos: torch.Tensor) -> torch.Tensor:
+    """:func:`rope_pairs` with its angles given: x [..., hd]; sin/cos
+    broadcastable [..., hd/2] (fp32)."""
+    pairs = wide(x).unflatten(-1, (-1, 2))
+    x1, x2 = pairs[..., 0], pairs[..., 1]
+    return torch.stack([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).flatten(-2).to(x.dtype)
 
 
 def mrope(

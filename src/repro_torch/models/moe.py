@@ -6,6 +6,19 @@ auxiliary loss.  ``_expert_axes`` gives the experts' logical axes.
 :func:`moe_apply_shards` is the same function over a batch split into
 row shards (a meshed step's data shards).
 
+The sigmoid router (``cfg.router == "sigmoid"``, DeepSeek-V3; port-only)
+has a path of its own, :func:`dropless_apply`: scores ``sigmoid(h Wr)`` in
+float32, the top ``k`` of ``scores + router_bias`` chosen (the bias moves
+the choice, not the weights), the chosen scores normalised (``+1e-20``)
+and scaled by ``routed_scaling``, and the ungated shared expert added.
+No token is dropped: the (token, expert) pairs are sorted by expert, the
+groups' ends counted on the device, and each expert weight is one grouped
+product over the contiguous groups (``torch._grouped_mm``; its plain twin
+:func:`grouped_swiglu_plain`), with no host synchronisation and no loop
+over experts.  :data:`ROUTING` keeps what that path's decode steps leave
+for a reader who armed it: the groups' counts while a profiler runs, and
+the chosen experts of the steps it was armed for.
+
 Over ``model`` the experts take the reference's two layouts: sharded
 (``n_experts % 16 == 0``: each position runs its ``E / M`` experts on their
 dispatched slots, which reach it by ``.to``, the all-to-all the
@@ -18,9 +31,11 @@ position.
 
 from __future__ import annotations
 
-from typing import Dict, List, Sequence, Tuple
+import functools
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
+import torch.autograd.profiler
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
@@ -31,8 +46,10 @@ from repro_torch.distributed.collectives import (
 )
 from repro_torch.models.base import ParamDecl
 from repro_torch.sharding.blocks import model_group
+from repro_torch.spans import span
 
-__all__ = ["moe_decls", "moe_apply", "moe_apply_shards"]
+__all__ = ["ROUTING", "RoutingRecord", "dropless_apply", "grouped_swiglu",
+           "grouped_swiglu_plain", "moe_decls", "moe_apply", "moe_apply_shards", "route_sigmoid"]
 
 TENSOR_AXIS_SIZE = 16  # production mesh "model" axis; only affects layout
 
@@ -60,9 +77,12 @@ def moe_decls(cfg: ModelConfig) -> Dict:
                 "shared_gate": ParamDecl((d, ffs), ("fsdp", "tensor"), dtype=dt),
                 "shared_up": ParamDecl((d, ffs), ("fsdp", "tensor"), dtype=dt),
                 "shared_down": ParamDecl((ffs, d), ("tensor", "fsdp"), dtype=dt),
-                "shared_mix": ParamDecl((d, 1), (None, None), dtype=torch.float32),
             }
         )
+        if cfg.router == "softmax":
+            decls["shared_mix"] = ParamDecl((d, 1), (None, None), dtype=torch.float32)
+    if cfg.router == "sigmoid":
+        decls["router_bias"] = ParamDecl((e,), (None,), init="zeros", dtype=torch.float32)
     return decls
 
 
@@ -213,3 +233,120 @@ def moe_apply_shards(ps: Sequence, xs: Sequence[torch.Tensor], cfg: ModelConfig
     ys = [torch.cat([r for _, r in sorted(o, key=lambda q: q[0])]).reshape(x.shape)
           for o, x in zip(outs, xs)]
     return ys, aux
+
+
+# ---------------------------------------------------------------------------
+# The sigmoid router's dropless path (DeepSeek-V3)
+# ---------------------------------------------------------------------------
+
+class RoutingRecord:
+    """What the dropless path's calls leave for a reader who asked for it,
+    on the device, with no copy and no synchronisation; unarmed, it keeps
+    nothing:
+
+      * ``counts``: once armed for them (:meth:`arm_counts`), each call's
+        group ends while a profiler runs (int32 ``[E]``, the cumulative
+        tokens per expert that the grouped products read), in call order;
+        read them once the profiler has stopped (:meth:`take_counts`, which
+        disarms);
+      * ``chosen``: once armed for ``n`` decode steps (:meth:`arm`), each of
+        those steps' ``[(layer, expert ids [T, k])]``; after ``n`` steps it
+        keeps nothing (:meth:`take_chosen`)."""
+
+    def __init__(self):
+        self.counts: List[torch.Tensor] = []
+        self.counting = False
+        self.chosen: List[List[Tuple[int, torch.Tensor]]] = []
+        self.steps_left = 0
+
+    def arm(self, steps: int) -> None:
+        self.steps_left, self.chosen = steps, [[]]
+
+    def arm_counts(self) -> None:
+        self.counting, self.counts = True, []
+
+    def record(self, layer: int, ids: torch.Tensor) -> None:
+        if self.steps_left > 0:
+            self.chosen[-1].append((layer, ids))
+
+    def end_step(self) -> None:
+        """A decode step is over: the next call belongs to the next one."""
+        if self.steps_left > 0:
+            self.steps_left -= 1
+            if self.steps_left:
+                self.chosen.append([])
+
+    def take_chosen(self) -> List[List[Tuple[int, torch.Tensor]]]:
+        out, self.chosen, self.steps_left = self.chosen, [], 0
+        return [step for step in out if step]
+
+    def take_counts(self) -> List[torch.Tensor]:
+        out, self.counts, self.counting = self.counts, [], False
+        return out
+
+
+#: The process's record of the dropless path: one per process, as the
+#: profiler is, so that a caller of ``generate`` (which passes nothing of
+#: its own to the layers) can arm it and read it.
+ROUTING = RoutingRecord()
+
+
+def route_sigmoid(p, xf: torch.Tensor, cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Tokens ``xf`` [T, d] -> (the chosen experts [T, k] int64, their
+    weights [T, k] float32)."""
+    scores = torch.sigmoid(xf.float() @ p["router"])                       # [T, E]
+    ids = torch.topk(scores + p["router_bias"], cfg.n_experts_per_token, dim=-1).indices
+    w = scores.gather(-1, ids)
+    return ids, w / (w.sum(dim=-1, keepdim=True) + 1e-20) * cfg.routed_scaling
+
+
+def grouped_swiglu(xs: torch.Tensor, ends: torch.Tensor, w_gate, w_up, w_down) -> torch.Tensor:
+    """Each expert's SwiGLU over its rows of ``xs`` [P, d]: the rows are
+    sorted by expert and ``ends`` (int32 [E]) holds each group's end.  One
+    grouped product per weight ([E, d, ff], [E, ff, d])."""
+    g = torch._grouped_mm(xs, w_gate, offs=ends)
+    u = torch._grouped_mm(xs, w_up, offs=ends)
+    return torch._grouped_mm(F.silu(g) * u, w_down, offs=ends)
+
+
+def grouped_swiglu_plain(xs: torch.Tensor, ends: torch.Tensor, w_gate, w_up, w_down
+                         ) -> torch.Tensor:
+    """:func:`grouped_swiglu`'s plain twin: each row through its expert's
+    weights, gathered row by row (memory ``P`` times an expert's: for
+    tests)."""
+    rows = torch.arange(xs.shape[0], device=xs.device)
+    e = torch.searchsorted(ends, rows.to(ends.dtype), right=True)
+    x = xs[:, None]
+    h = F.silu(torch.bmm(x, w_gate[e])) * torch.bmm(x, w_up[e])
+    return torch.bmm(h, w_down[e])[:, 0]
+
+
+@functools.lru_cache(maxsize=None)
+def _expert_ids(e: int, device: torch.device) -> torch.Tensor:
+    return torch.arange(e, device=device)
+
+
+def dropless_apply(p, x: torch.Tensor, cfg: ModelConfig, *, layer: Optional[int] = None
+                   ) -> torch.Tensor:
+    """The sigmoid-routed experts and the ungated shared expert of ``x``
+    [..., d] (module docstring): [..., d].  ``layer`` (a decode step's)
+    names the call to :data:`ROUTING`."""
+    shape, d, k = x.shape, x.shape[-1], cfg.n_experts_per_token
+    xf = x.reshape(-1, d)
+    with span("moe.route"):
+        ids, w = route_sigmoid(p, xf, cfg)
+        sorted_ids, order = torch.sort(ids.flatten(), stable=True)
+        ends = torch.searchsorted(sorted_ids, _expert_ids(cfg.n_experts, x.device), right=True,
+                                  out_int32=True)
+    if layer is not None:
+        ROUTING.record(layer, ids)
+    if ROUTING.counting and torch.autograd.profiler._is_profiler_enabled:   # any thread's
+        ROUTING.counts.append(ends)
+    with span("moe.experts"):
+        y = grouped_swiglu(xf[order // k], ends, p["w_gate"], p["w_up"], p["w_down"])
+        pairs = torch.empty_like(y).index_copy_(0, order, y).view(-1, k, d)
+        out = (pairs * w[..., None]).sum(dim=1).to(x.dtype)
+    if cfg.n_shared_experts:
+        with span("moe.shared"):
+            out = out + _shared(p, xf)
+    return out.reshape(shape)

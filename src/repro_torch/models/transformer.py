@@ -3,7 +3,12 @@
 Every decoder-only family runs through ``cfg.block_pattern``: pure
 attention (dense and MoE archs; pattern None is all 'attn'), xLSTM
 ('mlstm'/'slstm') and RecurrentGemma's hybrid ('rglru' + 'attn').  Layer
-``i`` is of kind ``cfg.pattern_for_layer(i)``.
+``i`` is of kind ``cfg.pattern_for_layer(i)``.  Latent-attention archs
+(port-only) are all 'mla': DeepSeek-V3's block, a dense SwiGLU in the
+leading ``first_k_dense`` layers and the sigmoid-routed dropless experts
+after them (a block's parameters hold ``mlp`` or ``moe``); its decode
+cache is the latent ``{c, k_r}`` (``models/mla.py``).  A mesh does not
+take it yet.
 
 Layers are an ``nn.ModuleList`` in layer order.  The reference stacks the
 full cycles of the pattern under one ``lax.scan`` and runs the remainder
@@ -37,6 +42,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
+from repro_torch.models import mla as mla_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import ssm as ssm_mod
@@ -76,7 +82,18 @@ __all__ = [
 # Declarations
 # ---------------------------------------------------------------------------
 
-def _block_decls(kind: str, cfg: ModelConfig) -> Dict:
+def _block_decls(kind: str, cfg: ModelConfig, layer: int = 0) -> Dict:
+    if kind == "mla":
+        d = {
+            "attn_norm": rmsnorm_decls(cfg.d_model),
+            "attn": mla_mod.mla_decls(cfg),
+            "mlp_norm": rmsnorm_decls(cfg.d_model),
+        }
+        if cfg.is_moe_layer(layer):
+            d["moe"] = moe_mod.moe_decls(cfg)
+        else:
+            d["mlp"] = mlp_decls(cfg.d_model, cfg.d_ff_dense, cfg.dtype)
+        return d
     if kind == "attn":
         d = {
             "attn_norm": rmsnorm_decls(cfg.d_model),
@@ -132,7 +149,7 @@ def model_decls(cfg: ModelConfig, fan_in: bool = False) -> Dict:
     n_cyc = 0 if fan_in else n_full * lp
     layers = []
     for i in range(cfg.n_layers):
-        d = _block_decls(cfg.pattern_for_layer(i), cfg)
+        d = _block_decls(cfg.pattern_for_layer(i), cfg, i)
         if i < n_full * lp:
             d = drawn_as_stack(d, ("layers", "cyc", str(i % lp)), i // lp)
         else:
@@ -180,6 +197,10 @@ def _block_apply(
             x = x + a
             h = rmsnorm(p["mlp_norm"], x, cfg.norm_eps)
             x = x + mlp(p["mlp"], h)
+    elif kind == "mla":
+        h = rmsnorm(p["attn_norm"], x, cfg.norm_eps)
+        x = x + mla_mod.mla_apply(p["attn"], h, cfg, positions)
+        x = x + _mla_mlp(p, rmsnorm(p["mlp_norm"], x, cfg.norm_eps), cfg)
     elif kind == "rglru":
         x = rglru_mod.rglru_apply(p["rglru"], x, cfg)
         h = rmsnorm(p["mlp_norm"], x, cfg.norm_eps)
@@ -191,6 +212,14 @@ def _block_apply(
     else:
         raise ValueError(kind)
     return x, aux
+
+
+def _mla_mlp(p, h: torch.Tensor, cfg: ModelConfig, layer: Optional[int] = None
+             ) -> torch.Tensor:
+    """An 'mla' block's second half: its dense SwiGLU or its experts."""
+    if "moe" in p:
+        return moe_mod.dropless_apply(p["moe"], h, cfg, layer=layer)
+    return mlp(p["mlp"], h)
 
 
 def remat_call(remat: bool, fn, *args):
@@ -376,6 +405,8 @@ def lm_loss(
 # ---------------------------------------------------------------------------
 
 def _block_cache(kind: str, batch: int, cfg: ModelConfig, max_seq: int, device):
+    if kind == "mla":
+        return mla_mod.init_latent_cache(batch, cfg, max_seq, device)
     if kind == "attn":
         return attn.init_kv_cache(batch, cfg, max_seq, 1, device)[0]
     if kind == "rglru":
@@ -395,7 +426,8 @@ def layer_kinds(cfg: ModelConfig) -> List[str]:
 def init_decode_cache(batch: int, cfg: ModelConfig, max_seq: int, device=None, *,
                       mesh=None):
     """One cache dict per layer: {k, v} for attention (a ring of the window
-    for windowed archs), the recurrent state otherwise.  With a ``mesh``,
+    for windowed archs), {c, k_r} for latent attention, the recurrent state
+    otherwise.  With a ``mesh``,
     laid out on it (``sharding.blocks.lay_out_cache``: ``k``/``v`` split by
     ``seq`` over ``model``, recurrent states by ``tensor``, the mLSTM state
     replicated, the batch over the data axes), made on ``device`` (the
@@ -417,7 +449,13 @@ def _decode_attention(p, x: torch.Tensor, cache, pos: int, cfg: ModelConfig):
     return x, rmsnorm(p["mlp_norm"], x, cfg.norm_eps), {"k": nk, "v": nv}
 
 
-def _block_decode(kind: str, p, x: torch.Tensor, cache, pos: int, cfg: ModelConfig):
+def _block_decode(kind: str, p, x: torch.Tensor, cache, pos: int, cfg: ModelConfig,
+                  layer: int = 0):
+    if kind == "mla":
+        h = rmsnorm(p["attn_norm"], x, cfg.norm_eps)
+        y, cache = mla_mod.mla_decode(p["attn"], h, cache, pos, cfg)
+        x = x + y
+        return x + _mla_mlp(p, rmsnorm(p["mlp_norm"], x, cfg.norm_eps), cfg, layer), cache
     if kind == "attn":
         x, h, new = _decode_attention(p, x, cache, pos, cfg)
         if cfg.is_moe:
@@ -456,8 +494,10 @@ def _decode_shards(params: Sequence, tokens: Sequence, caches: Sequence, pos: in
                 new[j].append(c)
             continue
         for j, p in enumerate(ps):
-            xs[j], c = _block_decode(kind, p, xs[j], caches[j][i], pos, cfg)
+            xs[j], c = _block_decode(kind, p, xs[j], caches[j][i], pos, cfg, i)
             new[j].append(c)
+    if cfg.router == "sigmoid":
+        moe_mod.ROUTING.end_step()
     logits = []
     for p, x in zip(params, xs):
         x = rmsnorm(p["final_norm"], x, cfg.norm_eps)

@@ -6,7 +6,8 @@ Two halves are here:
   * the LM substrate's forward model per (arch, shape) cell:
     ``flops_estimate`` (global FLOPs of a train, prefill or decode step,
     following ``models/`` term by term: executed attention is the full
-    chunked score product, MoE is capacity-padded) and
+    chunked score product, MoE is capacity-padded, the sigmoid router's
+    dropless experts are not, latent attention decodes absorbed) and
     ``hbm_bytes_estimate`` (per-chip device-memory bytes of a step, a floor
     model: weights read once, KV cache and saved activations);
   * the ConvCoTM eval paths' ``tm_serve_costs`` and their path sets.
@@ -74,6 +75,43 @@ def _moe_flops(cfg: ModelConfig, b: int, s: int) -> float:
     return router + expert + dispatch + shared
 
 
+def _mla_mlp_flops(cfg: ModelConfig, t: int, layer: int) -> float:
+    """An 'mla' block's second half over ``t`` tokens: the leading dense
+    SwiGLU, or the dropless experts (the router, each token's ``k``
+    experts, no capacity padding, and the ungated shared expert)."""
+    d = cfg.d_model
+    if not cfg.is_moe_layer(layer):
+        return 2.0 * t * d * cfg.d_ff_dense * 3.0
+    k, ff, ffs = cfg.n_experts_per_token, cfg.d_ff, cfg.d_ff_shared
+    return 2.0 * t * (d * cfg.n_experts + 3 * k * d * ff + 3 * d * ffs)
+
+
+def _mla_proj_params(cfg: ModelConfig) -> int:
+    """Parameters of ``Wq``, ``Wkv_a`` and ``Wo`` (not ``Wkv_b``)."""
+    d, h = cfg.d_model, cfg.n_heads
+    return (d * h * cfg.head_dim + d * (cfg.kv_lora_rank + cfg.qk_rope_head_dim)
+            + h * cfg.v_head_dim * d)
+
+
+def _mla_flops(cfg: ModelConfig, b: int, s: int) -> float:
+    """Latent attention over a sequence in its full form (``Wkv_b`` makes
+    every position's keys and values) with the full chunked score product."""
+    h, r = cfg.n_heads, cfg.kv_lora_rank
+    kvb = r * h * (cfg.qk_nope_head_dim + cfg.v_head_dim)
+    proj = 2.0 * b * s * (_mla_proj_params(cfg) + kvb)
+    return proj + 2.0 * b * h * float(s) * float(s) * (cfg.head_dim + cfg.v_head_dim)
+
+
+def _mla_decode_flops(cfg: ModelConfig, b: int, kv_len: int) -> float:
+    """Latent attention of one token, ``Wkv_b`` absorbed: the projections,
+    ``q_nope W_UK`` and ``(P c) W_UV``, and the scores and weighted sum
+    over the latent and rotary key of every held position."""
+    h, r, rope = cfg.n_heads, cfg.kv_lora_rank, cfg.qk_rope_head_dim
+    proj = 2.0 * b * _mla_proj_params(cfg) + 2.0 * b * h * r * (cfg.qk_nope_head_dim
+                                                                  + cfg.v_head_dim)
+    return proj + 2.0 * b * h * kv_len * (r + rope) + 2.0 * b * h * kv_len * r
+
+
 def _mlstm_flops(cfg: ModelConfig, b: int, s: int, chunk: int = 64) -> float:
     up = int(cfg.d_model * cfg.proj_factor)
     h = cfg.n_heads
@@ -106,8 +144,10 @@ def _rglru_flops(cfg: ModelConfig, b: int, s: int) -> float:
     return proj + gates + conv + _mlp_flops(cfg, b, s)
 
 
-def _layer_flops(cfg: ModelConfig, kind: str, b: int, s: int) -> float:
+def _layer_flops(cfg: ModelConfig, kind: str, b: int, s: int, layer: int = 0) -> float:
     window = cfg.sliding_window or cfg.local_window
+    if kind == "mla":
+        return _mla_flops(cfg, b, s) + _mla_mlp_flops(cfg, b * s, layer)
     if kind == "attn":
         mlp = _moe_flops(cfg, b, s) if cfg.is_moe else _mlp_flops(cfg, b, s)
         return _attn_layer_flops(cfg, b, s, window) + mlp
@@ -123,7 +163,7 @@ def _layer_flops(cfg: ModelConfig, kind: str, b: int, s: int) -> float:
 def _forward_flops(cfg: ModelConfig, b: int, s: int) -> float:
     total = 0.0
     for i in range(cfg.n_layers):
-        total += _layer_flops(cfg, cfg.pattern_for_layer(i), b, s)
+        total += _layer_flops(cfg, cfg.pattern_for_layer(i), b, s, i)
     if cfg.is_encoder_decoder:
         # Encoder (bidirectional full attention) + decoder cross-attention.
         for _ in range(cfg.n_encoder_layers):
@@ -146,9 +186,12 @@ def _head_flops(cfg: ModelConfig, b: int, s: int) -> float:
     return 2.0 * b * s * cfg.d_model * cfg.vocab_size
 
 
-def _decode_layer_flops(cfg: ModelConfig, kind: str, b: int, kv_len: int) -> float:
+def _decode_layer_flops(cfg: ModelConfig, kind: str, b: int, kv_len: int, layer: int = 0
+                        ) -> float:
     d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     window = cfg.sliding_window or cfg.local_window
+    if kind == "mla":
+        return _mla_decode_flops(cfg, b, kv_len) + _mla_mlp_flops(cfg, b, layer)
     if kind == "attn":
         eff = min(kv_len, window) if window else kv_len
         proj = 2.0 * b * d * (h * hd + 2 * kv * hd + h * hd)
@@ -185,7 +228,7 @@ def flops_estimate(cfg: ModelConfig, shape: ShapeConfig) -> float:
     # decode: one token against a kv_len cache
     total = 0.0
     for i in range(cfg.n_layers):
-        total += _decode_layer_flops(cfg, cfg.pattern_for_layer(i), b, s)
+        total += _decode_layer_flops(cfg, cfg.pattern_for_layer(i), b, s, i)
     if cfg.is_encoder_decoder:
         # cross-attn against enc len s
         total += cfg.n_layers * (
@@ -228,6 +271,8 @@ def hbm_bytes_estimate(
     kv_bytes = (
         2.0 * b * cfg.n_kv_heads * kv_len * cfg.head_dim * 2 * n_attn / chips
     )
+    if cfg.is_mla:      # the latent cache: c and the rotary key a position
+        kv_bytes = 2.0 * b * kv_len * (cfg.kv_lora_rank + cfg.qk_rope_head_dim) * cfg.n_layers / chips
     return pb * (cfg.active_param_count() / max(cfg.param_count(), 1)) + kv_bytes
 
 

@@ -29,7 +29,14 @@ The names and where they are opened:
   * ``gc.gen0`` .. ``gc.gen2``: a collector pause while a
     ``ServingService`` runs;
   * ``train.draws``, ``train.matmul``, ``train.feedback``,
-    ``train.apply``: the TM trainer's step.
+    ``train.apply``: the TM trainer's step;
+  * ``mla.attend`` (``models/mla.py``: a latent-attention layer's decode
+    on its latent cache), ``moe.route`` (the sigmoid router, the choice,
+    the sort by expert and the groups' counts), ``moe.experts`` (the
+    gather, the grouped products and the combine) and ``moe.shared`` (the
+    ungated shared expert): the DeepSeek-V3 block's layers in an LM
+    decode step (``models/moe.py:dropless_apply``).  A decoder without
+    latent attention or the sigmoid router opens none of them.
 """
 
 from __future__ import annotations

@@ -21,10 +21,11 @@ from repro.launch import specs as JS
 from repro.models import encdec as jed
 from repro.models import transformer as jtfm
 from repro.models.base import init_params as j_init
-from repro_torch.configs import ARCHS, reduced_config
+from repro_torch.configs import ARCHS, paired_archs, reduced_config
 from repro_torch.convert import lm_params_from_arrays, lm_state_to_arrays
 
-ARCH_NAMES = sorted(ARCHS)
+#: The archs both packages hold (the port-only ones have no reference).
+ARCH_NAMES = paired_archs()
 DTYPES = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16)}
 
 

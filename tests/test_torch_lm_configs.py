@@ -1,12 +1,16 @@
 """Port vs reference: the LM substrate's configs and its forward roofline
 model, held exactly.
 
-All ten ``ARCHS`` and their ``reduced_config`` agree field by field (the
-dtype by name: ``jnp.bfloat16`` against ``torch.bfloat16``), as do
+All ten of the reference's ``ARCHS`` and their ``reduced_config`` agree
+field by field (the dtype by name: ``jnp.bfloat16`` against
+``torch.bfloat16``; the fields the port adds sit at their defaults, under
+which it computes what the reference does), as do
 ``param_count``, ``active_param_count``, ``SHAPES``, ``applicable_shapes``
 and ``TrainConfig``.  The port's declaration trees count the reference's
 parameters and bytes, and its ``flops_estimate``, ``hbm_bytes_estimate``
 and ``model_flops`` give the reference's numbers for every (arch, shape).
+The port's registry holds the reference's archs and its own
+(``PORT_ONLY_ARCHS``, held in ``test_torch_mla_moe.py``).
 """
 
 import dataclasses
@@ -30,11 +34,13 @@ from repro.roofline.flops import flops_estimate as j_flops
 from repro.roofline.flops import hbm_bytes_estimate as j_hbm
 from repro_torch import ARCHS, get_config
 from repro_torch.configs import (
+    PORT_ONLY_ARCHS,
     SHAPES,
+    ModelConfig,
     ShapeConfig,
     TrainConfig,
     applicable_shapes,
-    list_archs,
+    paired_archs,
     reduced_config,
 )
 from repro_torch.launch.specs import abstract_model, model_decls
@@ -51,22 +57,37 @@ def _fields(cfg) -> dict:
     return out
 
 
+_DEFAULTS = {f.name: f.default for f in dataclasses.fields(ModelConfig)}
+
+
+def _as_reference(cfg, ref) -> dict:
+    """The port config's fields that the reference's config has.  The
+    fields the port adds (latent attention, leading dense layers, the
+    router's kind, the shared expert's gate) must sit at their defaults."""
+    mine, theirs = _fields(cfg), _fields(ref)
+    extra = {k: v for k, v in mine.items() if k not in theirs}
+    assert extra == {k: _DEFAULTS[k] for k in extra}
+    return {k: mine[k] for k in theirs}
+
+
 def test_registry_lists_the_same_archs():
-    assert list_archs() == j_list_archs() == ARCH_NAMES
-    assert sorted(ARCHS) == ARCH_NAMES
+    assert paired_archs() == j_list_archs() == ARCH_NAMES
+    assert sorted(ARCHS) == sorted(ARCH_NAMES + list(PORT_ONLY_ARCHS))
+    assert not set(PORT_ONLY_ARCHS) & set(J_ARCHS)
     with pytest.raises(KeyError, match="unknown arch"):
         get_config("no-such-arch")
 
 
 @pytest.mark.parametrize("arch", ARCH_NAMES)
 def test_arch_config_equals_reference_field_by_field(arch):
-    assert _fields(get_config(arch)) == _fields(J_ARCHS[arch])
+    assert _as_reference(get_config(arch), J_ARCHS[arch]) == _fields(J_ARCHS[arch])
     assert get_config(arch).dtype is torch.bfloat16
 
 
 @pytest.mark.parametrize("arch", ARCH_NAMES)
 def test_reduced_config_equals_reference_field_by_field(arch):
-    assert _fields(reduced_config(ARCHS[arch])) == _fields(j_reduced(J_ARCHS[arch]))
+    assert _as_reference(reduced_config(ARCHS[arch]), j_reduced(J_ARCHS[arch])) == _fields(
+        j_reduced(J_ARCHS[arch]))
 
 
 @pytest.mark.parametrize("arch", ARCH_NAMES)

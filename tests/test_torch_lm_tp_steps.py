@@ -23,7 +23,7 @@ from _lm_pair import batch as np_batch
 from _lm_pair import configs, ref_params, to_jax, to_torch
 from test_torch_lm_mesh import XLSTM_SHALLOW, _cfg, _hold_grads, _hold_steps, _matching, _tcfg
 from test_torch_lm_train import j_value_and_grad
-from repro_torch.configs import ShapeConfig, list_archs
+from repro_torch.configs import ShapeConfig, paired_archs
 from repro_torch.convert import lm_state_to_arrays
 from repro_torch.core.prng import prng_key
 from repro_torch.launch import dryrun
@@ -109,7 +109,7 @@ def test_one_shard_at_one_microbatch_sums_every_positions_gradient(profile):
 
 
 @pytest.mark.parametrize("shape", ((2, 2), (2, 4)), ids=["2x2", "2x4"])
-@pytest.mark.parametrize("arch", list_archs())
+@pytest.mark.parametrize("arch", paired_archs())
 def test_tp_gathers_across_model_only_what_does_not_split(arch, shape, profile):
     """Under ``tp`` every position of a data shard reads its own blocks, and
     no ``tensor``- or ``expert``-sharded leaf is gathered across ``model``
