@@ -68,6 +68,7 @@ from repro_torch.models.base import init_params
 from repro_torch.serve.engine import ServingEngine
 from repro_torch.serve.paths import available_paths
 from repro_torch.sharding.blocks import shard_params
+from repro_torch.train import decode_graph
 from repro_torch.train.serve_step import decode, sample_tokens
 
 __all__ = ["generate", "parse_serve_mesh", "serve_lm", "serve_tm", "serve_tm_service"]
@@ -97,7 +98,11 @@ def generate(
     encoder of an encoder-decoder arch.  With a ``mesh`` the parameters
     and the caches are laid out on it once (the caches as the reference's
     ``cache_shardings`` lay them out) and every step runs over its data
-    shards (the logits come back to the prompt's device)."""
+    shards (the logits come back to the prompt's device).  A dense
+    decoder's steps on the card replay one captured CUDA graph
+    (``train/decode_graph.py``), held for the next call of the same
+    parameters, config, batch and ``max_seq``; every other step runs
+    eagerly.  Either way each step goes through ``decode``."""
     b, plen = prompt_tokens.shape
     max_seq = max_seq or (plen + gen_len)
     dev = prompt_tokens.device
@@ -108,6 +113,8 @@ def generate(
         cross = ed.prepare_cross_cache(params, ed.encode(params, frontend_embeds, cfg, mesh=mesh),
                                        cfg, mesh=mesh)
         cache = ed.init_self_cache(b, cfg, max_seq, dev, mesh=mesh)
+    elif decode_graph.graphed(cfg, dev, mesh=mesh, frontend_embeds=frontend_embeds):
+        cache = decode_graph.holder(params, cfg, b, max_seq, dev)
     else:
         cache = tfm.init_decode_cache(b, cfg, max_seq, dev, mesh=mesh)
     key = prng_key(seed, dev)
@@ -154,11 +161,12 @@ def serve_lm(arch: str, *, reduced: bool = False, batch: int = 4, prompt_len: in
                     seed=seed)
     toks = toks.cpu()
     dt = time.perf_counter() - t0
+    counts = {k: decode_graph.COUNTS[k] for k in ("captures", "replays", "eager")}
     print(f"generated {tuple(toks.shape)} in {dt:.3f}s ({batch * gen / dt:.1f} tok/s) "
-          f"on {dev}")
+          f"on {dev}; decode steps {counts}")
     print(toks.numpy()[:2])
     return {"arch": cfg.name, "device": str(dev), "dtype": str(cfg.dtype), "seconds": dt,
-            "tokens_per_s": batch * gen / dt}
+            "tokens_per_s": batch * gen / dt, "decode_steps": counts}
 
 
 def parse_serve_mesh(spec: str | None, shard: str = "batch", device=None):

@@ -342,7 +342,10 @@ def _decode_blocks(p, x, cache_k: ModelBlocks, cache_v: ModelBlocks, pos: int,
     return _out_proj(p, group, out), cache_k, cache_v
 
 
-def _rope_decode(q, k, pos: int, cfg: ModelConfig, positions_3d):
+def _rope_decode(q, k, pos, cfg: ModelConfig, positions_3d):
+    """``q`` and ``k`` rotated to ``pos``: an int, or (no M-RoPE) a 0-d
+    integer tensor on their device, expanded to the batch; the positions
+    int32 either way."""
     b, dev = q.shape[0], q.device
     if cfg.mrope_sections is not None:
         p3 = positions_3d
@@ -350,7 +353,10 @@ def _rope_decode(q, k, pos: int, cfg: ModelConfig, positions_3d):
             p3 = torch.full((3, b, 1), pos, dtype=torch.int32, device=dev)
         return (mrope(q, p3, cfg.rope_theta, cfg.mrope_sections),
                 mrope(k, p3, cfg.rope_theta, cfg.mrope_sections))
-    posb = torch.full((b, 1), pos, dtype=torch.int32, device=dev)
+    if isinstance(pos, torch.Tensor):
+        posb = pos.to(torch.int32).expand(b, 1)
+    else:
+        posb = torch.full((b, 1), pos, dtype=torch.int32, device=dev)
     return rope(q, posb, cfg.rope_theta), rope(k, posb, cfg.rope_theta)
 
 
@@ -359,7 +365,7 @@ def decode_attention(
     x: torch.Tensor,                     # [B, 1, D] current token activations
     cache_k,                             # [B, KV, S_cache, hd], or its ModelBlocks
     cache_v,
-    pos: int,                            # current position
+    pos,                                 # current position: int, or 0-d int64 on x's device
     cfg: ModelConfig,
     *,
     window: Optional[int] = None,
@@ -371,7 +377,13 @@ def decode_attention(
     ``pos % S_cache`` (a ring for windowed caches, ``pos`` itself for full
     ones).  Masking rebuilds each slot's absolute position from the write
     position, so both layouts share one code path.  A cache held in blocks
-    along ``model`` (:class:`ModelBlocks`) is attended split."""
+    along ``model`` (:class:`ModelBlocks`) is attended split.
+
+    ``pos`` as a 0-d int64 tensor (a whole cache, no M-RoPE) is never read
+    back to the host, so the step can be captured in a CUDA graph and
+    replayed at any position: the slot is written by ``index_copy_`` and
+    each slot's absolute position is ``pos - (pos - slot) mod S_cache``,
+    the same integers as from an int, in as many operations."""
     if isinstance(cache_k, ModelBlocks):
         return _decode_blocks(p, x, cache_k, cache_v, pos, cfg, window, positions_3d)
     b = x.shape[0]
@@ -382,14 +394,19 @@ def decode_attention(
     q, k, v = _project_heads(p, None, x, cfg)
     q, k = _rope_decode(q, k, pos, cfg, positions_3d)
 
-    slot = pos % s_cache
-    cache_k[:, :, slot] = k[:, 0].to(cache_k.dtype)
-    cache_v[:, :, slot] = v[:, 0].to(cache_v.dtype)
-
-    # Absolute position of each ring slot given the current write pos.
     slots = torch.arange(s_cache, device=dev)
-    base = pos - slot                                  # start of current wrap
-    abs_pos = torch.where(slots <= slot, base + slots, base - s_cache + slots)
+    if isinstance(pos, torch.Tensor):
+        at = (pos % s_cache).reshape(1)
+        cache_k.index_copy_(2, at, k.transpose(1, 2).to(cache_k.dtype))
+        cache_v.index_copy_(2, at, v.transpose(1, 2).to(cache_v.dtype))
+        abs_pos = pos - (pos - slots) % s_cache
+    else:
+        slot = pos % s_cache
+        cache_k[:, :, slot] = k[:, 0].to(cache_k.dtype)
+        cache_v[:, :, slot] = v[:, 0].to(cache_v.dtype)
+        # Absolute position of each ring slot given the current write pos.
+        base = pos - slot                              # start of current wrap
+        abs_pos = torch.where(slots <= slot, base + slots, base - s_cache + slots)
     ok = (abs_pos >= 0) & (abs_pos <= pos)
     if window is not None:
         ok &= pos - abs_pos < window

@@ -534,13 +534,16 @@ def decode_step(
     params,
     tokens: torch.Tensor,         # [B, 1] current token ids
     cache,
-    pos: int,                     # current position
+    pos,                          # current position: int, or 0-d int64 (see below)
     cfg: ModelConfig,
     *,
     mesh=None,
 ) -> Tuple[torch.Tensor, Any]:
     """One serve step: returns (logits [B, vocab] float32, new cache).
-    Attention caches are written in place; recurrent states are new.  With
+    Attention caches are written in place; recurrent states are new.
+    Dense attention layers without a mesh also take ``pos`` as a 0-d int64
+    tensor on the card, never read back to the host: the form a CUDA graph
+    of the step replays (``train/decode_graph.py``).  With
     a ``mesh`` the step runs over the batch's data shards, each on its
     blocks of the cache (one laid out by ``init_decode_cache(...,
     mesh=mesh)``, kept so; a whole cache is laid out for the step and

@@ -36,7 +36,9 @@ The names and where they are opened:
     gather, the grouped products and the combine) and ``moe.shared`` (the
     ungated shared expert): the DeepSeek-V3 block's layers in an LM
     decode step (``models/moe.py:dropless_apply``).  A decoder without
-    latent attention or the sigmoid router opens none of them.
+    latent attention or the sigmoid router opens none of them;
+  * ``decode.replay``: one replay of a decode step's CUDA graph
+    (``train/decode_graph.py``), once a step of a graphed ``generate``.
 """
 
 from __future__ import annotations

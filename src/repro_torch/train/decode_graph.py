@@ -1,0 +1,128 @@
+"""The decode step as one CUDA graph, replayed every step of ``generate``.
+
+A dense decoder's step on the card is ~2,150 small operations (24 layers
+of h2o-danube-1.8b at batch 256), and issuing them one by one from Python
+takes the host ~3× as long as the card takes to run them.  Captured once
+and replayed, the step is one launch: the host copies the step's tokens
+and position into static buffers and replays, and runs ahead of the card.
+
+:class:`DecodeGraph` holds what the graph reads and writes for one
+``(params, cfg, batch, max_seq, device)``: the decode cache, a static
+token buffer ``[B, 1]``, the position as a 0-d int64 tensor (which
+``attention.decode_attention`` takes without reading it back), the graph
+and its logits.  Its first step runs eagerly on a side stream, then
+captures ``transformer.decode_step`` on the static buffers, then replays;
+the eager step writes the same cache slot with the same values as the
+replay after it, so the cache is as an eager step leaves it.  Each step
+returns a copy of the logits, which stays valid after the next replay.
+
+``generate`` holds one :class:`DecodeGraph` at a time (:func:`holder`):
+a call with the same key reuses it, its cache zeroed first as a fresh
+one starts; another key drops it before building the next.  The holder
+keeps the parameters alive, since the graph reads them where they lie.
+
+Which steps are graphed is decided from the input alone (:func:`graphed`):
+a prompt on a CUDA device, no mesh, a decoder-only config without M-RoPE
+or front-end embeddings whose layers are all dense ``'attn'``.  Latent
+attention and the experts keep per-step host state (the routing record,
+the step terms keyed on the Python position, their spans) that a replay
+would skip; recurrent, meshed and encoder-decoder steps and everything on
+the CPU run eagerly, as before.
+
+Each replay opens the span ``decode.replay``; :data:`COUNTS` counts
+``captures``, ``replays`` and ``eager`` steps (``serve_step.decode``).
+"""
+
+from __future__ import annotations
+
+import collections
+from typing import Optional
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import transformer as tfm
+from repro_torch.spans import span
+
+__all__ = ["COUNTS", "DecodeGraph", "drop", "graphed", "holder"]
+
+#: Captures, replays and eager decode steps since the process started.
+COUNTS: collections.Counter = collections.Counter()
+
+_HELD: Optional["DecodeGraph"] = None
+
+
+def graphed(cfg: ModelConfig, device, *, mesh=None, frontend_embeds=None) -> bool:
+    """Whether ``generate`` runs this config's decode steps as a graph."""
+    return (torch.device(device).type == "cuda" and mesh is None
+            and not cfg.is_encoder_decoder and frontend_embeds is None
+            and cfg.mrope_sections is None and not cfg.is_moe
+            and all(kind == "attn" for kind in tfm.layer_kinds(cfg)))
+
+
+class DecodeGraph:
+    """One decode step of ``(params, cfg, batch, max_seq, device)``,
+    captured on its first :meth:`step` and replayed on every later one."""
+
+    def __init__(self, params, cfg: ModelConfig, batch: int, max_seq: int, device):
+        self.params, self.cfg = params, cfg
+        self.batch, self.max_seq, self.device = batch, max_seq, torch.device(device)
+        self.cache = tfm.init_decode_cache(batch, cfg, max_seq, self.device)
+        self.tokens = torch.zeros((batch, 1), dtype=torch.int32, device=self.device)
+        self.pos = torch.zeros((), dtype=torch.int64, device=self.device)
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.logits: Optional[torch.Tensor] = None
+
+    def matches(self, params, cfg: ModelConfig, batch: int, max_seq: int, device) -> bool:
+        return (params is self.params and cfg == self.cfg and batch == self.batch
+                and max_seq == self.max_seq and torch.device(device) == self.device)
+
+    def reset(self) -> None:
+        """The cache back to zeros, as a fresh one starts."""
+        for layer in self.cache:
+            for leaf in layer.values():
+                leaf.zero_()
+
+    def _capture(self) -> None:
+        with torch.cuda.device(self.device):
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                tfm.decode_step(self.params, self.tokens, self.cache, self.pos, self.cfg)
+            torch.cuda.current_stream().wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                self.logits, _ = tfm.decode_step(self.params, self.tokens, self.cache, self.pos,
+                                                 self.cfg)
+        self.graph = graph
+        COUNTS["captures"] += 1
+
+    def step(self, tokens: torch.Tensor, pos: int) -> torch.Tensor:
+        """The logits [B, vocab] (float32, a copy) of ``tokens`` [B, 1] at
+        ``pos``, the cache written in place."""
+        self.tokens.copy_(tokens)
+        self.pos.fill_(pos)
+        if self.graph is None:
+            self._capture()
+        with span("decode.replay"):
+            self.graph.replay()
+        COUNTS["replays"] += 1
+        return self.logits.clone()
+
+
+def holder(params, cfg: ModelConfig, batch: int, max_seq: int, device) -> DecodeGraph:
+    """The held :class:`DecodeGraph` of this key with its cache zeroed, or
+    a new one in place of the old."""
+    global _HELD
+    if _HELD is not None and _HELD.matches(params, cfg, batch, max_seq, device):
+        _HELD.reset()
+        return _HELD
+    _HELD = None        # the old cache and graph pool go before the new ones are made
+    _HELD = DecodeGraph(params, cfg, batch, max_seq, device)
+    return _HELD
+
+
+def drop() -> None:
+    """Let go of the held graph, its cache and its parameters."""
+    global _HELD
+    _HELD = None

@@ -9,8 +9,11 @@ clause evaluation, applied to batched decoding.  ``make_tm_serve_fn``:
 the ConvCoTM classify step closed over a frozen servable.
 
 ``prefill``, ``decode`` and ``make_serve_fns`` take a ``mesh``, as the
-reference's do.  Greedy decoding matches the reference token for token
-(both argmaxes take the first maximum).  Temperature sampling is
+reference's do.  ``decode`` given a ``decode_graph.DecodeGraph`` as its
+cache replays that captured step (what ``generate`` hands it for a dense
+decoder on the card) and returns the holder as the cache.  Greedy
+decoding matches the reference token for token (both argmaxes take the
+first maximum).  Temperature sampling is
 ``jax.random.categorical`` of a key (``core/prng.py``), so from one key it
 emits the reference's tokens wherever its Gumbel noise's last-place
 rounding does not decide the argmax.
@@ -28,6 +31,7 @@ from repro_torch.core import prng
 from repro_torch.models import encdec as ed
 from repro_torch.models import transformer as tfm
 from repro_torch.models.layers import lm_logits, softcap
+from repro_torch.train.decode_graph import COUNTS, DecodeGraph
 
 __all__ = [
     "prefill",
@@ -64,7 +68,13 @@ def decode(
     mesh=None,
 ) -> Tuple[torch.Tensor, List[Dict]]:
     """One decode step -> (logits [B, vocab], new cache); with a ``mesh``,
-    over its data shards."""
+    over its data shards.  A :class:`DecodeGraph` cache (of these
+    ``params`` and ``cfg``) is replayed at ``pos`` and returned."""
+    if isinstance(cache, DecodeGraph):
+        if params is not cache.params or (cfg is not cache.cfg and cfg != cache.cfg):
+            raise ValueError("the decode graph was captured for other parameters or config")
+        return cache.step(tokens, pos), cache
+    COUNTS["eager"] += 1
     if cfg.is_encoder_decoder:
         return ed.encdec_decode_step(params, tokens, cache, cross_cache, pos, cfg, mesh=mesh)
     return tfm.decode_step(params, tokens, cache, pos, cfg, mesh=mesh)
