@@ -22,10 +22,13 @@ The model-axis operators of a tensor-parallel step (Megatron's *f* and
 *g*), over the positions of one data shard along ``model``, each
 position's tensor on its own device: :func:`copy_to_model` (identity
 forward, sum backward), :func:`reduce_from_model` (sum forward, identity
-backward) and :func:`gather_from_model` (concatenation forward, slice
-backward).  Every sum is taken in position order, in float32 (float64
-for float64 tensors), and rounded once to the tensors' dtype, so bf16
-partials add no second rounding.
+backward), :func:`gather_from_model` (concatenation forward, slice
+backward) and :func:`row_parallel` (the positions' products, summed).
+Every sum is taken in position order, in float32 (float64 for float64
+tensors), and rounded once to the tensors' dtype, so bf16 partials add
+no second rounding.  At one position (an unmeshed layer) each is the
+identity on its one tensor, and :func:`row_parallel` is ``x @ w``: no
+autograd Function, no copy, no widening.
 """
 
 from __future__ import annotations
@@ -47,6 +50,7 @@ __all__ = [
     "psum_tree",
     "quantize_int8",
     "reduce_from_model",
+    "row_parallel",
     "tree_psum_batch",
 ]
 
@@ -296,8 +300,8 @@ class _PartialProduct(torch.autograd.Function):
 
 
 def partial_product(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """``x @ w`` (``w`` a matrix) as one model position's partial of a
-    row-parallel product, for :func:`reduce_from_model`: accumulated and
+    """``x @ w`` (``w`` a matrix) as one of several model positions' partials
+    of a row-parallel product (:func:`row_parallel`): accumulated and
     returned in float32 when the operands are bf16 or fp16, so the sum over
     the positions rounds once, where the unmeshed product rounds; ``x @ w``
     as it is otherwise."""
@@ -312,7 +316,9 @@ def copy_to_model(x: torch.Tensor, devices: Sequence[torch.device]) -> List[torc
     """``x`` on each model position's device (*f*): the same values forward;
     backward, the positions' gradients summed in position order, in
     float32, rounded once to ``x``'s dtype.  A position on ``x``'s device
-    reads ``x`` itself."""
+    reads ``x`` itself; one position reads ``x``."""
+    if len(devices) == 1:
+        return [x]
     return list(_CopyToModel.apply(x, [torch.device(d) for d in devices]))
 
 
@@ -320,8 +326,10 @@ def reduce_from_model(parts: Sequence[torch.Tensor], home, dtype=None) -> torch.
     """The sum of the model positions' partial results on ``home`` (*g*): in
     position order, in float32, rounded once to ``dtype`` (the parts'
     dtype by default); backward, the gradient goes to every part, in its
-    dtype."""
+    dtype.  One part is returned as it is, cast where ``dtype`` differs."""
     dtype = parts[0].dtype if dtype is None else dtype
+    if len(parts) == 1:
+        return parts[0].to(device=home, dtype=dtype)
     return _ReduceFromModel.apply(torch.device(home), dtype, *parts)
 
 
@@ -330,5 +338,21 @@ def gather_from_model(parts: Sequence[torch.Tensor], dim: int,
     """The model positions' blocks joined along ``dim``, in position order,
     on each of ``devices`` (an all-gather; one device gathers to it alone).
     Backward, each block takes its slice of every output's gradient,
-    summed over the outputs in their order, in float32."""
+    summed over the outputs in their order, in float32.  One block (one
+    position, on its own device) is returned as it is."""
+    if len(parts) == 1:
+        return [parts[0]] * len(devices)
     return list(_GatherFromModel.apply(dim, [torch.device(d) for d in devices], *parts))
+
+
+def row_parallel(xs: Sequence[torch.Tensor], ws: Sequence[torch.Tensor], home,
+                 dtype=None) -> torch.Tensor:
+    """The sum over the model positions of ``xs[m] @ ws[m]`` (each position's
+    rows of a row-parallel weight, on its device), on ``home`` in ``dtype``
+    (``xs``'s by default): each product a :func:`partial_product`, the
+    partials summed by :func:`reduce_from_model`.  At one position,
+    ``xs[0] @ ws[0]`` in the operands' dtype, the unmeshed product."""
+    dtype = xs[0].dtype if dtype is None else dtype
+    if len(xs) == 1:
+        return reduce_from_model([xs[0] @ ws[0]], home, dtype)
+    return reduce_from_model([partial_product(x, w) for x, w in zip(xs, ws)], home, dtype)

@@ -12,17 +12,19 @@ cast to the values' dtype before the second product.  Written in plain
 PyTorch in the reference's order of operations, not through a library
 attention kernel.
 
-Split over ``model`` (``sharding/blocks.py:model_group``): each position
-computes ``n_heads / M`` query heads and its kv heads (those of its own
-block where ``n_kv_heads`` divides ``M``; else it reads ``wk``/``wv`` whole
-and takes the kv heads its query heads use), and its rows of ``wo``; the
-partial outputs are summed over ``model``.  Heads that do not split whole
-run on the data shard's first position, the leaves read whole and
-recorded.  A decode cache laid out by ``seq`` (:class:`ModelBlocks`) is
-attended split: the new key and value go to the position holding slot
-``pos % S_cache``, each position scores every head against its own slots,
-and the partial softmaxes are combined over ``model`` (maxima, sums,
-weighted values) in position order.
+One body over the positions of the heads' model group
+(``sharding/blocks.py:model_group``; one position holding the leaves
+whole when unmeshed): each position computes ``n_heads / M`` query heads
+and its kv heads (those of its own block where ``n_kv_heads`` divides
+``M``; else it reads ``wk``/``wv`` whole and takes the kv heads its query
+heads use), and its rows of ``wo``; the partial outputs are summed over
+``model``.  Heads that do not split whole run on one position, the
+leaves read whole and recorded.  A decode cache is held in blocks
+(:class:`ModelBlocks`; a whole ``[B, KV, S, hd]`` cache is one block):
+laid out by ``seq``, the new key and value go to the position holding
+slot ``pos % S_cache``, each position scores every head against its own
+slots, and the partial softmaxes are combined over ``model`` (maxima,
+sums, weighted values) in position order.
 """
 
 from __future__ import annotations
@@ -35,12 +37,12 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed.collectives import (
     copy_to_model,
     gather_from_model,
-    partial_product,
     reduce_from_model,
+    row_parallel,
 )
 from repro_torch.models.base import ParamDecl
 from repro_torch.models.layers import mrope, rope, wide
-from repro_torch.sharding.blocks import ModelBlocks, ModelGroup, model_group
+from repro_torch.sharding.blocks import ModelBlocks, ModelGroup, model_group, whole_group
 
 __all__ = [
     "attention_decls",
@@ -138,19 +140,17 @@ def chunked_attention(
     return out.reshape(b, h, sq, v.shape[-1])
 
 
-def _heads_group(p, cfg: ModelConfig) -> Optional[ModelGroup]:
+def _heads_group(p, cfg: ModelConfig) -> ModelGroup:
     """The model group an attention splits over: ``wq``/``wo`` split into
     whole query heads and kv heads that either divide over ``model`` or
-    are fewer than its positions and divide them.  Else None, the leaves
-    recorded as read whole."""
+    are fewer than its positions and divide them.  Else one position, the
+    leaves recorded as read whole."""
     group = model_group(p, "wq", "wo")
-    if group is None:
-        return None
     m, h, kv = group.size, cfg.n_heads, cfg.n_kv_heads
     if h % m or (kv % m and m % kv):
         for key in ("wq", "wk", "wv", "wo"):
             p.note_gathered(key, f"{h} query and {kv} kv heads do not split over model {m}")
-        return None
+        return whole_group(p)
     return group
 
 
@@ -207,17 +207,14 @@ def attention_apply(
     kw = dict(causal=causal, window=window, use_rope=use_rope, cross=kv_source is not None,
               chunk=chunk)
     group = _heads_group(p, cfg)
-    if group is None:
-        src = x if kv_source is None else kv_source
-        return _attend(x, src, p["wq"], p["wk"], p["wv"], cfg, positions, **kw) @ p["wo"]
     devs = group.devices
     xs = copy_to_model(x, devs)
     srcs = xs if kv_source is None else copy_to_model(kv_source, devs)
-    parts = [partial_product(_attend(xm, sm, q.local("wq"), wk, wv, cfg,
-                                     positions.to(q.device), **kw), q.local("wo"))
-             for q, xm, sm, wk, wv in zip(group.views, xs, srcs, _kv_blocks(p, group, cfg, "wk"),
+    outs = [_attend(xm, sm, wq, wk, wv, cfg, positions.to(xm.device), **kw)
+            for xm, sm, wq, wk, wv in zip(xs, srcs, group.local("wq"),
+                                          _kv_blocks(p, group, cfg, "wk"),
                                           _kv_blocks(p, group, cfg, "wv"))]
-    return reduce_from_model(parts, x.device, x.dtype)
+    return row_parallel(outs, group.local("wo"), x.device)
 
 
 # ---------------------------------------------------------------------------
@@ -242,19 +239,16 @@ def init_kv_cache(batch: int, cfg: ModelConfig, max_seq: int, n_layers: int, dev
             for _ in range(n_layers)]
 
 
-def _project_heads(p, group: Optional[ModelGroup], x: torch.Tensor, cfg: ModelConfig,
+def _project_heads(p, group: ModelGroup, x: torch.Tensor, cfg: ModelConfig,
                   keys=("wq", "wk", "wv")):
     """``x`` [B, S, D] through each of ``keys`` as heads [B, S, n, hd]
     (``n_heads`` for ``wq``, ``n_kv_heads`` otherwise), joined on ``x``'s
-    device: computed by each position's heads and gathered where the
-    attention is split."""
+    device: computed by each position's heads and gathered."""
     kv, hd = cfg.n_kv_heads, cfg.head_dim
-    xs = None if group is None else copy_to_model(x, group.devices)
+    xs = copy_to_model(x, group.devices)
     outs = []
     for k in keys:
-        if group is None:
-            outs.append(x @ p[k])
-        elif k != "wq" and kv % group.size:
+        if k != "wq" and kv % group.size:
             outs.append(x @ p.whole(k, f"n_kv_heads {kv} does not divide over model "
                                        f"{group.size}"))
         else:
@@ -264,14 +258,12 @@ def _project_heads(p, group: Optional[ModelGroup], x: torch.Tensor, cfg: ModelCo
                  for o, k in zip(outs, keys))
 
 
-def _out_proj(p, group: Optional[ModelGroup], out: torch.Tensor) -> torch.Tensor:
-    """``out`` [B, 1, H * hd] through ``wo``: row-parallel where split."""
-    if group is None:
-        return out @ p["wo"]
+def _out_proj(group: ModelGroup, out: torch.Tensor) -> torch.Tensor:
+    """``out`` [B, 1, H * hd] through ``wo``, row-parallel."""
     n = out.shape[-1] // group.size
-    parts = [partial_product(om[..., i * n:(i + 1) * n], w) for i, (om, w) in
-             enumerate(zip(copy_to_model(out, group.devices), group.local("wo")))]
-    return reduce_from_model(parts, out.device, out.dtype)
+    outs = [om[..., i * n:(i + 1) * n]
+            for i, om in enumerate(copy_to_model(out, group.devices))]
+    return row_parallel(outs, group.local("wo"), out.device)
 
 
 def _split_softmax(qg: torch.Tensor, ks: List[torch.Tensor], vs: List[torch.Tensor],
@@ -309,39 +301,6 @@ def _holders(cache: ModelBlocks) -> List[Tuple[int, int]]:
     return [(i, i * n) for i in range(len(cache.blocks))]
 
 
-def _decode_blocks(p, x, cache_k: ModelBlocks, cache_v: ModelBlocks, pos: int,
-                   cfg: ModelConfig, window, positions_3d):
-    """:func:`decode_attention` on a cache held by the positions along
-    ``model`` (split by ``seq``, or a whole copy on each)."""
-    b, h, kv, hd = x.shape[0], cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    group = _heads_group(p, cfg)
-    q, k, v = _project_heads(p, group, x, cfg)
-    q, k = _rope_decode(q, k, pos, cfg, positions_3d)
-    n = cache_k.blocks[0].shape[2]
-    s_cache = n * len(cache_k.blocks) if cache_k.dim is not None else n
-    slot = pos % s_cache
-    writers = ([(slot // n, slot % n)] if cache_k.dim is not None
-               else [(i, slot) for i in range(len(cache_k.blocks))])
-    for i, at in writers:
-        for c, new in ((cache_k.blocks[i], k), (cache_v.blocks[i], v)):
-            c[:, :, at] = new[:, 0].to(device=c.device, dtype=c.dtype)
-    base = pos - slot
-    biases = []
-    for i, first in _holders(cache_k):
-        slots = first + torch.arange(n, device=cache_k.blocks[i].device)
-        abs_pos = torch.where(slots <= slot, base + slots, base - s_cache + slots)
-        ok = (abs_pos >= 0) & (abs_pos <= pos)
-        if window is not None:
-            ok &= pos - abs_pos < window
-        biases.append(_bias(ok)[None, :])
-    held = [i for i, _ in _holders(cache_k)]
-    qg = q.transpose(1, 2).reshape(b, kv, h // kv, 1, hd)
-    out = _split_softmax(qg, [cache_k.blocks[i] for i in held],
-                         [cache_v.blocks[i] for i in held], biases)
-    out = out.reshape(b, h, 1, hd).transpose(1, 2).reshape(b, 1, h * hd)
-    return _out_proj(p, group, out), cache_k, cache_v
-
-
 def _rope_decode(q, k, pos, cfg: ModelConfig, positions_3d):
     """``q`` and ``k`` rotated to ``pos``: an int, or (no M-RoPE) a 0-d
     integer tensor on their device, expanded to the batch; the positions
@@ -377,46 +336,51 @@ def decode_attention(
     ``pos % S_cache`` (a ring for windowed caches, ``pos`` itself for full
     ones).  Masking rebuilds each slot's absolute position from the write
     position, so both layouts share one code path.  A cache held in blocks
-    along ``model`` (:class:`ModelBlocks`) is attended split.
+    along ``model`` (:class:`ModelBlocks`) is attended split; a whole cache
+    is its one block.
 
     ``pos`` as a 0-d int64 tensor (a whole cache, no M-RoPE) is never read
     back to the host, so the step can be captured in a CUDA graph and
     replayed at any position: the slot is written by ``index_copy_`` and
     each slot's absolute position is ``pos - (pos - slot) mod S_cache``,
     the same integers as from an int, in as many operations."""
-    if isinstance(cache_k, ModelBlocks):
-        return _decode_blocks(p, x, cache_k, cache_v, pos, cfg, window, positions_3d)
-    b = x.shape[0]
-    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    s_cache = cache_k.shape[2]
-    dev = x.device
-
-    q, k, v = _project_heads(p, None, x, cfg)
+    b, h, kv, hd = x.shape[0], cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    ck, cv = (c if isinstance(c, ModelBlocks) else ModelBlocks([c]) for c in (cache_k, cache_v))
+    group = _heads_group(p, cfg)
+    q, k, v = _project_heads(p, group, x, cfg)
     q, k = _rope_decode(q, k, pos, cfg, positions_3d)
-
-    slots = torch.arange(s_cache, device=dev)
+    n = ck.blocks[0].shape[2]
+    s_cache = n * len(ck.blocks) if ck.dim is not None else n
     if isinstance(pos, torch.Tensor):
         at = (pos % s_cache).reshape(1)
-        cache_k.index_copy_(2, at, k.transpose(1, 2).to(cache_k.dtype))
-        cache_v.index_copy_(2, at, v.transpose(1, 2).to(cache_v.dtype))
-        abs_pos = pos - (pos - slots) % s_cache
+        for c, new in ((ck, k), (cv, v)):
+            for blk in c.blocks:
+                blk.index_copy_(2, at, new.transpose(1, 2).to(blk.dtype))
     else:
         slot = pos % s_cache
-        cache_k[:, :, slot] = k[:, 0].to(cache_k.dtype)
-        cache_v[:, :, slot] = v[:, 0].to(cache_v.dtype)
-        # Absolute position of each ring slot given the current write pos.
-        base = pos - slot                              # start of current wrap
-        abs_pos = torch.where(slots <= slot, base + slots, base - s_cache + slots)
-    ok = (abs_pos >= 0) & (abs_pos <= pos)
-    if window is not None:
-        ok &= pos - abs_pos < window
-    bias = _bias(ok)                                   # [S_cache]
-
-    g = h // kv
-    qg = q.transpose(1, 2).reshape(b, kv, g, 1, hd)
-    out = _sdpa(qg, cache_k, cache_v, bias[None, :])
-    out = out.reshape(b, kv * g, 1, hd).transpose(1, 2).reshape(b, 1, h * hd)
-    return out @ p["wo"], cache_k, cache_v
+        writers = ([(slot // n, slot % n)] if ck.dim is not None
+                   else [(i, slot) for i in range(len(ck.blocks))])
+        for i, at in writers:
+            for c, new in ((ck.blocks[i], k), (cv.blocks[i], v)):
+                c[:, :, at] = new[:, 0].to(device=c.device, dtype=c.dtype)
+    held, biases = _holders(ck), []
+    for i, first in held:
+        slots = torch.arange(first, first + n, device=ck.blocks[i].device)
+        if isinstance(pos, torch.Tensor):
+            abs_pos = pos - (pos - slots) % s_cache
+        else:
+            # Absolute position of each ring slot given the current write pos.
+            base = pos - slot                          # start of current wrap
+            abs_pos = torch.where(slots <= slot, base + slots, base - s_cache + slots)
+        ok = (abs_pos >= 0) & (abs_pos <= pos)
+        if window is not None:
+            ok &= pos - abs_pos < window
+        biases.append(_bias(ok)[None, :])
+    qg = q.transpose(1, 2).reshape(b, kv, h // kv, 1, hd)
+    out = _split_softmax(qg, [ck.blocks[i] for i, _ in held], [cv.blocks[i] for i, _ in held],
+                         biases)
+    out = out.reshape(b, h, 1, hd).transpose(1, 2).reshape(b, 1, h * hd)
+    return _out_proj(group, out), cache_k, cache_v
 
 
 def cross_decode_attention(p, x: torch.Tensor, cache_k, cache_v, cfg: ModelConfig
@@ -425,18 +389,16 @@ def cross_decode_attention(p, x: torch.Tensor, cache_k, cache_v, cfg: ModelConfi
     mask, no rotation): [B, 1, D].  A cache held in blocks along ``model``
     is attended split, as :func:`decode_attention`'s."""
     b, h, kv, hd = x.shape[0], cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    group = _heads_group(p, cfg) if isinstance(cache_k, ModelBlocks) else None
+    ck, cv = (c if isinstance(c, ModelBlocks) else ModelBlocks([c]) for c in (cache_k, cache_v))
+    group = _heads_group(p, cfg)
     (q,) = _project_heads(p, group, x, cfg, keys=("wq",))
     qg = q.transpose(1, 2).reshape(b, kv, h // kv, 1, hd)
-    if isinstance(cache_k, ModelBlocks):
-        held = [i for i, _ in _holders(cache_k)]
-        ks, vs = [cache_k.blocks[i] for i in held], [cache_v.blocks[i] for i in held]
-    else:
-        ks, vs = [cache_k], [cache_v]
+    held = [i for i, _ in _holders(ck)]
+    ks, vs = [ck.blocks[i] for i in held], [cv.blocks[i] for i in held]
     biases = [torch.zeros((1, k.shape[2]), dtype=torch.float32, device=k.device) for k in ks]
     o = _split_softmax(qg, ks, vs, biases)
     o = o.reshape(b, h, 1, hd).transpose(1, 2).reshape(b, 1, h * hd)
-    return _out_proj(p, group, o)
+    return _out_proj(group, o)
 
 
 def cross_kv(p, enc_out: torch.Tensor, cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -41,8 +41,8 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed.collectives import (
     copy_to_model,
-    partial_product,
     reduce_from_model,
+    row_parallel,
 )
 from repro_torch.models.base import ParamDecl
 from repro_torch.sharding.blocks import model_group
@@ -135,30 +135,22 @@ def _experts(xe, w_gate, w_up, w_down, combine, g: int, cap: int) -> torch.Tenso
 
 def _routed(p, xe, combine, g: int, cap: int) -> torch.Tensor:
     group = model_group(p, "w_gate", "w_up", "w_down")
-    if group is None:
-        return _experts(xe, p["w_gate"], p["w_up"], p["w_down"], combine, g, cap)
-    home = xe.device
-    if p.model_dims("w_gate") == (0,):      # experts sharded over model
-        n = xe.shape[0] // group.size
-        pieces = [(xe[i * n:(i + 1) * n].to(dev), combine[:, :, i * n:(i + 1) * n].to(dev))
-                  for i, dev in enumerate(group.devices)]
-    else:                                                   # each expert split by ff
-        pieces = list(zip(copy_to_model(xe, group.devices),
-                          copy_to_model(combine, group.devices)))
-    parts = [_experts(x_m, q.local("w_gate"), q.local("w_up"), q.local("w_down"), c_m, g, cap)
-             for q, (x_m, c_m) in zip(group.views, pieces)]
-    return reduce_from_model(parts, home)
+    gates, ups, downs = (group.local(k) for k in ("w_gate", "w_up", "w_down"))
+    n = gates[0].shape[0]                   # the experts each position holds
+    if n < xe.shape[0]:                     # experts sharded over model
+        pieces = [(xe[i * n:(i + 1) * n].to(w.device),
+                   combine[:, :, i * n:(i + 1) * n].to(w.device)) for i, w in enumerate(gates)]
+    else:                                   # every expert, split by ff
+        pieces = zip(copy_to_model(xe, group.devices), copy_to_model(combine, group.devices))
+    parts = [_experts(x_m, *ws, c_m, g, cap) for (x_m, c_m), *ws in zip(pieces, gates, ups, downs)]
+    return reduce_from_model(parts, xe.device)
 
 
 def _shared(p, xf) -> torch.Tensor:
     group = model_group(p, "shared_gate", "shared_up", "shared_down")
-    if group is None:
-        sh = F.silu(xf @ p["shared_gate"]) * (xf @ p["shared_up"])
-        return sh @ p["shared_down"]
-    parts = [partial_product(F.silu(x_m @ q.local("shared_gate")) * (x_m @ q.local("shared_up")),
-                             q.local("shared_down"))
-             for q, x_m in zip(group.views, copy_to_model(xf, group.devices))]
-    return reduce_from_model(parts, xf.device, xf.dtype)
+    hs = [F.silu(x_m @ q.local("shared_gate")) * (x_m @ q.local("shared_up"))
+          for q, x_m in zip(group.views, copy_to_model(xf, group.devices))]
+    return row_parallel(hs, group.local("shared_down"), xf.device)
 
 
 def _group_size(cfg: ModelConfig, t: int) -> int:

@@ -15,11 +15,12 @@ the two agree to rounding), decode as a one-step update.  The residual
 block is conv1d(W_x branch) -> RG-LRU -> gated (gelu) merge -> out
 projection, as in the Griffin recurrent block.
 
-Split over ``model`` by channel: each position runs ``w_x``, ``w_gate``, the
-conv and the recurrence on its channels; the ``(w, w)`` gate matrices read
-the whole width, so the conv's output is gathered over ``model`` before
-them; ``w_out`` is row-parallel and the partials are summed.  A decode
-state laid out by ``tensor`` (:class:`ModelBlocks`) holds each position's
+One body, split over ``model`` by channel (one position with every
+channel when unmeshed): each position runs ``w_x``, ``w_gate``, the conv and
+the recurrence on its channels; the ``(w, w)`` gate matrices read the
+whole width, so the conv's output is gathered over ``model`` before them;
+``w_out`` is row-parallel and the partials are summed.  A decode state
+laid out by ``tensor`` (:class:`ModelBlocks`) holds each position's
 channels.
 """
 
@@ -31,15 +32,16 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.distributed.collectives import (
-    copy_to_model,
-    gather_from_model,
-    partial_product,
-    reduce_from_model,
-)
+from repro_torch.distributed.collectives import copy_to_model, gather_from_model, row_parallel
 from repro_torch.models.base import ParamDecl
 from repro_torch.models.layers import gelu, rmsnorm, rmsnorm_decls
-from repro_torch.sharding.blocks import ModelBlocks, model_group
+from repro_torch.sharding.blocks import (
+    ModelBlocks,
+    model_group,
+    state_blocks,
+    state_like,
+    whole_group,
+)
 
 _SPLIT = ("w_x", "w_gate", "conv_w", "conv_b", "gate_a", "gate_x", "w_out")
 
@@ -126,13 +128,14 @@ def _gates(lambda_p, gate_a, gate_x, uf: torch.Tensor, u_own: torch.Tensor):
 
 
 def _split_parts(p, xn: torch.Tensor, group, history=None):
-    """Each position's (conv input, conv output, gate, lambda_p block, gate
-    matrices, w_out block) and the whole conv output on each position."""
+    """Each position's (conv input, conv output in float32, gate, lambda_p
+    block, gate matrices, w_out block) and the whole conv output in float32
+    on each position."""
     parts = []
     for i, (q, xm) in enumerate(zip(group.views, copy_to_model(xn, group.devices))):
         ux = xm @ q.local("w_x")
         h = None if history is None else history[i]
-        u = _conv1d({"conv_w": q.local("conv_w"), "conv_b": q.local("conv_b")}, ux, h)
+        u = _conv1d({"conv_w": q.local("conv_w"), "conv_b": q.local("conv_b")}, ux, h).float()
         n = u.shape[-1]
         lam = q.local("lambda_p")[i * n:(i + 1) * n]
         parts.append((ux, u, gelu(xm @ q.local("w_gate")), lam, q.local("gate_a"),
@@ -145,20 +148,13 @@ def rglru_apply(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """Full-sequence recurrent block: [B, S, d] -> [B, S, d] (residual in)."""
     xn = rmsnorm(p["norm"], x, cfg.norm_eps)
     group = model_group(p, *_SPLIT)
-    if group is None:
-        u = _conv1d(p, xn @ p["w_x"], None)                      # [B,S,W]
-        gate = gelu(xn @ p["w_gate"])
-        uf = u.float()
-        a, b = _gates(p["lambda_p"], p["gate_a"], p["gate_x"], uf, uf)  # [B,S,W]
-        h = _linear_scan(a, b)
-        y = (h.to(x.dtype) * gate) @ p["w_out"]
-        return x + y
     parts, whole = _split_parts(p, xn, group)
-    ys = []
+    ys, w_outs = [], []
     for (_, u, gate, lam, ga, gx, w_out), uw in zip(parts, whole):
-        a, b = _gates(lam, ga, gx, uw.float(), u.float())
-        ys.append(partial_product(_linear_scan(a, b).to(x.dtype) * gate, w_out))
-    return x + reduce_from_model(ys, x.device, x.dtype)
+        a, b = _gates(lam, ga, gx, uw, u)
+        ys.append(_linear_scan(a, b).to(x.dtype) * gate)
+        w_outs.append(w_out)
+    return x + row_parallel(ys, w_outs, x.device)
 
 
 def rglru_decode(
@@ -166,30 +162,19 @@ def rglru_decode(
 ) -> Tuple[torch.Tensor, Dict]:
     """One-token step. x [B, 1, d] -> (y [B, 1, d], new state).  A state in
     blocks along ``model`` (:class:`ModelBlocks`, channels split) runs split;
-    one held whole on each position runs on the first and is copied back."""
-    group = model_group(p, *_SPLIT)
-    if isinstance(state["h"], ModelBlocks):
-        if group is None or state["h"].dim is None:
-            y, new = rglru_decode(p, x, {k: v.whole(x.device) for k, v in state.items()}, cfg)
-            return y, {k: state[k].like(v) for k, v in new.items()}
+    one held whole (a tensor, or a copy on each position) runs whole and
+    is laid out again as it came."""
+    split = isinstance(state["h"], ModelBlocks) and state["h"].dim is not None
+    group = model_group(p, *_SPLIT) if split else whole_group(p)
+    h_held, conv_held = (state_blocks(state[k], group.size, x.device) for k in ("h", "conv"))
     xn = rmsnorm(p["norm"], x, cfg.norm_eps)
-    if not isinstance(state["h"], ModelBlocks):
-        ux = xn @ p["w_x"]                                        # [B,1,W]
-        u = _conv1d(p, ux, state["conv"])
-        new_conv = torch.cat([state["conv"][:, 1:], ux.float()], dim=1)
-        gate = gelu(xn @ p["w_gate"])
-        uf = u.float()[:, 0]
-        a, b = _gates(p["lambda_p"], p["gate_a"], p["gate_x"], uf, uf)
-        h_new = a * state["h"] + b
-        y = (h_new[:, None].to(x.dtype) * gate) @ p["w_out"]
-        return x + y, {"h": h_new, "conv": new_conv}
-    parts, whole = _split_parts(p, xn, group, state["conv"].blocks)
-    ys, hs, convs = [], [], []
-    for (ux, u, gate, lam, ga, gx, w_out), uw, h, conv in zip(
-            parts, whole, state["h"].blocks, state["conv"].blocks):
-        a, b = _gates(lam, ga, gx, uw.float()[:, 0], u.float()[:, 0])
+    parts, whole = _split_parts(p, xn, group, conv_held)
+    ys, w_outs, hs, convs = [], [], [], []
+    for (ux, u, gate, lam, ga, gx, w_out), uw, h, conv in zip(parts, whole, h_held, conv_held):
+        a, b = _gates(lam, ga, gx, uw[:, 0], u[:, 0])
         hs.append(a * h + b)
         convs.append(torch.cat([conv[:, 1:], ux.float()], dim=1))
-        ys.append(partial_product(hs[-1][:, None].to(x.dtype) * gate, w_out))
-    return x + reduce_from_model(ys, x.device, x.dtype), {"h": ModelBlocks(hs, 1),
-                                                 "conv": ModelBlocks(convs, 2)}
+        ys.append(hs[-1][:, None].to(x.dtype) * gate)
+        w_outs.append(w_out)
+    return x + row_parallel(ys, w_outs, x.device), {"h": state_like(state["h"], hs, 1),
+                                                    "conv": state_like(state["conv"], convs, 2)}

@@ -18,16 +18,18 @@ Block layout follows the paper: mLSTM blocks are pre-up-projection
 (proj_factor x) with a gated residual; sLSTM blocks post-project with a
 gated FFN when ``d_ff`` is set.  All state math is float32.
 
-Split over ``model``: the mLSTM by heads (``w_up`` column-parallel, its
-output gathered over ``model`` as the input of each position's columns of
-``wq``/``wk``/``wv`` and gates; each position scans its heads; the
-output norm reads the gathered heads; ``w_down`` row-parallel).  Its decode
-state is replicated, per the reference's cache layout: each position
-updates its heads and the new state is gathered to every position.  The
-sLSTM by units: ``w_in``'s columns are ``[z, i, f, o]`` blocks that do not
-align with a split of the units, so each position reads it whole and takes
-its units' columns; the recurrence reads every unit's ``h``, gathered over
-``model`` at each step.
+One body per block, over the positions of its model group (one position
+holding the leaves whole when unmeshed).  Split over ``model``: the mLSTM
+by heads (``w_up`` column-parallel, its output gathered over ``model`` as
+the input of each position's columns of ``wq``/``wk``/``wv`` and gates;
+each position scans its heads; the output norm reads the gathered heads;
+``w_down`` row-parallel).  Its decode state is replicated, per the
+reference's cache layout: each position updates its heads and the new
+state is gathered to every position.  The sLSTM by units: ``w_in``'s
+columns are ``[z, i, f, o]`` blocks that do not align with a split of the
+units, so each position reads it whole and takes its units' columns; the
+recurrence reads every unit's ``h``, gathered over ``model`` at each
+step.
 """
 
 from __future__ import annotations
@@ -38,15 +40,16 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.distributed.collectives import (
-    copy_to_model,
-    gather_from_model,
-    partial_product,
-    reduce_from_model,
-)
+from repro_torch.distributed.collectives import copy_to_model, gather_from_model, row_parallel
 from repro_torch.models.base import ParamDecl
 from repro_torch.models.layers import mlp, mlp_decls, rmsnorm, rmsnorm_decls
-from repro_torch.sharding.blocks import ModelBlocks, model_group
+from repro_torch.sharding.blocks import (
+    ModelBlocks,
+    model_group,
+    state_blocks,
+    state_like,
+    whole_group,
+)
 
 _MLSTM_SPLIT = ("w_up", "w_gate", "wq", "wk", "wv", "w_down")
 _W_IN_REASON = ("its columns are [z, i, f, o] blocks that do not align with a split of the "
@@ -162,12 +165,6 @@ def _mlstm_chunk_scan(
     return out, {"C": C, "n": n, "m": m}
 
 
-def _mlstm_qkv(p, xn: torch.Tensor, cfg: ModelConfig):
-    up, h, hd = _mlstm_dims(cfg)
-    u = xn @ p["w_up"]                                        # [B,S,up]
-    return (u,) + _mlstm_heads(u, p["wq"], p["wk"], p["wv"], p["w_if"], p["b_if"], 0, h, cfg)
-
-
 def _mlstm_heads(u, wq, wk, wv, w_if, b_if, first: int, n: int, cfg: ModelConfig):
     """(q, k, v, ig, lf) [B, n, S, ...] of heads ``first`` to ``first + n``
     (whose columns ``wq``/``wk``/``wv`` hold) from the whole ``u``."""
@@ -191,13 +188,13 @@ def _mlstm_heads(u, wq, wk, wv, w_if, b_if, first: int, n: int, cfg: ModelConfig
 
 
 def _mlstm_group(p, cfg: ModelConfig):
-    """The model group of a split mLSTM (whole heads on each position)."""
+    """The model group of an mLSTM (whole heads on each position)."""
     group = model_group(p, *_MLSTM_SPLIT)
-    if group is not None and cfg.n_heads % group.size:
+    if cfg.n_heads % group.size:
         for key in _MLSTM_SPLIT:
             p.note_gathered(key, f"{cfg.n_heads} mLSTM heads do not split over model "
                                  f"{group.size}")
-        return None
+        return whole_group(p)
     return group
 
 
@@ -220,26 +217,16 @@ def _mlstm_out_split(p, group, x, xs, heads: List[torch.Tensor], cfg: ModelConfi
     up, _, _ = _mlstm_dims(cfg)
     n = up // group.size
     hs = rmsnorm(p["out_norm"], gather_from_model(heads, -1, [x.device])[0], cfg.norm_eps)
-    ys = [partial_product(hm[..., i * n:(i + 1) * n] * F.silu(xm @ q.local("w_gate")),
-                          q.local("w_down"))
+    ys = [hm[..., i * n:(i + 1) * n] * F.silu(xm @ q.local("w_gate"))
           for i, (q, xm, hm) in enumerate(zip(group.views, xs, copy_to_model(hs, group.devices)))]
-    return x + reduce_from_model(ys, x.device, x.dtype)
+    return x + row_parallel(ys, group.local("w_down"), x.device)
 
 
 def mlstm_apply(p, x: torch.Tensor, cfg: ModelConfig, chunk: int = 64) -> torch.Tensor:
     """Full-sequence mLSTM block: [B, S, d] -> [B, S, d] (residual inside)."""
-    up, h, hd = _mlstm_dims(cfg)
-    b, s, d = x.shape
+    b, s = x.shape[:2]
     xn = rmsnorm(p["norm"], x, cfg.norm_eps)
     group = _mlstm_group(p, cfg)
-    if group is None:
-        u, q, k, v, ig, lf = _mlstm_qkv(p, xn, cfg)
-        state = mlstm_init_state(b, cfg, x.device)
-        hseq, _ = _mlstm_chunk_scan(q, k, v, ig, lf, state, chunk)
-        hseq = hseq.transpose(1, 2).reshape(b, s, up)
-        hseq = rmsnorm(p["out_norm"], hseq, cfg.norm_eps)
-        gate = F.silu(xn @ p["w_gate"])
-        return x + (hseq * gate) @ p["w_down"]
     xs, parts = _mlstm_split(p, group, xn, cfg)
     heads = []
     for q, k, v, ig, lf in parts:
@@ -268,34 +255,22 @@ def mlstm_decode(
     p, x: torch.Tensor, state: Dict, cfg: ModelConfig
 ) -> Tuple[torch.Tensor, Dict]:
     """One-token mLSTM step. x [B, 1, d] -> (y [B, 1, d], new state).  A
-    state held by the positions along ``model`` (:class:`ModelBlocks`)
-    runs split by heads."""
-    up, h, hd = _mlstm_dims(cfg)
+    state held by the positions along ``model`` (:class:`ModelBlocks`, a
+    copy on each) runs split by heads, each position's new heads gathered
+    to every position."""
     b = x.shape[0]
     group = _mlstm_group(p, cfg)
-    if isinstance(state["C"], ModelBlocks) and group is None:
-        y, new = mlstm_decode(p, x, {k: v.whole(x.device) for k, v in state.items()}, cfg)
-        return y, {k: state[k].like(v) for k, v in new.items()}
+    held = {key: state_blocks(t, group.size, x.device) for key, t in state.items()}
     xn = rmsnorm(p["norm"], x, cfg.norm_eps)
-    if group is None:
-        u, q, k, v, ig, lf = _mlstm_qkv(p, xn, cfg)
-        hvec, C_new, n_new, m_new = _mlstm_step(q, k, v, ig, lf, state["C"], state["n"],
-                                                state["m"])
-        hvec = hvec.reshape(b, 1, up).to(x.dtype)
-        hvec = rmsnorm(p["out_norm"], hvec, cfg.norm_eps)
-        gate = F.silu(xn @ p["w_gate"])
-        y = x + (hvec * gate) @ p["w_down"]
-        return y, {"C": C_new, "n": n_new, "m": m_new}
     xs, parts = _mlstm_split(p, group, xn, cfg)
     heads, new = [], {"C": [], "n": [], "m": []}
     for i, (q, k, v, ig, lf) in enumerate(parts):
         sl = slice(i * q.shape[1], (i + 1) * q.shape[1])
-        hv, *st = _mlstm_step(q, k, v, ig, lf, *(state[key].blocks[i][:, sl]
-                                                  for key in ("C", "n", "m")))
+        hv, *st = _mlstm_step(q, k, v, ig, lf, *(held[key][i][:, sl] for key in new))
         heads.append(hv.reshape(b, 1, -1).to(x.dtype))
-        for key, t in zip(("C", "n", "m"), st):
+        for key, t in zip(new, st):
             new[key].append(t)
-    state = {key: ModelBlocks(gather_from_model(ts, 1, group.devices), None)
+    state = {key: state_like(state[key], gather_from_model(ts, 1, group.devices), None)
              for key, ts in new.items()}
     return _mlstm_out_split(p, group, x, xs, heads, cfg), state
 
@@ -336,17 +311,21 @@ def slstm_init_state(batch: int, cfg: ModelConfig, device=None, units=None
             "m": torch.full((batch, d), -1e30, dtype=torch.float32, device=device)}
 
 
+def _units(t: torch.Tensor, m: int, n: int) -> torch.Tensor:
+    """The ``[z, i, f, o]`` columns of units ``m * n`` to ``(m + 1) * n`` of
+    ``t`` [..., 4 d] (all of ``t``, as a view, when they are every unit)."""
+    return t.unflatten(-1, (4, -1))[..., m * n:(m + 1) * n].flatten(-2)
+
+
 def _slstm_cell(r_rec, b, state, x_proj: torch.Tensor, h_all: torch.Tensor, cfg: ModelConfig,
-                cols=None):
-    """One sLSTM step of the units whose ``[z, i, f, o]`` columns ``cols``
-    name (all by default).  x_proj [B, 4n] their input projection; h_all
-    [B, d] every unit's ``h``."""
+                m: int, n: int):
+    """One sLSTM step of units ``m * n`` to ``(m + 1) * n``.  x_proj [B, 4n]
+    their input projection; b [4n] their bias; h_all [B, d] every unit's
+    ``h``."""
     d = cfg.d_model
     h_heads = h_all.reshape(-1, cfg.n_heads, d // cfg.n_heads)
     rec = torch.einsum("bhd,hde->bhe", h_heads, r_rec)        # [B,H,4hd]
-    rec = rec.reshape(-1, 4 * d)
-    if cols is not None:
-        rec = rec[:, cols]
+    rec = _units(rec.reshape(-1, 4 * d), m, n)
     pre = x_proj.float() + rec + b
     z, i_pre, f_pre, o = torch.split(pre, pre.shape[-1] // 4, dim=-1)
     z = torch.tanh(z)
@@ -369,38 +348,32 @@ def _slstm_out(p, x: torch.Tensor, hseq: torch.Tensor, cfg: ModelConfig) -> torc
 
 
 def _slstm_group(p, cfg: ModelConfig):
-    """The model group of a split sLSTM (``d_model`` units divide over it);
+    """The model group of an sLSTM (``d_model`` units divide over it);
     ``w_in`` is recorded, every position reading it whole."""
     group = model_group(p, "w_in")
-    if group is None:
-        return None
     if cfg.d_model % group.size:
         p.note_gathered("w_in", f"{cfg.d_model} sLSTM units do not split over model "
                                 f"{group.size}")
-        return None
+        return whole_group(p)
     return group
 
 
 def _slstm_split(p, group, xn: torch.Tensor, cfg: ModelConfig):
-    """Each position's (columns of its units, input projection of them,
-    r_rec, bias)."""
-    d = cfg.d_model
-    n = d // group.size
-    out = []
-    for i, (q, xm) in enumerate(zip(group.views, copy_to_model(xn, group.devices))):
-        cols = torch.cat([torch.arange(g * d + i * n, g * d + (i + 1) * n, device=q.device)
-                          for g in range(4)])
-        out.append((cols, xm @ q.whole("w_in", _W_IN_REASON)[:, cols], q.local("r_rec"),
-                    q.local("b")[cols]))
-    return out
+    """Each position's (input projection of its units, r_rec, bias of its
+    units)."""
+    n = cfg.d_model // group.size
+    return [(xm @ _units(q.whole("w_in", _W_IN_REASON), i, n), q.local("r_rec"),
+             _units(q.local("b"), i, n))
+            for i, (q, xm) in enumerate(zip(group.views, copy_to_model(xn, group.devices)))]
 
 
-def _slstm_steps(parts, states, xps_at, cfg: ModelConfig, devices):
+def _slstm_steps(parts, states, xps_at, cfg: ModelConfig):
     """One step of every position's units: the units' ``h`` gathered over
     ``model``, then each position's cell."""
-    h_all = gather_from_model([st["h"] for st in states], -1, devices)
-    return [_slstm_cell(r_rec, b, st, xp, ha, cfg, cols)
-            for (cols, _, r_rec, b), st, xp, ha in zip(parts, states, xps_at, h_all)]
+    h_all = gather_from_model([st["h"] for st in states], -1, [st["h"].device for st in states])
+    n = cfg.d_model // len(parts)
+    return [_slstm_cell(r_rec, b, st, xp, ha, cfg, i, n)
+            for i, ((_, r_rec, b), st, xp, ha) in enumerate(zip(parts, states, xps_at, h_all))]
 
 
 def slstm_apply(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -408,22 +381,11 @@ def slstm_apply(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     b, s, d = x.shape
     xn = rmsnorm(p["norm"], x, cfg.norm_eps)
     group = _slstm_group(p, cfg)
-    if group is None:
-        xp = xn @ p["w_in"]                                   # [B,S,4d]
-        r_rec, bias = p["r_rec"], p["b"]
-        st = slstm_init_state(b, cfg, x.device)
-        hs = []
-        for t in range(s):
-            st = _slstm_cell(r_rec, bias, st, xp[:, t], st["h"], cfg)
-            hs.append(st["h"])
-        hseq = torch.stack(hs, dim=1).to(x.dtype)            # [B,S,d]
-        return _slstm_out(p, x, hseq, cfg)
     parts = _slstm_split(p, group, xn, cfg)
-    states = [slstm_init_state(b, cfg, dev, units=d // group.size) for dev in group.devices]
+    states = [slstm_init_state(b, cfg, xp.device, units=d // group.size) for xp, _, _ in parts]
     hs = [[] for _ in parts]
     for t in range(s):
-        states = _slstm_steps(parts, states, [xp[:, t] for _, xp, _, _ in parts], cfg,
-                              group.devices)
+        states = _slstm_steps(parts, states, [xp[:, t] for xp, _, _ in parts], cfg)
         for h, st in zip(hs, states):
             h.append(st["h"])
     hseq = gather_from_model([torch.stack(h, dim=1) for h in hs], -1, [x.device])[0]
@@ -434,21 +396,16 @@ def slstm_decode(
     p, x: torch.Tensor, state: Dict, cfg: ModelConfig
 ) -> Tuple[torch.Tensor, Dict]:
     """One-token sLSTM step.  A state in blocks along ``model``
-    (:class:`ModelBlocks`, units split) runs split."""
-    group = _slstm_group(p, cfg)
-    if isinstance(state["h"], ModelBlocks) and (group is None or state["h"].dim is None):
-        y, new = slstm_decode(p, x, {k: v.whole(x.device) for k, v in state.items()}, cfg)
-        return y, {k: state[k].like(v) for k, v in new.items()}
+    (:class:`ModelBlocks`, units split) runs split; one held whole (a
+    tensor, or a copy on each position) runs whole and is laid out again
+    as it came."""
+    split = isinstance(state["h"], ModelBlocks) and state["h"].dim is not None
+    group = _slstm_group(p, cfg) if split else whole_group(p)
+    held = {k: state_blocks(t, group.size, x.device) for k, t in state.items()}
     xn = rmsnorm(p["norm"], x, cfg.norm_eps)
-    if group is None:
-        xp = (xn @ p["w_in"])[:, 0]
-        st = _slstm_cell(p["r_rec"], p["b"], state, xp, state["h"], cfg)
-        return _slstm_out(p, x, st["h"][:, None].to(x.dtype), cfg), st
     parts = _slstm_split(p, group, xn, cfg)
-    keys = ("c", "n", "h", "m")
-    states = [{k: state[k].blocks[i] for k in keys} for i in range(group.size)]
-    states = _slstm_steps(parts, states, [xp[:, 0] for _, xp, _, _ in parts], cfg,
-                          group.devices)
+    states = [{k: bl[i] for k, bl in held.items()} for i in range(group.size)]
+    states = _slstm_steps(parts, states, [xp[:, 0] for xp, _, _ in parts], cfg)
     h = gather_from_model([st["h"] for st in states], -1, [x.device])[0]
     return (_slstm_out(p, x, h[:, None].to(x.dtype), cfg),
-            {k: ModelBlocks([st[k] for st in states], 1) for k in keys})
+            {k: state_like(t, [st[k] for st in states], 1) for k, t in state.items()})

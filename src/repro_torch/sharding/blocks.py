@@ -59,6 +59,9 @@ __all__ = [
     "shard_params",
     "shard_views",
     "split_rows",
+    "state_blocks",
+    "state_like",
+    "whole_group",
 ]
 
 Pos = Tuple[int, ...]
@@ -312,14 +315,32 @@ class BlockView:
 _MODEL_AXES = ("tensor", "expert")
 
 
+class _Whole:
+    """A node read whole by the one position of a group that does not split
+    it: a parameter tree, or a :class:`BlockView` whose leaves are gathered
+    whole (and recorded where split).  ``device`` is the view's, None for a
+    parameter tree (its leaves', where the layer's input is)."""
+
+    def __init__(self, p):
+        self._p = p
+        self.device = p.device if isinstance(p, BlockView) else None
+
+    def local(self, key) -> torch.Tensor:
+        return self._p[key]
+
+    def whole(self, key, reason: str) -> torch.Tensor:
+        return self._p[key]
+
+
 @dataclasses.dataclass
 class ModelGroup:
     """The positions of one data shard along ``model``, each with its view of
     one node: a split layer runs position ``m`` on ``views[m]``, on its
     device, and combines the results with the model-axis operators of
-    ``distributed/collectives.py``."""
+    ``distributed/collectives.py``, which are the identity at one
+    position."""
 
-    views: List[BlockView]
+    views: List
 
     @property
     def size(self) -> int:
@@ -338,17 +359,22 @@ class ModelGroup:
         return [v.whole(key, reason) for v in self.views]
 
 
-def model_group(p, *split: str) -> Optional[ModelGroup]:
-    """The :class:`ModelGroup` of ``p``'s data shard when ``p`` is a
-    :class:`BlockView` on a mesh with more than one position along
-    ``model`` and each leaf named in ``split`` has a model dim split over
-    the mesh; else None (the layer runs whole, as unmeshed)."""
-    if not isinstance(p, BlockView):
-        return None
-    mesh = p._store.mesh
-    if mesh.shape.get("model", 1) < 2 or not all(p.is_split(k) for k in split):
-        return None
-    return ModelGroup([p.at_model(m) for m in range(mesh.shape["model"])])
+def whole_group(p) -> ModelGroup:
+    """The group of one position that reads ``p``'s leaves whole."""
+    return ModelGroup([_Whole(p)])
+
+
+def model_group(p, *split: str) -> ModelGroup:
+    """The :class:`ModelGroup` of ``p``'s data shard, each position reading
+    its own blocks, when ``p`` is a :class:`BlockView` on a mesh with more
+    than one position along ``model`` and each leaf named in ``split`` has
+    a model dim split over the mesh; else :func:`whole_group` (the layer
+    runs whole, as unmeshed)."""
+    if isinstance(p, BlockView):
+        n = p._store.mesh.shape.get("model", 1)
+        if n > 1 and all(p.is_split(k) for k in split):
+            return ModelGroup([p.at_model(m) for m in range(n)])
+    return whole_group(p)
 
 
 @dataclasses.dataclass
@@ -372,6 +398,26 @@ class ModelBlocks:
             return ModelBlocks([t.to(b.device) for b in self.blocks], None)
         parts = t.chunk(len(self.blocks), self.dim)
         return ModelBlocks([x.to(b.device) for x, b in zip(parts, self.blocks)], self.dim)
+
+
+def state_blocks(t, n: int, device) -> List[torch.Tensor]:
+    """A decode-state leaf ``t`` as the ``n`` positions of a group read it:
+    its blocks where it is :class:`ModelBlocks` of ``n`` blocks; else one
+    block, the leaf whole (on ``device`` when it is held in blocks)."""
+    if isinstance(t, ModelBlocks):
+        return t.blocks if len(t.blocks) == n else [t.whole(device)]
+    return [t]
+
+
+def state_like(t, blocks: Sequence[torch.Tensor], dim: Optional[int]):
+    """New blocks of the state leaf ``t`` (as :func:`state_blocks` read it)
+    laid out as ``t`` is: a tensor, :class:`ModelBlocks` of ``blocks``
+    split along ``dim``, or the one whole block in ``t``'s layout."""
+    if not isinstance(t, ModelBlocks):
+        return blocks[0]
+    if len(blocks) == len(t.blocks):
+        return ModelBlocks(list(blocks), dim)
+    return t.like(blocks[0])
 
 
 def lay_out_cache(cache: Sequence[Dict[str, torch.Tensor]], kinds: Sequence[str], mesh

@@ -1,6 +1,8 @@
 """The model-axis operators of a tensor-parallel step
 (``distributed/collectives.py``): Megatron's *f* and *g*, the all-gather
-along a dim, and the row-parallel partial product.
+along a dim, and the row-parallel product and its partials.  At one
+position (every unmeshed layer) each is the identity on its tensor, and
+the row-parallel product is ``x @ w`` in the operands' dtype.
 
 The CPU tests hold their forward and backward on devices of ``cpu``
 repeated.  ``test_partial_product_on_the_card`` holds the CUDA path of
@@ -20,6 +22,7 @@ from repro_torch.distributed.collectives import (
     gather_from_model,
     partial_product,
     reduce_from_model,
+    row_parallel,
 )
 
 CPU2 = [torch.device("cpu")] * 2
@@ -79,6 +82,56 @@ def test_partial_product_keeps_float32_of_bf16_on_the_cpu_and_is_the_product_oth
     assert x.grad.dtype == w.grad.dtype == torch.bfloat16
     x32, w32 = x.detach().float(), w.detach().float()
     assert torch.equal(partial_product(x32, w32), x32 @ w32)
+
+
+def test_row_parallel_sums_the_positions_float32_partials_once():
+    xs = [_bf16((2, 3, 8), s).requires_grad_() for s in (14, 15)]
+    ws = [_bf16((8, 5), s).requires_grad_() for s in (16, 17)]
+    y = row_parallel(xs, ws, "cpu")
+    assert y.dtype == torch.bfloat16
+    want = (xs[0].detach().float() @ ws[0].detach().float()
+            + xs[1].detach().float() @ ws[1].detach().float()).to(torch.bfloat16)
+    assert torch.equal(y, want)
+    y.backward(_bf16((2, 3, 5), 18))
+    assert all(t.grad.dtype == torch.bfloat16 for t in xs + ws)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32, torch.float64],
+                         ids=["bf16", "fp32", "fp64"])
+@pytest.mark.parametrize("op", ["copy", "reduce", "gather", "row_parallel"])
+def test_one_position_is_the_identity_in_the_tensors_dtype(op, dtype):
+    """At one position each operator returns its input itself (no autograd
+    Function, no copy, no widening), the row-parallel product is ``x @ w``
+    bit for bit in the operands' dtype, and the gradient passes straight
+    through."""
+    x = _bf16((2, 3, 8), 19).to(dtype).requires_grad_()
+    w = _bf16((8, 5), 20).to(dtype).requires_grad_()
+    cpu = [torch.device("cpu")]
+    if op == "copy":
+        (y,) = copy_to_model(x, cpu)
+    elif op == "reduce":
+        y = reduce_from_model([x], "cpu")
+    elif op == "gather":
+        (y,) = gather_from_model([x], -1, cpu)
+    if op != "row_parallel":
+        assert y is x
+        return
+    y = row_parallel([x], [w], "cpu")
+    want = x @ w
+    assert y.dtype == dtype and torch.equal(y, want)
+    assert type(y.grad_fn) is type(want.grad_fn)
+    g = _bf16((2, 3, 5), 21).to(dtype)
+    got = torch.autograd.grad(y, (x, w), g)
+    assert all(torch.equal(a, b) for a, b in zip(got, torch.autograd.grad(want, (x, w), g)))
+
+
+def test_reduce_of_one_part_casts_only_to_the_dtype_asked_for():
+    x = _bf16((4, 5), 22).float().requires_grad_()
+    assert reduce_from_model([x], "cpu", torch.float32) is x
+    y = reduce_from_model([x], "cpu", torch.bfloat16)
+    assert y.dtype == torch.bfloat16 and torch.equal(y, x.detach().to(torch.bfloat16))
+    y.backward(_bf16((4, 5), 23))
+    assert x.grad.dtype == torch.float32
 
 
 @pytest.mark.card
