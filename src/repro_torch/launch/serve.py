@@ -98,11 +98,13 @@ def generate(
     encoder of an encoder-decoder arch.  With a ``mesh`` the parameters
     and the caches are laid out on it once (the caches as the reference's
     ``cache_shardings`` lay them out) and every step runs over its data
-    shards (the logits come back to the prompt's device).  A dense
-    decoder's steps on the card replay one captured CUDA graph
+    shards (the logits come back to the prompt's device).  On the card
+    the steps of a decoder of attention or latent-attention layers (dense,
+    or Moonlight's dropless experts) replay one captured CUDA graph
     (``train/decode_graph.py``), held for the next call of the same
-    parameters, config, batch and ``max_seq``; every other step runs
-    eagerly.  Either way each step goes through ``decode``."""
+    parameters, config, batch and ``max_seq``; the capacity-bounded
+    experts and every other kind run eagerly.  Either way each step goes
+    through ``decode``."""
     b, plen = prompt_tokens.shape
     max_seq = max_seq or (plen + gen_len)
     dev = prompt_tokens.device

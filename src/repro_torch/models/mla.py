@@ -18,7 +18,8 @@ Per token ``h`` [d]:
 :func:`mla_apply` computes that form over a sequence (prefill, training).
 :func:`mla_decode` serves one token against a latent cache that holds, a
 position, ``c`` after its norm and ``k_r`` after its rotation
-(``[B, S, r]`` and ``[B, S, rope]``, masked past ``pos``); no per-head key
+(``[B, S, r]`` and ``[B, S, rope]``, masked past ``pos``), with the angles
+and the mask the step makes once (:func:`step_terms`); no per-head key
 or value is ever made.  It absorbs ``Wkv_b``'s key half into the query
 (``q_lat = q_nope W_UK``, scores ``q_lat . c + q_rope . k_r``) and its
 value half into the output (``(P c) W_UV``, then ``Wo``): the same
@@ -28,7 +29,6 @@ heads' keys and values.
 
 from __future__ import annotations
 
-import functools
 from typing import Dict, Tuple
 
 import torch
@@ -40,7 +40,8 @@ from repro_torch.models.layers import (_rope_angles, rmsnorm, rmsnorm_decls, rop
                                        rotate_pairs)
 from repro_torch.spans import span
 
-__all__ = ["LATENT_NORM_EPS", "init_latent_cache", "mla_apply", "mla_decls", "mla_decode"]
+__all__ = ["LATENT_NORM_EPS", "init_latent_cache", "mla_apply", "mla_decls", "mla_decode",
+           "step_terms"]
 
 #: The latent's RMSNorm epsilon: the published code leaves that norm at its
 #: default while the others take ``rms_norm_eps``.
@@ -98,30 +99,37 @@ def init_latent_cache(batch: int, cfg: ModelConfig, max_seq: int, device=None
                                device=device)}
 
 
-@functools.lru_cache(maxsize=4)
-def _step_terms(pos: int, slots: int, rope: int, theta: float, device: torch.device):
-    """What every latent-attention layer of the decode step at ``pos`` shares,
-    made once a step: the rotation's (sin, cos) ``[1, 1, 1, rope/2]`` and the
-    additive mask ``[slots]`` (0 up to ``pos``, then NEG_INF)."""
-    sin, cos = _rope_angles(torch.full((1, 1), pos, dtype=torch.int32, device=device), rope,
-                            theta)
+def step_terms(pos, slots: int, cfg: ModelConfig, device) -> Tuple[torch.Tensor, ...]:
+    """What every latent-attention layer of the decode step at ``pos``
+    shares, made by the step once: the rotation's (sin, cos) ``[1, 1, 1,
+    rope/2]`` and the additive mask ``[slots]`` (0 up to ``pos``, then
+    NEG_INF).  ``pos`` is an int or a 0-d int64 tensor on ``device``, never
+    read back (the same integers, in as many operations)."""
+    at = (pos.reshape(1, 1).to(torch.int32) if isinstance(pos, torch.Tensor)
+          else torch.full((1, 1), pos, dtype=torch.int32, device=device))
+    sin, cos = _rope_angles(at, cfg.qk_rope_head_dim, cfg.rope_theta)
     return sin[:, :, None], cos[:, :, None], _bias(torch.arange(slots, device=device) <= pos)
 
 
-def mla_decode(p, x: torch.Tensor, cache: Dict[str, torch.Tensor], pos: int,
-               cfg: ModelConfig) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """One decode step of ``x`` [B, 1, d] at ``pos``: (out [B, 1, d], the
-    cache, written in place at ``pos``).  The key and value halves of
-    ``Wkv_b`` are absorbed (module docstring); the scores are the
-    products' in ``cfg.dtype`` with the softmax in float32."""
+def mla_decode(p, x: torch.Tensor, cache: Dict[str, torch.Tensor], pos, cfg: ModelConfig,
+               terms: Tuple[torch.Tensor, ...]) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """One decode step of ``x`` [B, 1, d] at ``pos`` (an int, or a 0-d int64
+    tensor on the card, written by ``index_copy_``: the form a CUDA graph of
+    the step replays), with the step's :func:`step_terms`: (out [B, 1, d],
+    the cache, written in place at ``pos``).  The key and value halves of
+    ``Wkv_b`` are absorbed (module docstring); the scores are the products'
+    in ``cfg.dtype`` with the softmax in float32."""
     b = x.shape[0]
     h, nope, vd, r = cfg.n_heads, cfg.qk_nope_head_dim, cfg.v_head_dim, cfg.kv_lora_rank
     rope = cfg.qk_rope_head_dim
     with span("mla.attend"):
-        sin, cos, mask = _step_terms(pos, cache["c"].shape[1], rope, cfg.rope_theta, x.device)
+        sin, cos, mask = terms
         q_nope, q_rope, c, k_r = _project(p, x, cfg, lambda t: rotate_pairs(t, sin, cos))
-        cache["c"][:, pos] = c[:, 0]
-        cache["k_r"][:, pos] = k_r[:, 0]
+        for leaf, new in (("c", c), ("k_r", k_r)):
+            if isinstance(pos, torch.Tensor):
+                cache[leaf].index_copy_(1, pos.reshape(1), new.to(cache[leaf].dtype))
+            else:
+                cache[leaf][:, pos] = new[:, 0]
         w_b = p["wkv_b"].view(r, h, nope + vd)
         q_lat = torch.einsum("bhn,rhn->bhr", q_nope[:, 0], w_b[..., :nope])        # [B, H, r]
         scores = torch.baddbmm(q_lat @ cache["c"].transpose(1, 2), q_rope[:, 0],

@@ -17,7 +17,9 @@ product over the contiguous groups (``torch._grouped_mm``; its plain twin
 :func:`grouped_swiglu_plain`), with no host synchronisation and no loop
 over experts.  :data:`ROUTING` keeps what that path's decode steps leave
 for a reader who armed it: the groups' counts while a profiler runs, and
-the chosen experts of the steps it was armed for.
+the chosen experts of the steps it was armed for; a step replayed from a
+CUDA graph writes both into its holder's slots, which the holder hands
+over after each replay.
 
 Over ``model`` the experts take the reference's two layouts: sharded
 (``n_experts % 16 == 0``: each position runs its ``E / M`` experts on their
@@ -268,6 +270,27 @@ class RoutingRecord:
             if self.steps_left:
                 self.chosen.append([])
 
+    def counting_now(self) -> bool:
+        """Whether a call now keeps its group ends: armed, and a profiler runs
+        (in any thread)."""
+        return self.counting and torch.autograd.profiler._is_profiler_enabled
+
+    def hand_over(self, layers: Sequence[int], ids: torch.Tensor, ends: torch.Tensor) -> bool:
+        """A replayed decode step's routing, kept as its layers' own calls
+        would have kept it, then the step's end: ``ids`` [L, T, k] and
+        ``ends`` [L, E], what the dropless ``layers`` wrote into their slots
+        on the device.  Each buffer it keeps is copied once, now, since the
+        next replay writes over it.  Returns whether it kept anything."""
+        chosen, counting = self.steps_left > 0, self.counting_now()
+        if chosen:
+            kept = ids.clone()
+            for n, layer in enumerate(layers):
+                self.record(layer, kept[n])
+        if counting:
+            self.counts.extend(ends.clone().unbind(0))
+        self.end_step()
+        return chosen or counting
+
     def take_chosen(self) -> List[List[Tuple[int, torch.Tensor]]]:
         out, self.chosen, self.steps_left = self.chosen, [], 0
         return [step for step in out if step]
@@ -283,11 +306,16 @@ class RoutingRecord:
 ROUTING = RoutingRecord()
 
 
-def route_sigmoid(p, xf: torch.Tensor, cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+def route_sigmoid(p, xf: torch.Tensor, cfg: ModelConfig, *,
+                  ids_out: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Tokens ``xf`` [T, d] -> (the chosen experts [T, k] int64, their
-    weights [T, k] float32)."""
+    weights [T, k] float32); the experts written into ``ids_out`` where
+    given."""
     scores = torch.sigmoid(xf.float() @ p["router"])                       # [T, E]
-    ids = torch.topk(scores + p["router_bias"], cfg.n_experts_per_token, dim=-1).indices
+    biased = scores + p["router_bias"]
+    k = cfg.n_experts_per_token
+    out = None if ids_out is None else (biased.new_empty(ids_out.shape), ids_out)
+    ids = torch.topk(biased, k, dim=-1, out=out).indices
     w = scores.gather(-1, ids)
     return ids, w / (w.sum(dim=-1, keepdim=True) + 1e-20) * cfg.routed_scaling
 
@@ -318,22 +346,28 @@ def _expert_ids(e: int, device: torch.device) -> torch.Tensor:
     return torch.arange(e, device=device)
 
 
-def dropless_apply(p, x: torch.Tensor, cfg: ModelConfig, *, layer: Optional[int] = None
-                   ) -> torch.Tensor:
+def dropless_apply(p, x: torch.Tensor, cfg: ModelConfig, *, layer: Optional[int] = None,
+                   slots: Optional[Tuple[torch.Tensor, torch.Tensor]] = None) -> torch.Tensor:
     """The sigmoid-routed experts and the ungated shared expert of ``x``
     [..., d] (module docstring): [..., d].  ``layer`` (a decode step's)
-    names the call to :data:`ROUTING`."""
+    names the call to :data:`ROUTING`.  With ``slots`` (a captured decode
+    step's: ids [T, k] int64, group ends [E] int32) the chosen experts and
+    the group ends are written there and :data:`ROUTING` is left alone: the
+    step's holder hands them over after each replay
+    (:meth:`RoutingRecord.hand_over`)."""
     shape, d, k = x.shape, x.shape[-1], cfg.n_experts_per_token
     xf = x.reshape(-1, d)
+    ids_out, ends_out = (None, None) if slots is None else slots
     with span("moe.route"):
-        ids, w = route_sigmoid(p, xf, cfg)
+        ids, w = route_sigmoid(p, xf, cfg, ids_out=ids_out)
         sorted_ids, order = torch.sort(ids.flatten(), stable=True)
         ends = torch.searchsorted(sorted_ids, _expert_ids(cfg.n_experts, x.device), right=True,
-                                  out_int32=True)
-    if layer is not None:
-        ROUTING.record(layer, ids)
-    if ROUTING.counting and torch.autograd.profiler._is_profiler_enabled:   # any thread's
-        ROUTING.counts.append(ends)
+                                  out_int32=True, out=ends_out)
+    if slots is None:
+        if layer is not None:
+            ROUTING.record(layer, ids)
+        if ROUTING.counting_now():
+            ROUTING.counts.append(ends)
     with span("moe.experts"):
         y = grouped_swiglu(xf[order // k], ends, p["w_gate"], p["w_up"], p["w_down"])
         pairs = torch.empty_like(y).index_copy_(0, order, y).view(-1, k, d)

@@ -214,11 +214,11 @@ def _block_apply(
     return x, aux
 
 
-def _mla_mlp(p, h: torch.Tensor, cfg: ModelConfig, layer: Optional[int] = None
-             ) -> torch.Tensor:
+def _mla_mlp(p, h: torch.Tensor, cfg: ModelConfig, layer: Optional[int] = None,
+             slots=None) -> torch.Tensor:
     """An 'mla' block's second half: its dense SwiGLU or its experts."""
     if "moe" in p:
-        return moe_mod.dropless_apply(p["moe"], h, cfg, layer=layer)
+        return moe_mod.dropless_apply(p["moe"], h, cfg, layer=layer, slots=slots)
     return mlp(p["mlp"], h)
 
 
@@ -423,6 +423,12 @@ def layer_kinds(cfg: ModelConfig) -> List[str]:
     return [cfg.pattern_for_layer(i) for i in range(cfg.n_layers)]
 
 
+def dropless_layers(cfg: ModelConfig) -> List[int]:
+    """The layers whose experts take the sigmoid router's dropless path
+    (``moe.dropless_apply``), in layer order."""
+    return [i for i, kind in enumerate(layer_kinds(cfg)) if kind == "mla" and cfg.is_moe_layer(i)]
+
+
 def init_decode_cache(batch: int, cfg: ModelConfig, max_seq: int, device=None, *,
                       mesh=None):
     """One cache dict per layer: {k, v} for attention (a ring of the window
@@ -449,13 +455,13 @@ def _decode_attention(p, x: torch.Tensor, cache, pos: int, cfg: ModelConfig):
     return x, rmsnorm(p["mlp_norm"], x, cfg.norm_eps), {"k": nk, "v": nv}
 
 
-def _block_decode(kind: str, p, x: torch.Tensor, cache, pos: int, cfg: ModelConfig,
-                  layer: int = 0):
+def _block_decode(kind: str, p, x: torch.Tensor, cache, pos, cfg: ModelConfig,
+                  layer: int = 0, terms=None, slots=None):
     if kind == "mla":
         h = rmsnorm(p["attn_norm"], x, cfg.norm_eps)
-        y, cache = mla_mod.mla_decode(p["attn"], h, cache, pos, cfg)
+        y, cache = mla_mod.mla_decode(p["attn"], h, cache, pos, cfg, terms)
         x = x + y
-        return x + _mla_mlp(p, rmsnorm(p["mlp_norm"], x, cfg.norm_eps), cfg, layer), cache
+        return x + _mla_mlp(p, rmsnorm(p["mlp_norm"], x, cfg.norm_eps), cfg, layer, slots), cache
     if kind == "attn":
         x, h, new = _decode_attention(p, x, cache, pos, cfg)
         if cfg.is_moe:
@@ -475,14 +481,17 @@ def _block_decode(kind: str, p, x: torch.Tensor, cache, pos: int, cfg: ModelConf
     raise ValueError(kind)
 
 
-def _decode_shards(params: Sequence, tokens: Sequence, caches: Sequence, pos: int,
-                   cfg: ModelConfig):
+def _decode_shards(params: Sequence, tokens: Sequence, caches: Sequence, pos,
+                   cfg: ModelConfig, routing: Optional[Dict] = None):
     """One decode step over row shards in lockstep (as :func:`_forward_shards`):
-    returns each shard's logits and new cache."""
+    returns each shard's logits and new cache.  The latent-attention layers
+    share the step's terms, made here once a shard."""
     xs = [embed_lookup(p["embed"], t) for p, t in zip(params, tokens)]
     new: List[List[Dict]] = [[] for _ in xs]
-    for i in range(cfg.n_layers):
-        kind = cfg.pattern_for_layer(i)
+    kinds = layer_kinds(cfg)
+    terms = ([mla_mod.step_terms(pos, c[kinds.index("mla")]["c"].shape[1], cfg, x.device)
+              for c, x in zip(caches, xs)] if "mla" in kinds else [None] * len(xs))
+    for i, kind in enumerate(kinds):
         ps = [p["layers"][i] for p in params]
         if len(xs) > 1 and kind == "attn" and cfg.is_moe:
             halves = [_decode_attention(p, x, c[i], pos, cfg)
@@ -494,9 +503,10 @@ def _decode_shards(params: Sequence, tokens: Sequence, caches: Sequence, pos: in
                 new[j].append(c)
             continue
         for j, p in enumerate(ps):
-            xs[j], c = _block_decode(kind, p, xs[j], caches[j][i], pos, cfg, i)
+            xs[j], c = _block_decode(kind, p, xs[j], caches[j][i], pos, cfg, i, terms[j],
+                                     None if routing is None else routing.get(i))
             new[j].append(c)
-    if cfg.router == "sigmoid":
+    if cfg.router == "sigmoid" and routing is None:
         moe_mod.ROUTING.end_step()
     logits = []
     for p, x in zip(params, xs):
@@ -538,19 +548,23 @@ def decode_step(
     cfg: ModelConfig,
     *,
     mesh=None,
+    routing: Optional[Dict[int, Tuple[torch.Tensor, torch.Tensor]]] = None,
 ) -> Tuple[torch.Tensor, Any]:
     """One serve step: returns (logits [B, vocab] float32, new cache).
     Attention caches are written in place; recurrent states are new.
-    Dense attention layers without a mesh also take ``pos`` as a 0-d int64
-    tensor on the card, never read back to the host: the form a CUDA graph
-    of the step replays (``train/decode_graph.py``).  With
+    Attention and latent-attention layers without a mesh also take ``pos``
+    as a 0-d int64 tensor on the card, never read back to the host: the
+    form a CUDA graph of the step replays (``train/decode_graph.py``), which
+    also gives ``routing``: each dropless layer's slots (``{layer: (ids [B,
+    k], ends [E])}``, ``moe.dropless_apply``), written in place of
+    ``moe.ROUTING``'s record, whose step the graph's holder ends.  With
     a ``mesh`` the step runs over the batch's data shards, each on its
     blocks of the cache (one laid out by ``init_decode_cache(...,
     mesh=mesh)``, kept so; a whole cache is laid out for the step and
     returned whole); the logits come back joined on the mesh's first
     device."""
     if mesh is None:
-        logits, new = _decode_shards([params], [tokens], [cache], pos, cfg)
+        logits, new = _decode_shards([params], [tokens], [cache], pos, cfg, routing)
         return logits[0], new[0]
 
     def run(views, toks, per):

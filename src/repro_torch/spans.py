@@ -35,8 +35,9 @@ The names and where they are opened:
     the sort by expert and the groups' counts), ``moe.experts`` (the
     gather, the grouped products and the combine) and ``moe.shared`` (the
     ungated shared expert): the DeepSeek-V3 block's layers in an LM
-    decode step (``models/moe.py:dropless_apply``).  A decoder without
-    latent attention or the sigmoid router opens none of them;
+    decode step (``models/moe.py:dropless_apply``), when it runs eagerly:
+    a replayed step opens none of them, nor does a decoder without latent
+    attention or the sigmoid router;
   * ``decode.replay``: one replay of a decode step's CUDA graph
     (``train/decode_graph.py``), once a step of a graphed ``generate``.
 """

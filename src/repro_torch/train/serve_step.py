@@ -10,8 +10,8 @@ the ConvCoTM classify step closed over a frozen servable.
 
 ``prefill``, ``decode`` and ``make_serve_fns`` take a ``mesh``, as the
 reference's do.  ``decode`` given a ``decode_graph.DecodeGraph`` as its
-cache replays that captured step (what ``generate`` hands it for a dense
-decoder on the card) and returns the holder as the cache.  Greedy
+cache replays that captured step (what ``generate`` hands it for a
+graphed decoder on the card) and returns the holder as the cache.  Greedy
 decoding matches the reference token for token (both argmaxes take the
 first maximum).  Temperature sampling is
 ``jax.random.categorical`` of a key (``core/prng.py``), so from one key it
