@@ -208,8 +208,21 @@ this file and builds the CUDA kernels from ``src/repro_torch/csrc``).
      float32 (the unmeshed tokens, held); and the dry-run of
      h2o-danube-1.8b x train_4k on both production meshes (argument bytes
      a device against the card's memory, the dominant roofline term);
+  8. Kimi Linear's KDA decode kernel (``[lm kda]`` lines;
+     ``csrc/kda_decode.cu``) at the shape of its main path, 256 sequences
+     x 32 heads x 128 x 128 float32 states: three steps of
+     ``kda_decode_cuda`` against ``kda_decode_plain`` (1e-5), both timed,
+     with the bound of each state read and written once (1.095 GB a
+     launch); then Kimi-Linear-48B-A3B at its published widths, 64 of its
+     256 experts held as the benchmark's cell holds them, through
+     ``generate`` at 256 x (4 prompt ids + 4 new tokens): the wrapper's
+     launches counted from zero over the first call (the capture's eager
+     step and the capture, 2 a KDA layer), and a second call, the same
+     tokens, profiled: one ``kda_decode`` device row a KDA layer and step
+     of the replayed graph;
      then one ``{"kernels": [...]}`` line (threefry's row counts the
-     fit's launches, the LM phases' beside them).
+     fit's launches, the LM phases' beside them; kda_decode's row the
+     first Kimi call's launches and the second's replayed rows).
 
 The last line is ``{"ok": true, "device": {...}}``.  Any failed phase
 raises and exits non-zero, as does a run without CUDA or outside the
@@ -219,6 +232,7 @@ repository.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import math
 import os
@@ -238,6 +252,9 @@ INT32_PER_CLOCK_PER_SM = 64
 #: SMs x 4,096 x 1.83 GHz boost = 1,979 TOPS at 2 operations each, the
 #: data sheet's dense int8 rate).
 INT8_MMA_PER_CLOCK_PER_SM = 4096
+#: float32 FLOPs per clock per SM on compute capability 9.0 (128 float32
+#: lanes, a fused multiply-add 2 FLOPs: the data sheet's 67 TFLOPS).
+FP32_FLOPS_PER_CLOCK_PER_SM = 256
 #: A git-archive export of the parent commit; when present, its kernels
 #: are built and timed beside this tree's, in the same run on one card.
 PARENT = Path(__file__).resolve().parent / "_parent"
@@ -2090,6 +2107,116 @@ XLSTM_SHALLOW = dict(n_layers=3, block_pattern=("mlstm", "slstm"))
 #: Dense bf16 tensor-core FLOPs per clock per SM on an H100 (132 SMs x
 #: 4,096 x 1.83 GHz boost = 989 TFLOP/s, the data sheet's dense bf16 rate).
 BF16_FLOPS_PER_CLOCK_PER_SM = 4096
+
+
+def lm_kda(dev, card: str) -> dict:
+    """[lm kda] The KDA decode kernel at its main path's shape, then
+    Kimi-Linear-48B-A3B through ``generate`` on the card (see the module
+    docstring, phase 8).  Returns the kernel's row of the ``kernels``
+    line."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import generate
+    from repro_torch.configs import get_config
+    from repro_torch.core.prng import prng_key
+    from repro_torch.kernels import kda as kda_kernels
+    from repro_torch.launch.specs import model_decls
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.base import init_params
+    from repro_torch.train import decode_graph
+
+    cuda, plain = kda_kernels.kda_decode_cuda, kda_kernels.kda_decode_plain
+    b, h, dk = 256, 32, 128
+    g = torch.Generator(device=dev).manual_seed(SEED)
+
+    def r(*shape):
+        return torch.randn(shape, device=dev, generator=g)
+
+    q, k = (t / t.norm(dim=-1, keepdim=True) for t in (r(b, h, dk), r(b, h, dk)))
+    q = q * dk ** -0.5
+    v, state = r(b, h, dk), r(b, h, dk, dk)
+    decay = -torch.rand((b, h, dk), device=dev, generator=g)       # exp in (e^-1, 1]
+    beta = torch.rand((b, h), device=dev, generator=g)
+    mine, err = state.clone(), 0.0
+    for _ in range(3):
+        o = cuda(mine, q, k, v, decay, beta)
+        want = plain(state, q, k, v, decay, beta)
+        torch.cuda.synchronize()
+        check(torch.allclose(mine, state, rtol=1e-5, atol=1e-5)
+              and torch.allclose(o, want, rtol=1e-5, atol=1e-5),
+              f"[lm kda] kda_decode_cuda differs from kda_decode_plain at {b} x {h} x {dk} x "
+              f"{dk}: state {float((mine - state).abs().max()):.3g}, o "
+              f"{float((o - want).abs().max()):.3g}")
+        err = max(err, float((mine - state).abs().max()), float((o - want).abs().max()))
+    ms, held = time_ms(lambda: cuda(mine, q, k, v, decay, beta), inner=10)
+    plain_ms, plain_held = time_ms(lambda: plain(state, q, k, v, decay, beta), inner=3,
+                                   repeats=5, warmup=1)
+    # Each state read and written once; q, k, g, v and beta read, o written.
+    nbytes = 4 * b * h * (2 * dk * dk + 5 * dk + 1)
+    flops = 8 * b * h * dk * dk
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    fp32_per_s = sms * max_sm_clock_mhz() * 1e6 * FP32_FLOPS_PER_CLOCK_PER_SM
+    bound_ms, bound_by = bound(nbytes, flops, fp32_per_s)
+    unheld = [n for n, ok in (("ms", held), ("plain_ms", plain_held)) if not ok]
+    print(f"[lm kda] kda_decode_cuda == kda_decode_plain at {b} x {h} x {dk} x {dk} float32 "
+          f"over 3 steps (max abs err {err:.3g}, 1e-5); kernel {ms:.5f} ms, plain "
+          f"{plain_ms:.5f} ms, bound {bound_ms:.4g} ms ({bound_by}: {nbytes:,} B, {flops:,} "
+          f"FLOPs at {fp32_per_s / 1e12:.1f} TFLOPS float32), {100 * bound_ms / ms:.1f}% of "
+          f"the bound{f'; host gaps in {unheld}' if unheld else ''} | {card}")
+    del q, k, v, state, decay, beta, mine, o, want
+
+    # The main path: generate at the published widths on the experts the
+    # benchmark's cell holds.
+    cfg = dataclasses.replace(get_config("kimi-linear-48b-a3b"), n_experts_held=64,
+                              first_expert_held=0)
+    n_kda = tfm.layer_kinds(cfg).count("kda")
+    decode_graph.drop()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = init_params(model_decls(cfg, fan_in=True), prng_key(SEED, dev))
+    plen, gen = 4, 4
+    prompts = torch.from_numpy(np.random.default_rng(SEED + 43).integers(
+        0, cfg.vocab_size, (b, plen)).astype(np.int32)).to(dev)
+    cuda.launches = 0
+    first = generate(cfg, model, prompts, gen)
+    torch.cuda.synchronize()
+    launches = cuda.launches
+    check(launches == 2 * n_kda,
+          f"[lm kda] the first generate launched kda_decode {launches} times through its "
+          f"wrapper, not {2 * n_kda} (the capture's eager step and the capture)")
+    check(first.shape == (b, gen) and bool(((first >= 0) & (first < cfg.vocab_size)).all()),
+          "[lm kda] generate: shape or vocab")
+    replays = decode_graph.COUNTS["replays"]
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        second = generate(cfg, model, prompts, gen)
+        torch.cuda.synchronize()
+    steps = decode_graph.COUNTS["replays"] - replays
+    rows = [e for e in device_rows(prof.key_averages()) if "kda_decode" in e.key]
+    replayed = sum(e.count for e in rows)
+    check(torch.equal(first, second), "[lm kda] generate: a second call gave other tokens")
+    check(cuda.launches == launches and steps == plen + gen and replayed == steps * n_kda,
+          f"[lm kda] the second generate: {cuda.launches - launches} wrapper launches, "
+          f"{steps} replays, {replayed} kda_decode device rows (want 0, {plen + gen}, "
+          f"{(plen + gen) * n_kda})")
+    kernel_us = sum(self_dev_us(e) for e in rows) / max(replayed, 1)
+    peak = torch.cuda.max_memory_allocated(dev)
+    print(f"[lm kda] {cfg.name} (64 of 256 experts held) generate at {b} x ({plen} + {gen}): "
+          f"{launches} kda_decode launches through the wrapper in the first call "
+          f"({n_kda} KDA layers: the capture's eager step and the capture); the second "
+          f"call the same tokens, {steps} replays, {replayed} kda_decode device rows "
+          f"({kernel_us / 1e3:.4f} ms each); memory peak {peak:,} B | {card}")
+    decode_graph.drop()
+    del model, first, second
+    torch.cuda.empty_cache()
+    return {"name": "kda_decode", "route": "cuda", "source": "src/repro_torch/csrc/kda_decode.cu",
+            "replaces": None, "pool": None, "launches": launches, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None,
+            # The second call's kda_decode rows: launched by its replays.
+            "replayed_launches": replayed, "replayed_ms": kernel_us / 1e3,
+            "launch_floor_ms": None, "parent_ms": None, "host_gaps_in": unheld}
 
 
 def _lm_data(cfg, seed: int) -> dict:
@@ -4200,6 +4327,18 @@ def main() -> int:
           f"the meshed LM path launched a TM kernel, or drew nothing on the card: "
           f"{mesh_lm_launches}")
     phase_s["7 lm mesh"] = time.perf_counter() - t_phase
+
+    # --- 8. Kimi Linear's KDA decode kernel, and its model on the card --------
+    t_phase = time.perf_counter()
+    registry.reset_launches()
+    kda_row = lm_kda(dev, card)
+    kda_launches = registry.launch_counts()
+    print(f"[engine] launches during the [lm kda] phase: {kda_launches}")
+    check(not any(v for k, v in kda_launches.items() if k != "threefry")
+          and kda_launches["threefry"] > 0,
+          f"the Kimi Linear path launched a TM kernel, or drew nothing on the card: "
+          f"{kda_launches}")
+    phase_s["8 lm kda"] = time.perf_counter() - t_phase
     print(f"[env] phase seconds: {', '.join(f'{k} {v:.2f}' for k, v in phase_s.items())}")
     print(f"[env] {card} | build {build_s:.2f} s")
 
@@ -4208,9 +4347,11 @@ def main() -> int:
     threefry_row["launches"] = launches_fit["threefry"]
     threefry_row["lm_launches"] = {"lm": lm_launches["threefry"],
                                    "lm train": train_launches["threefry"],
-                                   "lm mesh": mesh_lm_launches["threefry"]}
+                                   "lm mesh": mesh_lm_launches["threefry"],
+                                   "lm kda": kda_launches["threefry"]}
     threefry_row["launch_floor_ms"] = floor_ms
-    rows.append(threefry_row)
+    kda_row["launch_floor_ms"] = floor_ms
+    rows += [threefry_row, kda_row]
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

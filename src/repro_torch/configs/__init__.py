@@ -52,7 +52,9 @@ def reduced_config(cfg: ModelConfig) -> ModelConfig:
     a tail), width 64, 4 heads, 8 experts, a 512-token vocab; the same code
     paths.  Latent attention keeps its shape at nope 16, rope 8, v 16 and
     a latent of 32; the sigmoid router takes 3 of its 8 experts, the shared
-    expert twice an expert's width; one leading dense layer of 256."""
+    experts ``n_shared_experts`` times an expert's width; one leading dense
+    layer of 256.  An explicit layer list (Kimi Linear) becomes ``kda,
+    mla, kda, mla``, with KDA heads of 16 and the short conv kept."""
     pattern = cfg.block_pattern
     n_layers = (2 * len(pattern) + 1) if pattern else 3  # cycles + tail coverage
     changes: Dict = dict(
@@ -72,12 +74,17 @@ def reduced_config(cfg: ModelConfig) -> ModelConfig:
             router_group_size=64,
         )
     if cfg.router == "sigmoid":
-        changes.update(n_experts_per_token=3, d_ff_shared=2 * changes["d_ff"])
+        changes.update(n_experts_per_token=3,
+                       d_ff_shared=cfg.n_shared_experts * changes["d_ff"])
     if cfg.first_k_dense:
         changes.update(first_k_dense=1, d_ff_dense=256)
     if cfg.is_mla:
         changes.update(kv_lora_rank=32, qk_nope_head_dim=16, qk_rope_head_dim=8, v_head_dim=16,
                        head_dim=24)
+    if cfg.layer_kinds is not None:
+        changes.update(n_layers=4, layer_kinds=("kda", "mla", "kda", "mla"))
+    if cfg.kda_head_dim:
+        changes["kda_head_dim"] = 16
     if cfg.sliding_window:
         changes["sliding_window"] = 16
     if cfg.local_window:

@@ -1,6 +1,7 @@
 """The 10 assigned architecture configs (the same values as the reference's
 ``repro/configs/archs.py``), and the archs the port holds alone
-(:data:`PORT_ONLY_ARCHS`), which have no counterpart in the reference.
+(:data:`PORT_ONLY_ARCHS`: Moonlight-16B-A3B and Kimi-Linear-48B-A3B),
+which have no counterpart in the reference.
 
 ``--arch <id>`` resolves through the ``ARCHS`` dict via
 ``repro_torch.configs.get_config``.
@@ -206,6 +207,46 @@ MOONLIGHT_16B_A3B = ModelConfig(
     supports_long_context=False,
 )
 
+# Kimi-Linear-48B-A3B (Moonshot AI, "Kimi Linear", arXiv:2510.26692;
+# huggingface.co/moonshotai/Kimi-Linear-48B-A3B-Instruct config.json,
+# model_type kimi_linear): 27 layers at d 2,304.  20 Kimi Delta Attention
+# layers (32 heads of d_k = d_v = 128, short conv 4) and 7 MLA layers with
+# no rotary embedding (mla_use_nope; latent 512, nope 128, rope 64, v 128)
+# at 1-based 4, 8, ..., 24 and 27 (linear_attn_config.full_attn_layers);
+# layer 0 a dense SwiGLU of 9,216, the others 256 routed experts of 1,024
+# (top 8 of sigmoid + correction bias, renormalised, x2.446) and 1 shared.
+_KIMI_MLA = (4, 8, 12, 16, 20, 24, 27)
+KIMI_LINEAR_48B_A3B = ModelConfig(
+    name="kimi-linear-48b-a3b",
+    family="hybrid",
+    n_layers=27,
+    d_model=2304,
+    n_heads=32,
+    n_kv_heads=32,
+    d_ff=1024,                    # routed expert hidden
+    vocab_size=163840,
+    head_dim=192,                 # MLA's qk_nope + qk_rope
+    rope_theta=10_000.0,
+    kv_lora_rank=512,
+    qk_nope_head_dim=128,
+    qk_rope_head_dim=64,
+    v_head_dim=128,
+    mla_rope=False,
+    kda_head_dim=128,
+    conv_width=4,
+    layer_kinds=tuple("mla" if i + 1 in _KIMI_MLA else "kda" for i in range(27)),
+    n_experts=256,
+    n_experts_per_token=8,
+    n_shared_experts=1,
+    d_ff_shared=1024,
+    first_k_dense=1,
+    d_ff_dense=9216,
+    router="sigmoid",
+    routed_scaling=2.446,
+    norm_eps=1e-5,
+    supports_long_context=False,
+)
+
 ARCHS = {
     c.name: c
     for c in [
@@ -220,9 +261,10 @@ ARCHS = {
         SEAMLESS_M4T_LARGE_V2,
         QWEN2_VL_7B,
         MOONLIGHT_16B_A3B,
+        KIMI_LINEAR_48B_A3B,
     ]
 }
 
 #: The registered archs the reference does not hold: tests that hold the
 #: port to the reference run over the others.
-PORT_ONLY_ARCHS = (MOONLIGHT_16B_A3B.name,)
+PORT_ONLY_ARCHS = (MOONLIGHT_16B_A3B.name, KIMI_LINEAR_48B_A3B.name)

@@ -2,9 +2,11 @@
 
 The port's copy of ``repro/configs/base.py``: the same fields and values,
 with ``dtype`` a torch dtype (``torch.bfloat16`` by default).  Fields the
-reference lacks (latent attention, leading dense layers, the sigmoid
-router) default to what the reference's archs
-compute, so every arch both packages hold is the same config.
+reference lacks (latent attention and its NoPE switch, leading dense
+layers, the sigmoid router, the experts a chip holds, Kimi Delta
+Attention, an explicit list of layer kinds) default to what the
+reference's archs compute, so every arch both packages hold is the same
+config.
 """
 
 from __future__ import annotations
@@ -43,6 +45,10 @@ class ModelConfig:
     qk_nope_head_dim: int = 0
     qk_rope_head_dim: int = 0         # one rotary key shared by the heads
     v_head_dim: int = 0
+    mla_rope: bool = True             # False: NoPE, the rope part of q and k left unrotated
+
+    # --- Kimi Delta Attention (KDA, arXiv:2510.26692); n_heads heads ---
+    kda_head_dim: int = 0             # d_k = d_v of a KDA head; conv_width taps of short conv
 
     # --- MoE ---
     n_experts: int = 0
@@ -59,11 +65,19 @@ class ModelConfig:
     # by routed_scaling, dropless, the shared expert ungated (DeepSeek-V3).
     router: str = "softmax"
     routed_scaling: float = 1.0
+    # The experts this chip holds: ids first_expert_held .. + n_experts_held
+    # - 1 of the router's n_experts (0: all of them).  The router keeps its
+    # n_experts outputs; only the held experts' part of the result is added.
+    n_experts_held: int = 0
+    first_expert_held: int = 0
 
     # --- recurrent families ---
     block_pattern: Optional[Tuple[str, ...]] = None  # cycled: attn|mlstm|slstm|rglru
+    # Every layer's kind in order, where the layout is no one period (Kimi
+    # Linear: kda and mla); None: block_pattern, or all 'mla' for MLA archs.
+    layer_kinds: Optional[Tuple[str, ...]] = None
     proj_factor: float = 2.0          # xLSTM mLSTM up-projection
-    conv_width: int = 4               # RG-LRU temporal conv width
+    conv_width: int = 4               # temporal conv width (RG-LRU; KDA's short conv)
     rglru_lru_width: int = 0          # 0 -> d_model
 
     # --- encoder-decoder / frontends ---
@@ -94,11 +108,18 @@ class ModelConfig:
     def is_mla(self) -> bool:
         return self.kv_lora_rank > 0
 
+    @property
+    def experts_held(self) -> int:
+        """How many of the router's experts this chip holds."""
+        return self.n_experts_held or self.n_experts
+
     def is_moe_layer(self, i: int) -> bool:
         """Whether layer ``i`` has experts (the leading dense ones have not)."""
         return self.is_moe and i >= self.first_k_dense
 
     def pattern_for_layer(self, i: int) -> str:
+        if self.layer_kinds is not None:
+            return self.layer_kinds[i]
         if self.is_mla:
             return "mla"
         if self.block_pattern is None:
@@ -107,12 +128,14 @@ class ModelConfig:
 
     def param_count(self) -> int:
         """Analytic parameter count (matmul + embedding params; norms, the
-        shared expert's mix gate and the router's bias are not counted)."""
+        shared expert's mix gate, the router's bias and KDA's conv taps,
+        decay and bias vectors are not counted).  An MoE layer counts the
+        experts held (:attr:`experts_held`) and the router's full width."""
         d, hd = self.d_model, self.head_dim
         att = d * self.n_heads * hd + 2 * d * self.n_kv_heads * hd + self.n_heads * hd * d
         mlp = 3 * d * self.d_ff
         if self.is_moe:
-            mlp = self.n_experts * 3 * d * self.d_ff + (
+            mlp = self.experts_held * 3 * d * self.d_ff + (
                 3 * d * self.d_ff_shared if self.n_shared_experts else 0
             ) + d * self.n_experts
         per_layer = 0
@@ -120,11 +143,15 @@ class ModelConfig:
             kind = self.pattern_for_layer(i)
             if kind == "attn":
                 per_layer += att + mlp
-            elif kind == "mla":
+            elif kind in ("mla", "kda"):
                 h, r, rope = self.n_heads, self.kv_lora_rank, self.qk_rope_head_dim
-                per_layer += (d * h * hd + d * (r + rope)
-                              + r * h * (self.qk_nope_head_dim + self.v_head_dim)
-                              + h * self.v_head_dim * d)
+                if kind == "mla":
+                    per_layer += (d * h * hd + d * (r + rope)
+                                  + r * h * (self.qk_nope_head_dim + self.v_head_dim)
+                                  + h * self.v_head_dim * d)
+                else:       # q, k, v, the decay's and the gate's low ranks, beta, out
+                    kd = h * self.kda_head_dim
+                    per_layer += 4 * d * kd + 2 * (d + kd) * self.kda_head_dim + d * h
                 per_layer += mlp if self.is_moe_layer(i) else 3 * d * self.d_ff_dense
             elif kind == "rglru":
                 w = self.rglru_lru_width or d
@@ -140,13 +167,16 @@ class ModelConfig:
         return per_layer + emb
 
     def active_param_count(self) -> int:
-        """Active params per token (MoE: only routed-active experts)."""
+        """Active params per token (MoE: only routed-active experts; with a
+        share of the experts held, the ``k * held / n_experts`` of them a
+        token reaches on average, rounded down)."""
         if not self.is_moe:
             return self.param_count()
         d = self.d_model
         total = self.param_count()
         moe_layers = self.n_layers - self.first_k_dense
-        inactive = (self.n_experts - self.n_experts_per_token) * 3 * d * self.d_ff * moe_layers
+        held, e = self.experts_held, self.n_experts
+        inactive = held * (e - self.n_experts_per_token) * 3 * d * self.d_ff * moe_layers // e
         return total - inactive
 
 

@@ -39,7 +39,7 @@ CSRC = _PKG / "csrc"
 BUILD = _PKG / "build"
 
 #: The kernel sources, by library name.
-SOURCES = ("ingress_pack", "fused_infer", "clause_eval", "class_sum", "threefry")
+SOURCES = ("ingress_pack", "fused_infer", "clause_eval", "class_sum", "threefry", "kda_decode")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

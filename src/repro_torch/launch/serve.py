@@ -99,8 +99,9 @@ def generate(
     and the caches are laid out on it once (the caches as the reference's
     ``cache_shardings`` lay them out) and every step runs over its data
     shards (the logits come back to the prompt's device).  On the card
-    the steps of a decoder of attention or latent-attention layers (dense,
-    or Moonlight's dropless experts) replay one captured CUDA graph
+    the steps of a decoder of attention, latent-attention or KDA layers
+    (dense, or Moonlight's and Kimi Linear's dropless experts) replay one
+    captured CUDA graph
     (``train/decode_graph.py``), held for the next call of the same
     parameters, config, batch and ``max_seq``; the capacity-bounded
     experts and every other kind run eagerly.  Either way each step goes

@@ -25,6 +25,10 @@ or value is ever made.  It absorbs ``Wkv_b``'s key half into the query
 value half into the output (``(P c) W_UV``, then ``Wo``): the same
 function, whose work a position grows with ``r + rope`` and not with the
 heads' keys and values.
+
+With ``cfg.mla_rope`` False (NoPE: Kimi Linear's ``mla_use_nope``) nothing
+is rotated: ``q_rope`` and ``k_r`` keep their width and enter the scores
+as they are projected, in both forms.
 """
 
 from __future__ import annotations
@@ -64,12 +68,15 @@ def _project(p, x: torch.Tensor, cfg: ModelConfig, rotate):
     """``x`` [B, S, d] -> (q_nope [B, S, H, nope], the rotated q_rope [B, S,
     H, rope], the normed latent c [B, S, r], the rotated k_r [B, S, rope]).
     The query's and the key's rotary parts turn in one call of ``rotate``
-    (``[B, S, H + 1, rope]`` -> the same, rotated)."""
+    (``[B, S, H + 1, rope]`` -> the same, rotated); under NoPE they do not
+    turn."""
     b, s, _ = x.shape
     h, nope, r = cfg.n_heads, cfg.qk_nope_head_dim, cfg.kv_lora_rank
     q = (x @ p["wq"]).view(b, s, h, -1)
     kv = x @ p["wkv_a"]
     c = rmsnorm(p["kv_norm"], kv[..., :r], LATENT_NORM_EPS)
+    if not cfg.mla_rope:
+        return q[..., :nope], q[..., nope:], c, kv[..., r:]
     rot = rotate(torch.cat([q[..., nope:], kv[..., None, r:]], dim=2))
     return q[..., :nope], rot[:, :, :h], c, rot[:, :, h]
 

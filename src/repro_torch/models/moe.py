@@ -15,11 +15,17 @@ No token is dropped: the (token, expert) pairs are sorted by expert, the
 groups' ends counted on the device, and each expert weight is one grouped
 product over the contiguous groups (``torch._grouped_mm``; its plain twin
 :func:`grouped_swiglu_plain`), with no host synchronisation and no loop
-over experts.  :data:`ROUTING` keeps what that path's decode steps leave
-for a reader who armed it: the groups' counts while a profiler runs, and
-the chosen experts of the steps it was armed for; a step replayed from a
-CUDA graph writes both into its holder's slots, which the holder hands
-over after each replay.
+over experts.  A chip that holds a share of the experts
+(``cfg.n_experts_held`` from ``cfg.first_expert_held``; expert
+parallelism without its exchange) routes over all of them, sorts the
+pairs of its own experts first, runs the grouped products over its stack
+with the groups' ends of its experts, and adds only their part (with the
+shared expert); holding all, it runs the same operations as before.
+:data:`ROUTING` keeps what that path's decode steps leave for a reader
+who armed it: the groups' counts while a profiler runs, and the chosen
+experts of the steps it was armed for; a step replayed from a CUDA graph
+writes both into its holder's slots, which the holder hands over after
+each replay.
 
 Over ``model`` the experts take the reference's two layouts: sharded
 (``n_experts % 16 == 0``: each position runs its ``E / M`` experts on their
@@ -63,14 +69,16 @@ def _expert_axes(cfg: ModelConfig) -> Tuple:
 
 
 def moe_decls(cfg: ModelConfig) -> Dict:
+    """The router over all ``n_experts``, the stacks of the experts held."""
     d, ff, e = cfg.d_model, cfg.d_ff, cfg.n_experts
     ax = _expert_axes(cfg)
     dt = cfg.dtype
+    held = cfg.experts_held
     decls = {
         "router": ParamDecl((d, e), (None, None), dtype=torch.float32, scale=0.02),
-        "w_gate": ParamDecl((e, d, ff), ax, dtype=dt),
-        "w_up": ParamDecl((e, d, ff), ax, dtype=dt),
-        "w_down": ParamDecl((e, ff, d), (ax[0], ax[2], ax[1]), dtype=dt),
+        "w_gate": ParamDecl((held, d, ff), ax, dtype=dt),
+        "w_up": ParamDecl((held, d, ff), ax, dtype=dt),
+        "w_down": ParamDecl((held, ff, d), (ax[0], ax[2], ax[1]), dtype=dt),
     }
     if cfg.n_shared_experts:
         ffs = cfg.d_ff_shared or cfg.d_ff * cfg.n_shared_experts
@@ -351,17 +359,24 @@ def dropless_apply(p, x: torch.Tensor, cfg: ModelConfig, *, layer: Optional[int]
     """The sigmoid-routed experts and the ungated shared expert of ``x``
     [..., d] (module docstring): [..., d].  ``layer`` (a decode step's)
     names the call to :data:`ROUTING`.  With ``slots`` (a captured decode
-    step's: ids [T, k] int64, group ends [E] int32) the chosen experts and
-    the group ends are written there and :data:`ROUTING` is left alone: the
-    step's holder hands them over after each replay
+    step's: ids [T, k] int64, the held experts' group ends [E held] int32)
+    the chosen experts and the group ends are written there and
+    :data:`ROUTING` is left alone: the step's holder hands them over after
+    each replay
     (:meth:`RoutingRecord.hand_over`)."""
     shape, d, k = x.shape, x.shape[-1], cfg.n_experts_per_token
     xf = x.reshape(-1, d)
     ids_out, ends_out = (None, None) if slots is None else slots
+    held = cfg.experts_held
     with span("moe.route"):
         ids, w = route_sigmoid(p, xf, cfg, ids_out=ids_out)
-        sorted_ids, order = torch.sort(ids.flatten(), stable=True)
-        ends = torch.searchsorted(sorted_ids, _expert_ids(cfg.n_experts, x.device), right=True,
+        key, mine = ids, None
+        if held < cfg.n_experts:        # the held experts' pairs first, the others last
+            local = ids - cfg.first_expert_held
+            mine = (local >= 0) & (local < held)
+            key = torch.where(mine, local, held)
+        sorted_ids, order = torch.sort(key.flatten(), stable=True)
+        ends = torch.searchsorted(sorted_ids, _expert_ids(held, x.device), right=True,
                                   out_int32=True, out=ends_out)
     if slots is None:
         if layer is not None:
@@ -371,6 +386,9 @@ def dropless_apply(p, x: torch.Tensor, cfg: ModelConfig, *, layer: Optional[int]
     with span("moe.experts"):
         y = grouped_swiglu(xf[order // k], ends, p["w_gate"], p["w_up"], p["w_down"])
         pairs = torch.empty_like(y).index_copy_(0, order, y).view(-1, k, d)
+        if mine is not None:            # rows past the held groups' end hold no product
+            pairs = torch.where(mine[..., None], pairs, 0.0)
+            w = torch.where(mine, w, 0.0)
         out = (pairs * w[..., None]).sum(dim=1).to(x.dtype)
     if cfg.n_shared_experts:
         with span("moe.shared"):

@@ -7,8 +7,13 @@ attention (dense and MoE archs; pattern None is all 'attn'), xLSTM
 (port-only) are all 'mla': DeepSeek-V3's block, a dense SwiGLU in the
 leading ``first_k_dense`` layers and the sigmoid-routed dropless experts
 after them (a block's parameters hold ``mlp`` or ``moe``); its decode
-cache is the latent ``{c, k_r}`` (``models/mla.py``).  A mesh does not
-take it yet.
+cache is the latent ``{c, k_r}`` (``models/mla.py``).  Kimi Linear
+(port-only) lists its layers (``cfg.layer_kinds``): 'kda' blocks (Kimi
+Delta Attention, ``models/kda.py``, then the same dense SwiGLU or
+experts) beside 'mla' ones, so its decode cache holds two kinds of state
+side by side: the latent ``{c, k_r}`` of its MLA layers and the
+recurrent ``{S, conv}`` of its KDA layers, both written in place.  A mesh
+takes neither yet.
 
 Layers are an ``nn.ModuleList`` in layer order.  The reference stacks the
 full cycles of the pattern under one ``lax.scan`` and runs the remainder
@@ -42,6 +47,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
+from repro_torch.models import kda as kda_mod
 from repro_torch.models import mla as mla_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rglru_mod
@@ -83,10 +89,10 @@ __all__ = [
 # ---------------------------------------------------------------------------
 
 def _block_decls(kind: str, cfg: ModelConfig, layer: int = 0) -> Dict:
-    if kind == "mla":
+    if kind in ("mla", "kda"):
         d = {
             "attn_norm": rmsnorm_decls(cfg.d_model),
-            "attn": mla_mod.mla_decls(cfg),
+            "attn": (mla_mod.mla_decls if kind == "mla" else kda_mod.kda_decls)(cfg),
             "mlp_norm": rmsnorm_decls(cfg.d_model),
         }
         if cfg.is_moe_layer(layer):
@@ -197,9 +203,10 @@ def _block_apply(
             x = x + a
             h = rmsnorm(p["mlp_norm"], x, cfg.norm_eps)
             x = x + mlp(p["mlp"], h)
-    elif kind == "mla":
+    elif kind in ("mla", "kda"):
         h = rmsnorm(p["attn_norm"], x, cfg.norm_eps)
-        x = x + mla_mod.mla_apply(p["attn"], h, cfg, positions)
+        x = x + (mla_mod.mla_apply(p["attn"], h, cfg, positions) if kind == "mla"
+                 else kda_mod.kda_apply(p["attn"], h, cfg))
         x = x + _mla_mlp(p, rmsnorm(p["mlp_norm"], x, cfg.norm_eps), cfg)
     elif kind == "rglru":
         x = rglru_mod.rglru_apply(p["rglru"], x, cfg)
@@ -216,7 +223,8 @@ def _block_apply(
 
 def _mla_mlp(p, h: torch.Tensor, cfg: ModelConfig, layer: Optional[int] = None,
              slots=None) -> torch.Tensor:
-    """An 'mla' block's second half: its dense SwiGLU or its experts."""
+    """An 'mla' or 'kda' block's second half: its dense SwiGLU or its
+    experts."""
     if "moe" in p:
         return moe_mod.dropless_apply(p["moe"], h, cfg, layer=layer, slots=slots)
     return mlp(p["mlp"], h)
@@ -407,6 +415,8 @@ def lm_loss(
 def _block_cache(kind: str, batch: int, cfg: ModelConfig, max_seq: int, device):
     if kind == "mla":
         return mla_mod.init_latent_cache(batch, cfg, max_seq, device)
+    if kind == "kda":
+        return kda_mod.init_kda_cache(batch, cfg, device)
     if kind == "attn":
         return attn.init_kv_cache(batch, cfg, max_seq, 1, device)[0]
     if kind == "rglru":
@@ -426,14 +436,15 @@ def layer_kinds(cfg: ModelConfig) -> List[str]:
 def dropless_layers(cfg: ModelConfig) -> List[int]:
     """The layers whose experts take the sigmoid router's dropless path
     (``moe.dropless_apply``), in layer order."""
-    return [i for i, kind in enumerate(layer_kinds(cfg)) if kind == "mla" and cfg.is_moe_layer(i)]
+    return [i for i, kind in enumerate(layer_kinds(cfg))
+            if kind in ("mla", "kda") and cfg.is_moe_layer(i)]
 
 
 def init_decode_cache(batch: int, cfg: ModelConfig, max_seq: int, device=None, *,
                       mesh=None):
     """One cache dict per layer: {k, v} for attention (a ring of the window
-    for windowed archs), {c, k_r} for latent attention, the recurrent state
-    otherwise.  With a ``mesh``,
+    for windowed archs), {c, k_r} for latent attention, {S, conv} for KDA,
+    the recurrent state otherwise.  With a ``mesh``,
     laid out on it (``sharding.blocks.lay_out_cache``: ``k``/``v`` split by
     ``seq`` over ``model``, recurrent states by ``tensor``, the mLSTM state
     replicated, the batch over the data axes), made on ``device`` (the
@@ -457,9 +468,10 @@ def _decode_attention(p, x: torch.Tensor, cache, pos: int, cfg: ModelConfig):
 
 def _block_decode(kind: str, p, x: torch.Tensor, cache, pos, cfg: ModelConfig,
                   layer: int = 0, terms=None, slots=None):
-    if kind == "mla":
+    if kind in ("mla", "kda"):
         h = rmsnorm(p["attn_norm"], x, cfg.norm_eps)
-        y, cache = mla_mod.mla_decode(p["attn"], h, cache, pos, cfg, terms)
+        y, cache = (mla_mod.mla_decode(p["attn"], h, cache, pos, cfg, terms) if kind == "mla"
+                    else kda_mod.kda_decode(p["attn"], h, cache, cfg))
         x = x + y
         return x + _mla_mlp(p, rmsnorm(p["mlp_norm"], x, cfg.norm_eps), cfg, layer, slots), cache
     if kind == "attn":
@@ -551,12 +563,13 @@ def decode_step(
     routing: Optional[Dict[int, Tuple[torch.Tensor, torch.Tensor]]] = None,
 ) -> Tuple[torch.Tensor, Any]:
     """One serve step: returns (logits [B, vocab] float32, new cache).
-    Attention caches are written in place; recurrent states are new.
-    Attention and latent-attention layers without a mesh also take ``pos``
+    Attention caches and KDA states are written in place; the other
+    recurrent states are new.
+    Attention, latent-attention and KDA layers without a mesh also take ``pos``
     as a 0-d int64 tensor on the card, never read back to the host: the
     form a CUDA graph of the step replays (``train/decode_graph.py``), which
     also gives ``routing``: each dropless layer's slots (``{layer: (ids [B,
-    k], ends [E])}``, ``moe.dropless_apply``), written in place of
+    k], ends [E held])}``, ``moe.dropless_apply``), written in place of
     ``moe.ROUTING``'s record, whose step the graph's holder ends.  With
     a ``mesh`` the step runs over the batch's data shards, each on its
     blocks of the cache (one laid out by ``init_decode_cache(...,

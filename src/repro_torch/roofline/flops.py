@@ -7,7 +7,8 @@ Two halves are here:
     ``flops_estimate`` (global FLOPs of a train, prefill or decode step,
     following ``models/`` term by term: executed attention is the full
     chunked score product, MoE is capacity-padded, the sigmoid router's
-    dropless experts are not, latent attention decodes absorbed) and
+    dropless experts are not, latent attention decodes absorbed, a KDA
+    layer counts its projections and 8 FLOPs a state element a token) and
     ``hbm_bytes_estimate`` (per-chip device-memory bytes of a step, a floor
     model: weights read once, KV cache and saved activations);
   * the ConvCoTM eval paths' ``tm_serve_costs`` and their path sets.
@@ -76,13 +77,16 @@ def _moe_flops(cfg: ModelConfig, b: int, s: int) -> float:
 
 
 def _mla_mlp_flops(cfg: ModelConfig, t: int, layer: int) -> float:
-    """An 'mla' block's second half over ``t`` tokens: the leading dense
-    SwiGLU, or the dropless experts (the router, each token's ``k``
-    experts, no capacity padding, and the ungated shared expert)."""
+    """An 'mla' or 'kda' block's second half over ``t`` tokens: the leading
+    dense SwiGLU, or the dropless experts (the router, each token's ``k``
+    experts, no capacity padding, and the ungated shared expert; with a
+    share of the experts held, the ``k * held / n_experts`` held ones a
+    token reaches on average)."""
     d = cfg.d_model
     if not cfg.is_moe_layer(layer):
         return 2.0 * t * d * cfg.d_ff_dense * 3.0
     k, ff, ffs = cfg.n_experts_per_token, cfg.d_ff, cfg.d_ff_shared
+    k = k * cfg.experts_held / cfg.n_experts
     return 2.0 * t * (d * cfg.n_experts + 3 * k * d * ff + 3 * d * ffs)
 
 
@@ -110,6 +114,18 @@ def _mla_decode_flops(cfg: ModelConfig, b: int, kv_len: int) -> float:
     proj = 2.0 * b * _mla_proj_params(cfg) + 2.0 * b * h * r * (cfg.qk_nope_head_dim
                                                                   + cfg.v_head_dim)
     return proj + 2.0 * b * h * kv_len * (r + rope) + 2.0 * b * h * kv_len * r
+
+
+def _kda_flops(cfg: ModelConfig, t: int) -> float:
+    """A KDA layer over ``t`` tokens (the scan and the decode step alike):
+    its projections (q, k, v, the decay's and the gate's low ranks, beta,
+    out) and four passes over each head's ``d_k x d_v`` state a token (the
+    decay, ``k^T S``, the rank-1 update, ``S^T q``) at 2 FLOPs an element;
+    the convolution, norms and gates are not counted."""
+    d, h, dk = cfg.d_model, cfg.n_heads, cfg.kda_head_dim
+    kd = h * dk
+    proj = 4 * d * kd + 2 * (d + kd) * dk + d * h
+    return 2.0 * t * proj + 8.0 * t * h * dk * dk
 
 
 def _mlstm_flops(cfg: ModelConfig, b: int, s: int, chunk: int = 64) -> float:
@@ -148,6 +164,8 @@ def _layer_flops(cfg: ModelConfig, kind: str, b: int, s: int, layer: int = 0) ->
     window = cfg.sliding_window or cfg.local_window
     if kind == "mla":
         return _mla_flops(cfg, b, s) + _mla_mlp_flops(cfg, b * s, layer)
+    if kind == "kda":
+        return _kda_flops(cfg, b * s) + _mla_mlp_flops(cfg, b * s, layer)
     if kind == "attn":
         mlp = _moe_flops(cfg, b, s) if cfg.is_moe else _mlp_flops(cfg, b, s)
         return _attn_layer_flops(cfg, b, s, window) + mlp
@@ -192,6 +210,8 @@ def _decode_layer_flops(cfg: ModelConfig, kind: str, b: int, kv_len: int, layer:
     window = cfg.sliding_window or cfg.local_window
     if kind == "mla":
         return _mla_decode_flops(cfg, b, kv_len) + _mla_mlp_flops(cfg, b, layer)
+    if kind == "kda":
+        return _kda_flops(cfg, b) + _mla_mlp_flops(cfg, b, layer)
     if kind == "attn":
         eff = min(kv_len, window) if window else kv_len
         proj = 2.0 * b * d * (h * hd + 2 * kv * hd + h * hd)
@@ -272,7 +292,11 @@ def hbm_bytes_estimate(
         2.0 * b * cfg.n_kv_heads * kv_len * cfg.head_dim * 2 * n_attn / chips
     )
     if cfg.is_mla:      # the latent cache: c and the rotary key a position
-        kv_bytes = 2.0 * b * kv_len * (cfg.kv_lora_rank + cfg.qk_rope_head_dim) * cfg.n_layers / chips
+        n_mla = sum(1 for i in range(cfg.n_layers) if cfg.pattern_for_layer(i) == "mla")
+        kv_bytes = 2.0 * b * kv_len * (cfg.kv_lora_rank + cfg.qk_rope_head_dim) * n_mla / chips
+    n_kda = sum(1 for i in range(cfg.n_layers) if cfg.pattern_for_layer(i) == "kda")
+    if n_kda:           # each KDA state read and written once, float32
+        kv_bytes += 8.0 * b * cfg.n_heads * cfg.kda_head_dim ** 2 * n_kda / chips
     return pb * (cfg.active_param_count() / max(cfg.param_count(), 1)) + kv_bytes
 
 

@@ -38,6 +38,9 @@ The names and where they are opened:
     decode step (``models/moe.py:dropless_apply``), when it runs eagerly:
     a replayed step opens none of them, nor does a decoder without latent
     attention or the sigmoid router;
+  * ``kda.attend`` (``models/kda.py``: a Kimi Delta Attention layer's
+    decode on its state, from the projections to the gated output),
+    opened as ``mla.attend`` is, when the step runs eagerly;
   * ``decode.replay``: one replay of a decode step's CUDA graph
     (``train/decode_graph.py``), once a step of a graphed ``generate``.
 """

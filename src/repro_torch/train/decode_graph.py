@@ -12,18 +12,22 @@ buffers and replays, and runs ahead of the card.
 token buffer ``[B, 1]``, the position as a 0-d int64 tensor (which
 ``attention.decode_attention`` and ``mla.mla_decode`` take without reading
 it back; the latent layers' angles and mask are made from it inside the
-step), the graph and its logits.  Where the config has dropless expert
-layers it also holds their routing slots, fixed for its life: the chosen
-experts ``[L_moe, B, k]`` and the group ends ``[L_moe, E]``, which each
+step), the graph and its logits.  A KDA layer's state and convolution
+inputs (``kda.kda_decode``) are written in place by the step, the state
+by ``csrc/kda_decode.cu``, so each replay carries them to the next.
+Where the config has dropless expert layers it also holds their routing
+slots, fixed for its life: the chosen experts ``[L_moe, B, k]`` and the
+held experts' group ends ``[L_moe, E held]``, which each
 such layer writes in the step in place of ``moe.ROUTING``'s record; after
 each replay :meth:`DecodeGraph.step` hands them to ``ROUTING``
 (``RoutingRecord.hand_over``: a copy only while it is armed), so the
 recorder sees one entry per layer and step, as an eager step leaves it.
 Its first step runs eagerly on a side stream, then captures
 ``transformer.decode_step`` on the static buffers, then replays; neither
-the eager step nor the capture records routing, and the eager step
-writes the same cache slot with the same values as the replay after it,
-so the cache is as an eager step leaves it.  Each step returns a copy of
+the eager step nor the capture records routing.  That first step is the
+holder's first, on a cache of zeros, and the eager step's writes are
+zeroed again before the capture (a KDA state would otherwise take the
+step twice), so the cache is as an eager step leaves it.  Each step returns a copy of
 the logits, which stays valid after the next replay.
 
 ``generate`` holds one :class:`DecodeGraph` at a time (:func:`holder`):
@@ -33,10 +37,12 @@ keeps the parameters alive, since the graph reads them where they lie.
 
 Which steps are graphed is decided from the input alone (:func:`graphed`):
 a prompt on a CUDA device, no mesh, a decoder-only config without M-RoPE
-or front-end embeddings whose layers are all ``'attn'`` or ``'mla'``, with
-experts, if any, on the sigmoid router's dropless path (Moonlight).  The
-capacity-bounded experts (Qwen2-MoE, Phi-3.5-MoE), recurrent, meshed and
-encoder-decoder steps and everything on the CPU run eagerly, as before.
+or front-end embeddings whose layers are all ``'attn'``, ``'mla'`` or
+``'kda'``, with experts, if any, on the sigmoid router's dropless path
+(Moonlight, Kimi Linear).  The capacity-bounded experts (Qwen2-MoE,
+Phi-3.5-MoE), the other recurrent kinds (whose states are new each step),
+meshed and encoder-decoder steps and everything on the CPU run eagerly,
+as before.
 
 Each replay opens the span ``decode.replay``; its step opens none of the
 layers' spans.  :data:`COUNTS` counts ``captures``, ``replays``, ``eager``
@@ -70,7 +76,7 @@ def graphed(cfg: ModelConfig, device, *, mesh=None, frontend_embeds=None) -> boo
     return (torch.device(device).type == "cuda" and mesh is None
             and not cfg.is_encoder_decoder and frontend_embeds is None
             and cfg.mrope_sections is None and (not cfg.is_moe or cfg.router == "sigmoid")
-            and all(kind in ("attn", "mla") for kind in tfm.layer_kinds(cfg)))
+            and all(kind in ("attn", "mla", "kda") for kind in tfm.layer_kinds(cfg)))
 
 
 class DecodeGraph:
@@ -89,7 +95,7 @@ class DecodeGraph:
             n = len(self.dropless)
             self.route_ids = torch.zeros((n, batch, cfg.n_experts_per_token), dtype=torch.int64,
                                          device=self.device)
-            self.route_ends = torch.zeros((n, cfg.n_experts), dtype=torch.int32,
+            self.route_ends = torch.zeros((n, cfg.experts_held), dtype=torch.int32,
                                           device=self.device)
             self.routing = {layer: (self.route_ids[i], self.route_ends[i])
                             for i, layer in enumerate(self.dropless)}
@@ -117,6 +123,7 @@ class DecodeGraph:
             side.wait_stream(torch.cuda.current_stream())
             with torch.cuda.stream(side):
                 self._body()
+                self.reset()
             torch.cuda.current_stream().wait_stream(side)
             graph = torch.cuda.CUDAGraph()
             with torch.cuda.graph(graph):

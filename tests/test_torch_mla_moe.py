@@ -276,7 +276,7 @@ def test_moonlight_flops_and_bytes_count_latent_attention_dense_layer_and_shared
 
 
 def test_port_only_archs_are_registered_and_named():
-    assert PORT_ONLY_ARCHS == (ARCH,)
+    assert PORT_ONLY_ARCHS == (ARCH, "kimi-linear-48b-a3b")
     assert get_config(ARCH) is ARCHS[ARCH]
     assert sorted(paired_archs() + list(PORT_ONLY_ARCHS)) == sorted(ARCHS)
 
