@@ -220,9 +220,24 @@ this file and builds the CUDA kernels from ``src/repro_torch/csrc``).
      step and the capture, 2 a KDA layer), and a second call, the same
      tokens, profiled: one ``kda_decode`` device row a KDA layer and step
      of the replayed graph;
+  9. the decode step's GQA attention kernel (``[lm gqa]`` lines;
+     ``csrc/gqa_decode.cu``) at h2o-danube-1.8b's shape in the benchmark's
+     cell, 256 sequences x 8 kv heads x 4 query heads each x a 256-slot
+     bf16 cache x 80: at positions 15, 127 and 255 the kernel against
+     ``gqa_decode_plain`` (max abs error, within the values' rounding),
+     both timed beside PyTorch's one call for it
+     (``F.scaled_dot_product_attention`` with ``enable_gqa`` and the bool
+     mask, under each backend that takes it) and the bound of the visible
+     slots' K and V read once;
+     then h2o-danube-1.8b through ``generate`` at 256 x (4 prompt ids + 4
+     new tokens): the wrapper's launches over the first call (the
+     capture's eager step and the capture, 2 a layer), and a second call,
+     the same tokens, profiled: one ``gqa_decode`` device row a layer and
+     step of the replayed graph;
      then one ``{"kernels": [...]}`` line (threefry's row counts the
-     fit's launches, the LM phases' beside them; kda_decode's row the
-     first Kimi call's launches and the second's replayed rows).
+     fit's launches, the LM phases' beside them; kda_decode's and
+     gqa_decode's rows the first call's launches and the second's
+     replayed rows).
 
 The last line is ``{"ok": true, "device": {...}}``.  Any failed phase
 raises and exits non-zero, as does a run without CUDA or outside the
@@ -2215,6 +2230,150 @@ def lm_kda(dev, card: str) -> dict:
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": None,
             # The second call's kda_decode rows: launched by its replays.
+            "replayed_launches": replayed, "replayed_ms": kernel_us / 1e3,
+            "launch_floor_ms": None, "parent_ms": None, "host_gaps_in": unheld}
+
+
+def _sdpa_decode_ms(q, k, v, want, mask, unheld: list, pos: int):
+    """PyTorch's one call for the same decode attention,
+    ``F.scaled_dot_product_attention`` with ``enable_gqa`` and the slots'
+    bool mask, under each backend that takes it: (the fastest time within
+    the values' rounding of ``want`` or None, a note of each backend's
+    time, refusal or miss)."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    b, kv, g, hd = q.shape
+    query = q.reshape(b, kv * g, 1, hd)
+    mask = mask[None, None, None, :]
+
+    def call():
+        return F.scaled_dot_product_attention(query, k, v, attn_mask=mask, enable_gqa=True)
+
+    best, notes = None, []
+    for backend in (SDPBackend.EFFICIENT_ATTENTION, SDPBackend.CUDNN_ATTENTION,
+                    SDPBackend.FLASH_ATTENTION, SDPBackend.MATH):
+        name = backend.name.lower()
+        try:
+            with sdpa_kernel([backend]):
+                got = call().reshape(b, kv, g, hd)
+                torch.cuda.synchronize()
+                ms, held = time_ms(call, inner=20)
+        except RuntimeError as exc:
+            notes.append(f"{name} refused ({str(exc).splitlines()[0][:60]})")
+            continue
+        if not held:
+            unheld.append(f"library {name} at {pos}")
+        e = float((got.float() - want.float()).abs().max())
+        if not torch.allclose(got.float(), want.float(), rtol=1.6e-2, atol=1e-2):
+            notes.append(f"{name} {ms:.5f} ms but off by {e:.3g}")
+            continue
+        notes.append(f"{name} {ms:.5f} ms (max abs err {e:.3g})")
+        best = ms if best is None else min(best, ms)
+    return best, "; ".join(notes)
+
+
+def lm_gqa(dev, card: str) -> dict:
+    """[lm gqa] The decode step's GQA attention kernel at h2o-danube-1.8b's
+    shape, then h2o-danube-1.8b through ``generate`` on the card (see the
+    module docstring, phase 9).  Returns the kernel's row of the
+    ``kernels`` line."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import generate
+    from repro_torch.configs import get_config
+    from repro_torch.core.prng import prng_key
+    from repro_torch.kernels import gqa_decode
+    from repro_torch.launch.specs import model_decls
+    from repro_torch.models.base import init_params
+    from repro_torch.train import decode_graph
+
+    cuda, plain = gqa_decode.gqa_decode_cuda, gqa_decode.gqa_decode_plain
+    b, kv, g, s, hd, window = 256, 8, 4, 256, 80, 4096
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    q, k, v = (torch.randn(shape, device=dev, generator=gen).to(torch.bfloat16)
+               for shape in ((b, kv, g, hd), (b, kv, s, hd), (b, kv, s, hd)))
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    fp32_per_s = sms * max_sm_clock_mhz() * 1e6 * FP32_FLOPS_PER_CLOCK_PER_SM
+    times, err, unheld = [], 0.0, []
+    for pos in (15, 127, 255):
+        got, want = cuda(q, k, v, pos, window), plain(q, k, v, pos, window)
+        torch.cuda.synchronize()
+        e = float((got.float() - want.float()).abs().max())
+        check(torch.allclose(got.float(), want.float(), rtol=1.6e-2, atol=1e-2),
+              f"[lm gqa] gqa_decode_cuda differs from gqa_decode_plain at position {pos}: "
+              f"max abs err {e:.3g}")
+        err = max(err, e)
+        ms, held = time_ms(lambda: cuda(q, k, v, pos, window), inner=20)
+        plain_ms, plain_held = time_ms(lambda: plain(q, k, v, pos, window), inner=5,
+                                       repeats=5, warmup=1)
+        unheld += [f"{n} at {pos}" for n, ok in (("ms", held), ("plain_ms", plain_held)) if not ok]
+        library_ms, library = _sdpa_decode_ms(q, k, v, want, gqa_decode.visible(
+            pos, torch.arange(s, device=dev), s, window), unheld, pos)
+        # The visible slots' K and V read once; q read and the output written.
+        n = pos + 1
+        nbytes = 2 * b * kv * (2 * n * hd + 2 * g * hd)
+        flops = 4 * b * kv * g * n * hd
+        bound_ms, bound_by = bound(nbytes, flops, fp32_per_s)
+        times.append({"pos": pos, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                      "library": library, "bound_ms": bound_ms, "bound_by": bound_by,
+                      "max_abs_err": e})
+        print(f"[lm gqa] gqa_decode_cuda == gqa_decode_plain at {b} x {kv} kv x {g} x {s} slots "
+              f"x {hd} bf16, position {pos} (max abs err {e:.3g}; rtol 1.6e-2, atol 1e-2); "
+              f"kernel {ms:.5f} ms, plain {plain_ms:.5f} ms, library {library} "
+              f"(F.scaled_dot_product_attention, enable_gqa, the bool mask made beforehand), "
+              f"bound {bound_ms:.4g} ms ({bound_by}: {nbytes:,} B, {flops:,} FLOPs), "
+              f"{100 * bound_ms / ms:.1f}% of the bound | {card}")
+    del q, k, v, got, want
+
+    # The main path: generate at the published widths, as the benchmark's cell.
+    cfg = get_config("h2o-danube-1.8b")
+    decode_graph.drop()
+    torch.cuda.empty_cache()
+    model = init_params(model_decls(cfg, fan_in=True), prng_key(SEED, dev))
+    plen, new = 4, 4
+    prompts = torch.from_numpy(np.random.default_rng(SEED + 44).integers(
+        0, cfg.vocab_size, (b, plen)).astype(np.int32)).to(dev)
+    cuda.launches = 0
+    first = generate(cfg, model, prompts, new, max_seq=s)
+    torch.cuda.synchronize()
+    launches = cuda.launches
+    check(launches == 2 * cfg.n_layers,
+          f"[lm gqa] the first generate launched gqa_decode {launches} times through its "
+          f"wrapper, not {2 * cfg.n_layers} (the capture's eager step and the capture)")
+    replays = decode_graph.COUNTS["replays"]
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        second = generate(cfg, model, prompts, new, max_seq=s)
+        torch.cuda.synchronize()
+    steps = decode_graph.COUNTS["replays"] - replays
+    rows = [e for e in device_rows(prof.key_averages()) if "gqa_decode" in e.key]
+    replayed = sum(e.count for e in rows)
+    check(torch.equal(first, second), "[lm gqa] generate: a second call gave other tokens")
+    check(cuda.launches == launches and steps == plen + new
+          and replayed == steps * cfg.n_layers,
+          f"[lm gqa] the second generate: {cuda.launches - launches} wrapper launches, "
+          f"{steps} replays, {replayed} gqa_decode device rows (want 0, {plen + new}, "
+          f"{(plen + new) * cfg.n_layers})")
+    kernel_us = sum(self_dev_us(e) for e in rows) / max(replayed, 1)
+    print(f"[lm gqa] {cfg.name} generate at {b} x ({plen} + {new}), max_seq {s}: {launches} "
+          f"gqa_decode launches through the wrapper in the first call ({cfg.n_layers} layers: "
+          f"the capture's eager step and the capture); the second call the same tokens, "
+          f"{steps} replays, {replayed} gqa_decode device rows ({kernel_us / 1e3:.4f} ms "
+          f"each, positions 0-{plen + new - 1}) | {card}")
+    decode_graph.drop()
+    del model, first, second
+    torch.cuda.empty_cache()
+    last = times[-1]
+    return {"name": "gqa_decode", "route": "cuda",
+            "source": "src/repro_torch/csrc/gqa_decode.cu", "replaces": None, "pool": None,
+            "launches": launches, "max_abs_err": err, "ms": last["ms"],
+            "plain_ms": last["plain_ms"], "bound_ms": last["bound_ms"],
+            "bound_by": last["bound_by"], "by_position": times,
+            "library_ms": last["library_ms"],
+            # The second call's gqa_decode rows: launched by its replays.
             "replayed_launches": replayed, "replayed_ms": kernel_us / 1e3,
             "launch_floor_ms": None, "parent_ms": None, "host_gaps_in": unheld}
 
@@ -4339,6 +4498,18 @@ def main() -> int:
           f"the Kimi Linear path launched a TM kernel, or drew nothing on the card: "
           f"{kda_launches}")
     phase_s["8 lm kda"] = time.perf_counter() - t_phase
+
+    # --- 9. the decode step's GQA attention kernel, and danube on the card ----
+    t_phase = time.perf_counter()
+    registry.reset_launches()
+    gqa_row = lm_gqa(dev, card)
+    gqa_launches = registry.launch_counts()
+    print(f"[engine] launches during the [lm gqa] phase: {gqa_launches}")
+    check(not any(v for k, v in gqa_launches.items() if k != "threefry")
+          and gqa_launches["threefry"] > 0,
+          f"the danube decode path launched a TM kernel, or drew nothing on the card: "
+          f"{gqa_launches}")
+    phase_s["9 lm gqa"] = time.perf_counter() - t_phase
     print(f"[env] phase seconds: {', '.join(f'{k} {v:.2f}' for k, v in phase_s.items())}")
     print(f"[env] {card} | build {build_s:.2f} s")
 
@@ -4348,10 +4519,11 @@ def main() -> int:
     threefry_row["lm_launches"] = {"lm": lm_launches["threefry"],
                                    "lm train": train_launches["threefry"],
                                    "lm mesh": mesh_lm_launches["threefry"],
-                                   "lm kda": kda_launches["threefry"]}
+                                   "lm kda": kda_launches["threefry"],
+                                   "lm gqa": gqa_launches["threefry"]}
     threefry_row["launch_floor_ms"] = floor_ms
-    kda_row["launch_floor_ms"] = floor_ms
-    rows += [threefry_row, kda_row]
+    kda_row["launch_floor_ms"] = gqa_row["launch_floor_ms"] = floor_ms
+    rows += [threefry_row, kda_row, gqa_row]
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

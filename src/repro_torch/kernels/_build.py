@@ -39,7 +39,8 @@ CSRC = _PKG / "csrc"
 BUILD = _PKG / "build"
 
 #: The kernel sources, by library name.
-SOURCES = ("ingress_pack", "fused_infer", "clause_eval", "class_sum", "threefry", "kda_decode")
+SOURCES = ("ingress_pack", "fused_infer", "clause_eval", "class_sum", "threefry", "kda_decode",
+           "gqa_decode")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

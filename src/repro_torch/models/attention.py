@@ -40,6 +40,7 @@ from repro_torch.distributed.collectives import (
     reduce_from_model,
     row_parallel,
 )
+from repro_torch.kernels import gqa_decode
 from repro_torch.models.base import ParamDecl
 from repro_torch.models.layers import mrope, rope, wide
 from repro_torch.sharding.blocks import ModelBlocks, ModelGroup, model_group, whole_group
@@ -319,6 +320,16 @@ def _rope_decode(q, k, pos, cfg: ModelConfig, positions_3d):
     return rope(q, posb, cfg.rope_theta), rope(k, posb, cfg.rope_theta)
 
 
+def _slot_biases(cache: ModelBlocks, held, pos, s_cache: int, window: Optional[int]
+                 ) -> List[torch.Tensor]:
+    """The additive bias [1, S_i] of each held block's slots at ``pos``
+    (:func:`repro_torch.kernels.gqa_decode.visible`)."""
+    return [_bias(gqa_decode.visible(pos, torch.arange(first, first + cache.blocks[i].shape[2],
+                                                       device=cache.blocks[i].device),
+                                     s_cache, window))[None, :]
+            for i, first in held]
+
+
 def decode_attention(
     p,
     x: torch.Tensor,                     # [B, 1, D] current token activations
@@ -337,13 +348,17 @@ def decode_attention(
     ones).  Masking rebuilds each slot's absolute position from the write
     position, so both layouts share one code path.  A cache held in blocks
     along ``model`` (:class:`ModelBlocks`) is attended split; a whole cache
-    is its one block.
+    is its one block.  A cache on the card goes through the kernel of
+    :mod:`repro_torch.kernels.gqa_decode`, which reads only the visible
+    slots (a whole cache in one launch, blocks through
+    ``gqa_decode_split_cuda``) and raises on a dtype or head it does not
+    take; a cache on the host through :func:`_split_softmax`.
 
     ``pos`` as a 0-d int64 tensor (a whole cache, no M-RoPE) is never read
     back to the host, so the step can be captured in a CUDA graph and
     replayed at any position: the slot is written by ``index_copy_`` and
     each slot's absolute position is ``pos - (pos - slot) mod S_cache``,
-    the same integers as from an int, in as many operations."""
+    for an int as for a tensor."""
     b, h, kv, hd = x.shape[0], cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     ck, cv = (c if isinstance(c, ModelBlocks) else ModelBlocks([c]) for c in (cache_k, cache_v))
     group = _heads_group(p, cfg)
@@ -363,22 +378,18 @@ def decode_attention(
         for i, at in writers:
             for c, new in ((ck.blocks[i], k), (cv.blocks[i], v)):
                 c[:, :, at] = new[:, 0].to(device=c.device, dtype=c.dtype)
-    held, biases = _holders(ck), []
-    for i, first in held:
-        slots = torch.arange(first, first + n, device=ck.blocks[i].device)
-        if isinstance(pos, torch.Tensor):
-            abs_pos = pos - (pos - slots) % s_cache
-        else:
-            # Absolute position of each ring slot given the current write pos.
-            base = pos - slot                          # start of current wrap
-            abs_pos = torch.where(slots <= slot, base + slots, base - s_cache + slots)
-        ok = (abs_pos >= 0) & (abs_pos <= pos)
-        if window is not None:
-            ok &= pos - abs_pos < window
-        biases.append(_bias(ok)[None, :])
     qg = q.transpose(1, 2).reshape(b, kv, h // kv, 1, hd)
-    out = _split_softmax(qg, [ck.blocks[i] for i, _ in held], [cv.blocks[i] for i, _ in held],
-                         biases)
+    held = _holders(ck)
+    ks, vs = [ck.blocks[i] for i, _ in held], [cv.blocks[i] for i, _ in held]
+    if not gqa_decode.on_card(ks[0]):
+        out = _split_softmax(qg, ks, vs, _slot_biases(ck, held, pos, s_cache, window))
+    elif len(held) == 1:
+        out = gqa_decode.gqa_decode_cuda(qg[:, :, :, 0].to(ks[0].device), ks[0], vs[0], pos,
+                                         window).to(qg.device)
+    else:
+        out = gqa_decode.gqa_decode_split_cuda(qg[:, :, :, 0], ks, vs,
+                                               [first for _, first in held], s_cache, pos,
+                                               window)
     out = out.reshape(b, h, 1, hd).transpose(1, 2).reshape(b, 1, h * hd)
     return _out_proj(group, out), cache_k, cache_v
 

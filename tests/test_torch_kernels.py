@@ -23,7 +23,7 @@ from repro.kernels import ref
 from repro_torch.convert import words_from_uint32, words_to_uint32
 from repro_torch.core.patches import PatchSpec
 from repro_torch.kernels import (
-    _build, class_sum, clause_eval, fused_infer, ingress, ops, registry,
+    _build, class_sum, clause_eval, fused_infer, gqa_decode, ingress, kda, ops, registry,
 )
 from repro_torch.kernels.class_sum import class_sum_cuda
 from repro_torch.kernels.clause_eval import clause_eval_cuda, clause_eval_sparse_cuda
@@ -616,6 +616,9 @@ class _FakeLib:
     (clause_eval, ("clause_eval",), "clause_eval"),
     (clause_eval, ("clause_eval_sparse",), "clause_eval"),
     (class_sum, (), "class_sum"),
+    (kda, (), "kda_decode"),
+    (gqa_decode, (), "gqa_decode"),
+    (gqa_decode, ("gqa_decode_scratch",), "gqa_decode"),
 ])
 def test_libraries_from_swaps_the_wrappers_entry_points(monkeypatch, tmp_path, module,
                                                         args, library):
